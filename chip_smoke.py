@@ -5,21 +5,30 @@
 
 Phases, each of which must pass (any failure exits non-zero):
 
-1. Build every kernel from ``csrc/`` and hold each wrapper against its plain
-   PyTorch version on the card: flash attention over the kernel test shapes
-   x {float32, bfloat16} (tolerance 2e-4 / 2e-2, plus a per-row relative L2
-   limit) and at qwen2.5-3b's serving prefill geometry, where two planted
-   faults must be rejected.  Times the kernel, the plain version and one
-   PyTorch library call at that geometry for the ``kernels`` line.
-2. Model checks: the smoke config on the card against the same weights on
-   the CPU (prefill and decode logits), then the full-width qwen2.5-3b
-   ``forward`` with the flash kernel, block by block no further from an
-   f32-compute forward than the chunked reference is (the same two planted
-   faults must fail this check too); then a breakdown of the
-   serving decode step (host time, device kernel time, bound).
-3. Serve: ``repro_torch.launch.serve`` at full qwen2.5-3b width behind
-   ``Session``/``ModelServer``.  Launch counts are set to 0 just before and
-   read just after; every kernel of the path must have launched.
+1. Build every kernel from ``csrc/`` (one ``nvcc`` per source, all started
+   together) and hold each wrapper against its plain PyTorch version on the
+   card:
+   * flash attention over the kernel test shapes x {float32, bfloat16}
+     (tolerance 2e-4 / 2e-2, plus a per-row relative L2 limit) and at
+     qwen2.5-3b's serving prefill geometry, where two planted faults must be
+     rejected;
+   * the SSD scan over the kernel test shapes x {float32, bfloat16}
+     (tolerance 5e-4 / 3e-2 on y and the final state, plus a per-step
+     relative L2 limit on y) and at mamba2-130m's serving prefill geometry
+     with head-broadcast B and C, where three planted faults must be
+     rejected.
+   Times each kernel, its plain version and, where one exists, one PyTorch
+   library call at the serving geometry for the ``kernels`` line.
+2. Model checks, for qwen2.5-3b and then mamba2-130m: the smoke config on
+   the card against the same weights on the CPU (prefill and decode
+   logits); the full-width bf16 model through the kernel, block by block no
+   further from an f32-compute run than the reference path is (the planted
+   faults must fail this check too); then a breakdown of the serving decode
+   step (host time, device kernel time, bound).
+3. Serve: ``repro_torch.launch.serve`` at full qwen2.5-3b width, then at
+   full mamba2-130m width, behind ``Session``/``ModelServer``.  Launch
+   counts are set to 0 just before each serve and read just after; every
+   kernel of the path must have launched, and no other.
 
 The last lines are the ``kernels`` JSON object, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.  Needs the repository's
@@ -32,6 +41,7 @@ import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import torch
@@ -68,6 +78,27 @@ FORWARD_NOISE = 1.25
 FAULTS = ("non-causal", "last kv tile skipped")
 SERVE_ARGS = ["--arch", "qwen2.5-3b", "--batch", "4", "--prompt-len", "1024",
               "--gen", "32", "--requests", "8", "--device", "cuda"]
+
+# (B, S, H, P, N, chunk): the SSD kernel test shapes of the JAX package
+SSD_SHAPES = [
+    (1, 64, 2, 16, 8, 16),
+    (2, 100, 3, 32, 16, 32),
+    (1, 256, 1, 64, 128, 128),
+    (1, 33, 2, 16, 16, 64),
+    (2, 128, 4, 64, 16, 32),
+]
+# SSD kernel against the sequential recurrence: elementwise on y and on the
+# final state (the JAX sweep's tolerances), and for every time step the
+# relative L2 error of y over (B, H, P), so that a fault confined to a few
+# steps (a chunk boundary, the first steps) cannot hide under the first limit
+SSD_TOL = {"float32": 5e-4, "bfloat16": 3e-2}
+SSD_STEP_REL_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
+SSD_CHUNK = 128  # mamba2-130m's chunk: the model check's block of tokens
+# Planted faults the SSD checks must reject (each built from wrapper calls)
+SSD_FAULTS = ("state not carried across chunks", "initial state ignored",
+              "final state dropped")
+MAMBA_SERVE_ARGS = ["--arch", "mamba2-130m", "--batch", "4", "--prompt-len", "1024",
+                    "--gen", "32", "--requests", "8", "--device", "cuda"]
 
 
 def fail(msg: str) -> None:
@@ -129,17 +160,34 @@ def plant_fault(flash, fault: str, q_axis: int):
     return faulty
 
 
-def phase_kernels(gen) -> dict:
+def build_kernels() -> None:
+    """Build every kernel library, one ``nvcc`` per source, all at once."""
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
+
+    def timed_build(mod):
+        t0 = time.perf_counter()
+        return mod.build(), time.perf_counter() - t0
+
+    mods = {"flash_attention": fa_kernel, "ssd_scan": ssd_kernel}
+    with ThreadPoolExecutor(len(mods)) as pool:
+        futures = {name: pool.submit(timed_build, mod) for name, mod in mods.items()}
+    for name, mod in mods.items():
+        lib, secs = futures[name].result()  # a failed build raises here
+        print(f"[build] {lib.name} in {secs:.1f}s")
+        for line in mod.build_log.splitlines():
+            if "Used" in line or "spill" in line:
+                print(f"[ptxas] {name}: {line.strip()}")
+
+
+def phase_kernels(gen) -> list[dict]:
+    build_kernels()
+    return [check_flash(gen), check_ssd(gen)]
+
+
+def check_flash(gen) -> dict:
     from repro_torch.kernels.flash_attention.ops import flash_attention_gqa
     from repro_torch.kernels.flash_attention.ref import attention_ref
-
-    t0 = time.perf_counter()
-    lib = fa_kernel.build()
-    print(f"[build] {lib.name} in {time.perf_counter() - t0:.1f}s")
-    for line in fa_kernel.build_log.splitlines():
-        if "Used" in line or "spill" in line:
-            print(f"[ptxas] {line.strip()}")
 
     def randn(*shape, dtype):
         return torch.randn(shape, generator=gen, device="cuda").to(dtype)
@@ -221,15 +269,153 @@ def phase_kernels(gen) -> dict:
     }
 
 
-def phase_model() -> dict:
-    from repro_torch.configs import get_config, get_smoke_config
-    from repro_torch.kernels.flash_attention import ops as fa_ops
-    from repro_torch.models import attention
-    from repro_torch.models import transformer as tx
+def ssd_plain(x, a, b, c, s0):
+    """The plain version on the wrapper's (B, S, H, ...) layout: the
+    sequential recurrence of ``ref.ssd_scan_ref`` over (B*H, S, ...)."""
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
 
-    real_flash = attention._flash
-    # smoke config, f32: the card (flash prefill) against the CPU reference
-    cfg = get_smoke_config("qwen2.5-3b")
+    B, S, H, P = x.shape
+    flat = lambda t: t.transpose(1, 2).reshape(B * H, S, *t.shape[3:])  # noqa: E731
+    y, sf = ssd_scan_ref(flat(x), flat(a), flat(b), flat(c), s0.reshape(B * H, P, -1))
+    return y.reshape(B, H, S, P).transpose(1, 2), sf.reshape(s0.shape)
+
+
+def plant_ssd_fault(scan, fault: str):
+    """``scan`` (the ``ssd_scan`` signature) with a fault planted, built from
+    calls of ``scan`` itself: each chunk scanned alone from the initial
+    state, zeros in place of the initial state, or zeros returned as the
+    final state."""
+
+    def faulty(x, a, b, c, initial_state=None, *, chunk=128):
+        if fault == "initial state ignored":
+            return scan(x, a, b, c, chunk=chunk)
+        y, state = scan(x, a, b, c, initial_state, chunk=chunk)
+        if fault == "final state dropped":
+            return y, torch.zeros_like(state)
+        S = x.shape[1]
+        Q = min(chunk, max(8, 1 << (S - 1).bit_length()))
+        ys = []
+        for t in range(0, S, Q):
+            part = lambda v: v[:, t:t + Q]  # noqa: E731
+            yk, state = scan(part(x), part(a), part(b), part(c), initial_state, chunk=chunk)
+            ys.append(yk)
+        return torch.cat(ys, dim=1), state
+
+    return faulty
+
+
+def compare_ssd(y, state, y_ref, s_ref, dname: str) -> tuple[float, float, bool, bool]:
+    """Max abs error over y and the final state, the worst per-step relative
+    L2 error of y (B, S, H, P), and whether each is within its limit."""
+    tol = SSD_TOL[dname]
+    dy = y.float() - y_ref.float()
+    ds = state.float() - s_ref.float()
+    err = max(dy.abs().max().item(), ds.abs().max().item())
+    within = bool((dy.abs() <= tol + tol * y_ref.float().abs()).all()
+                  and (ds.abs() <= tol + tol * s_ref.float().abs()).all())
+    steps = lambda t: t.float().transpose(0, 1).reshape(t.shape[1], -1)  # noqa: E731
+    step_rel = (steps(dy).norm(dim=1) / steps(y_ref).norm(dim=1).clamp_min(1e-30)).max().item()
+    return err, step_rel, within, step_rel <= SSD_STEP_REL_TOL[dname]
+
+
+def check_ssd(gen) -> dict:
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan
+
+    def inputs(B, S, H, P, N, dtype, shared_bc=False):
+        """Scaled as the JAX sweep scales them; with ``shared_bc`` B and C
+        are one group broadcast over heads, as the model passes them."""
+        randn = lambda *s: torch.randn(s, generator=gen, device="cuda")  # noqa: E731
+        x = (randn(B, S, H, P) * 0.5).to(dtype)
+        a = (-randn(B, S, H).abs() * 0.3).to(dtype)
+        if shared_bc:
+            b = (randn(B, S, 1, N) * 0.5).to(dtype).expand(B, S, H, N)
+            c = (randn(B, S, 1, N) * 0.5).to(dtype).expand(B, S, H, N)
+        else:
+            b = (randn(B, S, H, N) * 0.5).to(dtype)
+            c = (randn(B, S, H, N) * 0.5).to(dtype)
+        s0 = randn(B, H, P, N) * 0.2
+        return x, a, b, c, s0
+
+    def report(label, dname, res):
+        err, step_rel, *_ = res
+        print(f"[ssd] {label} {dname} max_abs_err {err:.3e} (tol {SSD_TOL[dname]}) "
+              f"step rel_l2 {step_rel:.3e} (tol {SSD_STEP_REL_TOL[dname]})")
+
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[-1]
+        for shape in SSD_SHAPES:
+            B, S, H, P, N, chunk = shape
+            x, a, b, c, s0 = inputs(B, S, H, P, N, dtype)
+            y, sf = ssd_scan(x, a, b, c, s0, chunk=chunk)
+            torch.cuda.synchronize()
+            y_ref, s_ref = ssd_plain(x, a, b, c, s0)
+            if y.shape != y_ref.shape or y.dtype != dtype or sf.dtype != torch.float32:
+                fail(f"ssd {shape} {dname}: {y.shape}/{y.dtype}/{sf.dtype}")
+            res = compare_ssd(y, sf, y_ref, s_ref, dname)
+            report(shape, dname, res)
+            if not all(res[2:]):
+                fail(f"ssd {shape} {dname}: kernel disagrees with the plain version")
+
+    # mamba2-130m serving prefill: batch 4 of 1024 steps, 24 heads, B and C
+    # head-broadcast views (head stride 0), as apply_mamba passes them
+    B, S, H, P, N = 4, 1024, 24, 64, 128
+    dtype = torch.bfloat16
+    x, a, b, c, s0 = inputs(B, S, H, P, N, dtype, shared_bc=True)
+    assert b.stride(2) == 0 and c.stride(2) == 0
+    y, sf = ssd_scan(x, a, b, c, s0, chunk=SSD_CHUNK)
+    torch.cuda.synchronize()
+    y_ref, s_ref = ssd_plain(x, a, b, c, s0)
+    torch.cuda.synchronize()
+    res = compare_ssd(y, sf, y_ref, s_ref, "bfloat16")
+    err = res[0]
+    report(f"prefill (B={B}, S={S}, H={H}, P={P}, N={N}, chunk {SSD_CHUNK}, shared B/C)",
+           "bfloat16", res)
+    if not all(res[2:]):
+        fail("ssd prefill geometry: kernel disagrees with the plain version")
+    for fault in SSD_FAULTS:
+        bad_y, bad_s = plant_ssd_fault(ssd_scan, fault)(x, a, b, c, s0, chunk=SSD_CHUNK)
+        b_err, b_step, b_within, b_step_ok = compare_ssd(bad_y, bad_s, y_ref, s_ref, "bfloat16")
+        verdict = lambda ok: "passed" if ok else "rejected"  # noqa: E731
+        print(f"[ssd] planted fault '{fault}': max_abs_err {b_err:.3e} ({verdict(b_within)}) "
+              f"step rel_l2 {b_step:.3e} ({verdict(b_step_ok)})")
+        if b_within and b_step_ok:
+            fail(f"the kernel check does not see the planted fault '{fault}'")
+
+    ms = time_ms(lambda: ssd_scan(x, a, b, c, s0, chunk=SSD_CHUNK))
+    plain_ms = time_ms(lambda: ssd_plain(x, a, b, c, s0), iters=3, warmup=1)
+    Q, n_chunks = SSD_CHUNK, S // SSD_CHUNK
+    # per chunk: C B^T, its product with X, C S^T and the state update
+    flops = (2 * Q * Q * N + 2 * Q * Q * P + 2 * Q * N * P + 2 * P * Q * N) * n_chunks * B * H
+    el = x.element_size()
+    # x and y, a (f32), B and C once per batch row (head stride 0), s0 and
+    # the final state (f32)
+    nbytes = 2 * B * S * H * P * el + B * S * H * 4 + 2 * B * S * N * el + 2 * B * H * P * N * 4
+    t_ops = flops / PEAK_FLOPS["bfloat16"] * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    print(f"[ssd] prefill: kernel {ms:.4f} ms | plain {plain_ms:.4f} ms | library none"
+          f" | bound {max(t_ops, t_bytes):.4f} ms ({flops:.4e} FLOP, {nbytes} B)")
+    return {
+        "name": "ssd_scan",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
+        "replaces": "src/repro/kernels/ssd_scan/kernel.py:96",
+        "launches": 0,
+        "max_abs_err": err,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": max(t_ops, t_bytes),
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "library_ms": None,
+    }
+
+
+def smoke_check(tx, arch: str) -> None:
+    """The smoke config in f32: the card (kernels) against the CPU reference,
+    prefill and 4 decode steps, logits within 1e-3."""
+    from repro_torch.configs import get_smoke_config
+
+    cfg = get_smoke_config(arch)
+    pcfg = cfg.replace(attention_impl="pallas")
     params_cpu = tx.init_params(cfg, torch.Generator().manual_seed(0))
     params_gpu = _to(params_cpu, "cuda")
     toks = torch.randint(0, cfg.vocab_size, (2, 40), generator=torch.Generator().manual_seed(1))
@@ -237,19 +423,39 @@ def phase_model() -> dict:
     with torch.inference_mode():
         caches = {d: tx.init_cache(cfg, 2, 48, device=d) for d in ("cpu", "cuda")}
         lc, caches["cpu"] = tx.prefill(cfg, params_cpu, toks, caches["cpu"])
-        lg, caches["cuda"] = tx.prefill(cfg.replace(attention_impl="pallas"), params_gpu,
-                                        toks.cuda(), caches["cuda"])
+        lg, caches["cuda"] = tx.prefill(pcfg, params_gpu, toks.cuda(), caches["cuda"])
         for i in range(4):
             worst = max(worst, (lg.cpu() - lc).abs().max().item())
             tok = lc[:, -1:].argmax(-1)
             pos = torch.full((2, 1), 40 + i, dtype=torch.int64)
             lc, caches["cpu"] = tx.decode_step(cfg, params_cpu, caches["cpu"], tok, pos)
-            lg, caches["cuda"] = tx.decode_step(cfg, params_gpu, caches["cuda"], tok.cuda(),
+            lg, caches["cuda"] = tx.decode_step(pcfg, params_gpu, caches["cuda"], tok.cuda(),
                                                 pos.cuda())
         worst = max(worst, (lg.cpu() - lc).abs().max().item())
-    print(f"[model] smoke f32 prefill+decode logits, card vs CPU: max_abs_err {worst:.3e} (tol 1e-3)")
+    print(f"[model] {arch} smoke f32 prefill+decode logits, card vs CPU: max_abs_err "
+          f"{worst:.3e} (tol 1e-3)")
     if not worst <= 1e-3:
-        fail("smoke model on the card disagrees with the CPU")
+        fail(f"{arch} smoke model on the card disagrees with the CPU")
+
+
+def rel(a, b) -> float:
+    return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+
+def block_rel(a, b, block: int) -> torch.Tensor:
+    """Relative L2 error over each block of ``block`` tokens of (B, S, d)."""
+    blocks = lambda t: t.float().unflatten(1, (-1, block)).transpose(0, 1).flatten(1)  # noqa: E731
+    return (blocks(a) - blocks(b)).norm(dim=1) / blocks(b).norm(dim=1)
+
+
+def phase_model() -> dict:
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.models import attention
+    from repro_torch.models import transformer as tx
+
+    real_flash = attention._flash
+    smoke_check(tx, "qwen2.5-3b")
 
     # full width, bf16 compute: flash forward against the chunked reference
     cfg = get_config("qwen2.5-3b")
@@ -277,19 +483,11 @@ def phase_model() -> dict:
             finally:
                 attention._flash = real_flash
 
-    def rel(a, b):
-        return ((a.float() - b.float()).norm() / b.float().norm()).item()
-
-    def block_rel(a, b):
-        """Relative L2 error over each block of KV_TILE tokens of (B, S, d)."""
-        blocks = lambda t: t.float().unflatten(1, (-1, KV_TILE)).transpose(0, 1).flatten(1)  # noqa: E731
-        return (blocks(a) - blocks(b)).norm(dim=1) / blocks(b).norm(dim=1)
-
     # Through 36 random-weight layers the bf16 rounding noise itself is a
     # few 1e-2 of relative L2, so the flash path is held to the reference
     # path's own distance from the f32 forward, block by block
-    noise = block_rel(ref, exact)
-    ratio = (block_rel(out, exact) / noise).max().item()
+    noise = block_rel(ref, exact, KV_TILE)
+    ratio = (block_rel(out, exact, KV_TILE) / noise).max().item()
     err = (out.float() - ref.float()).abs().max().item()
     print(f"[model] full-width forward (B=1, S=1024), bf16: flash vs reference max_abs_err "
           f"{err:.3e} rel_l2 {rel(out, ref):.3e} | against the f32-compute forward: reference "
@@ -299,7 +497,7 @@ def phase_model() -> dict:
     if out.shape != (1, 1024, cfg.d_model) or not bool(torch.isfinite(out).all()):
         fail("full-width forward: wrong shape or non-finite values")
     for fault, bad in planted.items():
-        b_ratio = (block_rel(bad, exact) / noise).max().item()
+        b_ratio = (block_rel(bad, exact, KV_TILE) / noise).max().item()
         print(f"[model] planted fault '{fault}': rel_l2 vs f32 forward {rel(bad, exact):.3e}, "
               f"worst block ratio {b_ratio:.3f} -> {'PASSED' if b_ratio <= FORWARD_NOISE else 'rejected'}")
         if b_ratio <= FORWARD_NOISE:
@@ -313,6 +511,103 @@ def phase_model() -> dict:
     return decode
 
 
+def phase_model_mamba() -> dict:
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.models import ssm
+    from repro_torch.models import transformer as tx
+
+    real_scan = ssm.ssd_scan
+    smoke_check(tx, "mamba2-130m")
+
+    # full width, bf16 compute: the kernel's prefill against ssd_chunked
+    cfg = get_config("mamba2-130m")
+    params = tx.init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    n_params = sum(t.numel() for t in _leaves(params))
+    print(f"[model] mamba2-130m full width: {n_params:,} params ({n_params * 4 / 1e9:.2f} GB f32)")
+    S, steps = 1024, 4
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (1, S), device="cuda", generator=gen)
+    fed = torch.randint(0, cfg.vocab_size, (1, steps), device="cuda", generator=gen)
+
+    def run(c):
+        """Hidden states (1, S, d) of the prefill and the logits (1, steps, V)
+        of the decode steps after it, all runs fed the same tokens."""
+        cache = tx.init_cache(c, 1, S + steps, device="cuda")
+        hidden, cache, _ = tx.forward(c, params, toks, cache=cache, ctx=tx.RunCtx(prefill=True))
+        logits = []
+        for i in range(steps):
+            pos = torch.full((1, 1), S + i, dtype=torch.int64, device="cuda")
+            lg, cache = tx.decode_step(c, params, cache, fed[:, i:i + 1], pos)
+            logits.append(lg[:, -1])
+        return hidden, torch.stack(logits, dim=1)
+
+    pcfg = cfg.replace(attention_impl="pallas")
+    with torch.inference_mode():
+        ref = run(cfg.replace(attention_impl="reference"))
+        exact = run(cfg.replace(compute_dtype=torch.float32))
+        n0 = ssd_ops.launch_count
+        out = run(pcfg)
+        torch.cuda.synchronize()
+        n = ssd_ops.launch_count - n0
+        planted = {}
+        for fault in ("state not carried across chunks", "final state dropped"):
+            ssm.ssd_scan = plant_ssd_fault(real_scan, fault)
+            try:
+                planted[fault] = run(pcfg)
+            finally:
+                ssm.ssd_scan = real_scan
+
+    def step_rel(a, b):
+        """Relative L2 error of the logits of each decode step."""
+        return ((a.float() - b.float()).norm(dim=-1) / b.float().norm(dim=-1))[0]
+
+    # The kernel path is held to the reference path's own distance from the
+    # f32-compute run: over every block of one chunk (prefill hidden states)
+    # and at every decode step (logits)
+    fwd_noise = block_rel(ref[0], exact[0], SSD_CHUNK)
+    dec_noise = step_rel(ref[1], exact[1])
+
+    def ratios(run_out):
+        return ((block_rel(run_out[0], exact[0], SSD_CHUNK) / fwd_noise).max().item(),
+                (step_rel(run_out[1], exact[1]) / dec_noise).max().item())
+
+    fwd_ratio, dec_ratio = ratios(out)
+    print(f"[model] full-width prefill (B=1, S={S}) + {steps} decode steps, bf16: against the "
+          f"f32-compute run, reference rel_l2 {rel(ref[0], exact[0]):.3e} (blocks "
+          f"{fwd_noise.min().item():.3e}-{fwd_noise.max().item():.3e}, decode "
+          f"{dec_noise.min().item():.3e}-{dec_noise.max().item():.3e}), kernel rel_l2 "
+          f"{rel(out[0], exact[0]):.3e} | worst block ratio {fwd_ratio:.3f}, worst decode "
+          f"ratio {dec_ratio:.3f} (tol {FORWARD_NOISE}) | ssd_scan launches {n}")
+    if out[0].shape != (1, S, cfg.d_model) or out[1].shape != (1, steps, cfg.vocab_size):
+        fail("full-width mamba run: wrong shapes")
+    if not (bool(torch.isfinite(out[0]).all()) and bool(torch.isfinite(out[1]).all())):
+        fail("full-width mamba run: non-finite values")
+    checks = {"state not carried across chunks": "forward", "final state dropped": "decode"}
+    for fault, bad in planted.items():
+        b_fwd, b_dec = ratios(bad)
+        b_ratio = b_fwd if checks[fault] == "forward" else b_dec
+        print(f"[model] planted fault '{fault}': worst block ratio {b_fwd:.3f}, worst decode "
+              f"ratio {b_dec:.3f} -> {checks[fault]} check "
+              f"{'PASSED' if b_ratio <= FORWARD_NOISE else 'rejected'}")
+        if b_ratio <= FORWARD_NOISE:
+            fail(f"the {checks[fault]} check does not see the planted fault '{fault}'")
+    if n != cfg.num_layers or fwd_ratio > FORWARD_NOISE or dec_ratio > FORWARD_NOISE:
+        fail("full-width mamba run: kernel path disagrees with the reference")
+    del ref, exact, out, planted
+    decode = decode_breakdown(tx, cfg, params)
+    del params
+    torch.cuda.empty_cache()
+    return decode
+
+
+def _cache_step_bytes(cache) -> int:
+    """Bytes a decode step moves in the cache: every buffer read once, and an
+    SSM layer's conv tail and state written back whole."""
+    return sum(t.numel() * t.element_size() * (2 if name in ("conv", "state") else 1)
+               for group in cache.values() for name, t in group.items())
+
+
 def decode_breakdown(tx, cfg, params) -> dict:
     """Serving decode step at batch 4 after a 1024-token prefill, outside the
     server: host time per step, device kernel time per step from the
@@ -323,6 +618,7 @@ def decode_breakdown(tx, cfg, params) -> dict:
                          generator=torch.Generator(device="cuda").manual_seed(2))
     with torch.inference_mode():
         cache = tx.init_cache(cfg, B, PL + 2 * steps + 8, device="cuda")
+        cache_bytes = _cache_step_bytes(cache)
         logits, cache = tx.prefill(pcfg, params, toks, cache)
         tok = logits[:, -1:].argmax(-1)
         pos = [PL]
@@ -353,11 +649,12 @@ def decode_breakdown(tx, cfg, params) -> dict:
     dev_us = sum(e.self_device_time_total for e in kernels) / steps
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
     # bytes a step must move as the port runs it: every f32 matrix is read,
-    # cast to bf16 (written) and read again; f32 vectors read once
+    # cast to bf16 (written) and read again; f32 vectors read once; the cache
     n_mat = sum(t.numel() for t in _leaves(params) if t.dim() >= 2)
     n_vec = sum(t.numel() for t in _leaves(params) if t.dim() < 2)
-    step_bytes = n_mat * (4 + 2 + 2) + n_vec * 4
-    bf16_bytes = n_mat * 2 + n_vec * 4  # bf16 weights kept on the card, read once
+    step_bytes = n_mat * (4 + 2 + 2) + n_vec * 4 + cache_bytes
+    # bf16 weights kept on the card, read once
+    bf16_bytes = n_mat * 2 + n_vec * 4 + cache_bytes
     res = {
         "host_ms_per_step": host_ms,
         "device_ms_per_step": dev_us / 1e3 if dev_us else None,
@@ -368,7 +665,8 @@ def decode_breakdown(tx, cfg, params) -> dict:
     busy = f"{res['device_ms_per_step']:.3f} ms" if dev_us else "not measured"
     print(f"[decode] B={B} after S={PL}: {host_ms:.3f} ms/step on the host clock | device "
           f"kernels {busy}/step | bound as run {res['bound_ms_as_run']:.3f} ms "
-          f"({step_bytes / 1e9:.2f} GB), with bf16 weights {res['bound_ms_bf16_weights']:.3f} ms")
+          f"({step_bytes / 1e9:.2f} GB, of it cache {cache_bytes / 1e9:.3f} GB), with bf16 weights "
+          f"{res['bound_ms_bf16_weights']:.3f} ms")
     for name, ms in res["top_kernels"]:
         print(f"[decode]   {ms:.4f} ms/step  {name}")
     return res
@@ -388,29 +686,38 @@ def _to(tree, device):
     return tree.to(device)
 
 
-def phase_serve() -> dict:
+def phase_serve(argv: list[str], kernel: str) -> dict:
+    """Serve 8 requests of ``argv``'s arch; ``kernel`` must launch at least
+    once per layer and prefill, and no other kernel at all."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
     from repro_torch.launch.serve import parse_args, serve
 
-    args = parse_args(SERVE_ARGS)
+    counters = {"flash_attention": fa_ops, "ssd_scan": ssd_ops}
+    args = parse_args(argv)
     cfg = get_config(args.arch)
-    fa_ops.launch_count = 0  # counts of the main path only
+    for ops in counters.values():
+        ops.launch_count = 0  # counts of this path only
     res = serve(args)
-    launches = fa_ops.launch_count
+    launches = {name: ops.launch_count for name, ops in counters.items()}
     sstats = res["server"]
-    print(f"[serve] {res['requests']} requests, {sstats['batches']} batches, "
+    print(f"[serve] {args.arch}: {res['requests']} requests, {sstats['batches']} batches, "
           f"{res['prefills']} prefills | prefill {res['prefill_s']:.4f}s | "
           f"decode {res['decode_tok_s']:.2f} tok/s | latency p50 {sstats['latency_p50_ms']:.2f} ms "
-          f"p99 {sstats['latency_p99_ms']:.2f} ms | flash launches {launches}")
+          f"p99 {sstats['latency_p99_ms']:.2f} ms | launches {launches}")
     outs = res["outputs"]
     if len(outs) != 8:
         fail(f"served {len(outs)}/8 requests")
     for o in outs:
         if o.shape != (args.gen,) or o.min() < 0 or o.max() >= cfg.vocab_size:
             fail(f"bad generation {o}")
-    if launches < cfg.num_layers * res["prefills"] or launches == 0:
-        fail(f"flash kernel launched {launches} times for {res['prefills']} prefills")
+    n = launches[kernel]
+    if n < cfg.num_layers * res["prefills"] or n == 0:
+        fail(f"{kernel} kernel launched {n} times for {res['prefills']} prefills")
+    others = {k: v for k, v in launches.items() if k != kernel and v}
+    if others:
+        fail(f"{args.arch} serve launched kernels off its path: {others}")
     return {"launches": launches, **{k: res[k] for k in ("prefill_s", "decode_tok_s", "prefills")},
             "latency_p50_ms": sstats["latency_p50_ms"], "latency_p99_ms": sstats["latency_p99_ms"]}
 
@@ -430,16 +737,18 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(0)
-    fa = phase_kernels(gen)
+    fa, ssd = phase_kernels(gen)
     print(f"[phase 1] kernels ok ({time.perf_counter() - t0:.1f}s)")
-    decode = phase_model()
+    decode = {"qwen2.5-3b": phase_model(), "mamba2-130m": phase_model_mamba()}
     print(f"[phase 2] model ok ({time.perf_counter() - t0:.1f}s)")
-    served = phase_serve()
-    fa["launches"] = served["launches"]
+    served = {"qwen2.5-3b": phase_serve(SERVE_ARGS, "flash_attention"),
+              "mamba2-130m": phase_serve(MAMBA_SERVE_ARGS, "ssd_scan")}
+    fa["launches"] = served["qwen2.5-3b"]["launches"]["flash_attention"]
+    ssd["launches"] = served["mamba2-130m"]["launches"]["ssd_scan"]
     print(f"[phase 3] serve ok ({time.perf_counter() - t0:.1f}s)")
 
     gpu = gpu_name_and_limit()
-    result = {"kernels": [fa]}
+    result = {"kernels": [fa, ssd]}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(

@@ -3,11 +3,12 @@
 Each kernel mirrors the JAX package's layout (``repro/kernels/<name>/``):
 
 * ``csrc/`` -- the CUDA C++ source, built for ``sm_90a`` with ``nvcc`` at
-  first use (``kernel.py`` builds and binds it through ``ctypes``);
+  first use (``kernel.py`` builds it through ``_nvcc.py`` and binds it
+  through ``ctypes``);
 * ``ops.py`` -- the public wrapper with the JAX wrapper's contract: CPU
   tensors take the plain version, CUDA tensors launch the kernel or raise;
 * ``ref.py`` -- the plain PyTorch version of the JAX oracle.
 
-Ported so far: ``flash_attention``.  ``ssd_scan`` and ``fingerprint`` wait
-for later slices.
+Ported so far: flash_attention, ssd_scan.  ``fingerprint`` waits for a
+later slice.
 """

@@ -1,32 +1,24 @@
 """Build, bind and launch the Hopper flash-attention kernel.
 
 The kernel is CUDA C++ (``csrc/flash_attention.cu``) compiled for ``sm_90a``
-by ``nvcc`` into a shared library with a plain C interface at first use,
-then loaded with ``ctypes``.  The library lands in ``build/`` beside this
-file, named by a hash of the source and flags, so an edited source is
-rebuilt and a built one is reused.  A failed build raises: there is no
-fallback for CUDA tensors.
+by ``nvcc`` into a shared library with a plain C interface at first use
+(``kernels/_nvcc.py``), then loaded with ``ctypes``.  A failed build raises:
+there is no fallback for CUDA tensors.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 import threading
 from pathlib import Path
 
 import torch
 
+from repro_torch.kernels._nvcc import NVCC_FLAGS, compile_library  # noqa: F401
+
 _HERE = Path(__file__).resolve().parent
 SOURCE = _HERE / "csrc" / "flash_attention.cu"
 BUILD_DIR = _HERE / "build"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
 HEAD_DIMS = (16, 32, 64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -36,30 +28,11 @@ _lib: ctypes.CDLL | None = None
 build_log = ""
 
 
-def _nvcc() -> str:
-    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
-    for cand in (shutil.which("nvcc"), os.path.join(cuda_home, "bin", "nvcc")):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found: the flash-attention kernel is built from csrc/ at first use")
-
-
 def build() -> Path:
     """Compile the kernel library unless this source is already built."""
     global build_log
-    tag = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"libflash_attention_{tag}.so"
-    if out.exists():
-        return out
-    nvcc = _nvcc()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = BUILD_DIR / f".{out.name}.{os.getpid()}.tmp"
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}): {' '.join(cmd)}\n{res.stderr}")
-    os.replace(tmp, out)  # atomic: a concurrent build never loads a partial file
-    build_log = res.stderr
+    out, log = compile_library(SOURCE, BUILD_DIR, "flash_attention")
+    build_log = log or build_log
     return out
 
 

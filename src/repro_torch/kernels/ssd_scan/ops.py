@@ -1,0 +1,52 @@
+"""Public wrapper for the SSD chunked-scan kernel.
+
+Keeps the JAX wrapper's contract (``repro/kernels/ssd_scan/ops.py``): the
+model layout (B, S, H, ...) in and out, the chunk clamped to
+``min(chunk, max(8, next_pow2(S)))``, a zero initial state by default, y in
+x's dtype and the final state (B, H, P, N) in float32.  CPU tensors take the
+plain version (``ref.ssd_scan_ref`` on the (B*H, S, ...) flattening); CUDA
+tensors launch the hand-written kernel, or the call raises.  The kernel reads
+x, a, b and c through their strides, so the model's head-broadcast views of
+b and c (head stride 0) are not copied, and it masks the ragged tail of S
+itself, where the JAX wrapper pads with (inert) zeros.  On CUDA, x, b and c
+need a dense last dim.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.ssd_scan.kernel import ssd_scan_fwd
+from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
+
+#: kernel launches since the count was last set to 0
+launch_count = 0
+
+
+def ssd_scan(
+    x: torch.Tensor,    # (B, S, H, P)   pre-multiplied by dt
+    a: torch.Tensor,    # (B, S, H)      log-decay per step (negative)
+    b: torch.Tensor,    # (B, S, H, N)
+    c: torch.Tensor,    # (B, S, H, N)
+    initial_state: torch.Tensor | None = None,  # (B, H, P, N)
+    *,
+    chunk: int = 128,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Returns (y (B,S,H,P), final_state (B,H,P,N) float32)."""
+    global launch_count
+    B, S, H, P = x.shape
+    N = b.shape[-1]
+    Q = min(chunk, max(8, 1 << (S - 1).bit_length()))
+    s0 = (
+        initial_state.reshape(B * H, P, N).float()
+        if initial_state is not None
+        else torch.zeros((B * H, P, N), dtype=torch.float32, device=x.device)
+    )
+    if x.device.type == "cpu":
+        flat = lambda t: t.transpose(1, 2).reshape(B * H, S, *t.shape[3:])  # noqa: E731
+        y, s_final = ssd_scan_ref(flat(x), flat(a), flat(b), flat(c), s0)
+        y = y.reshape(B, H, S, P).transpose(1, 2)
+    else:
+        y, s_final = ssd_scan_fwd(x, a.float(), b, c, s0.contiguous(), chunk=Q)
+        launch_count += 1
+    return y, s_final.reshape(B, H, P, N)

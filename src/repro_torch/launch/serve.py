@@ -4,10 +4,14 @@ The PyTorch counterpart of ``repro/launch/serve.py``.  Requests ride a
 stream topic through the port's own :class:`~repro_torch.api.Session`, the
 runtime's :class:`~repro_torch.runtime.serving.ModelServer` batches them up
 to ``--batch`` within ``--max-wait-ms``, and ``generate`` pads each batch to
-the serving width, prefills (prompt attention through the hand-written
-flash kernel, ``attention_impl="pallas"``) and decodes greedily.
+the serving width, prefills and decodes greedily.  With
+``attention_impl="pallas"`` every prefill goes through the hand-written
+kernels: prompt attention through ``flash_attention`` (dense archs), the
+prompt's SSD scan through ``ssd_scan`` (mamba2-130m).
 
     python -m repro_torch.launch.serve --arch qwen2.5-3b --batch 4 \
+        --prompt-len 1024 --gen 32
+    python -m repro_torch.launch.serve --arch mamba2-130m --batch 4 \
         --prompt-len 1024 --gen 32
 
 Runs on ``cuda`` unless ``--device cpu`` is given; it never falls back to the
@@ -26,6 +30,7 @@ import torch
 from repro_torch.api import ClusterSpec, ServeSpec, Session
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.models import transformer as tx
 
 
@@ -98,7 +103,8 @@ def serve(args) -> dict:
     prompts = [
         rng.integers(0, cfg.vocab_size, (PL,)).astype(np.int32) for _ in range(n_req)
     ]
-    launches0 = fa_ops.launch_count
+    kernels = {"flash_attention": fa_ops, "ssd_scan": ssd_ops}
+    launches0 = {name: ops.launch_count for name, ops in kernels.items()}
     t_wall = time.perf_counter()
     with Session(cluster=spec, name=f"serve-{args.arch}") as session:
         server = session.serve(generate)
@@ -123,10 +129,11 @@ def serve(args) -> dict:
 
     assert len(outs) == n_req, f"served {len(outs)}/{n_req} requests"
     tps = timings["decoded"] / timings["decode_s"] if timings["decode_s"] else 0.0
-    launches = fa_ops.launch_count - launches0
+    launches = {name: ops.launch_count - launches0[name] for name, ops in kernels.items()}
     print(f"served {n_req} reqs in {sstats['batches']} batches "
           f"(mean {sstats['mean_batch']:.2f}) | prefill {timings['prefill_s']:.3f}s "
-          f"| decode {tps:,.1f} tok/s | flash launches {launches}")
+          f"| decode {tps:,.1f} tok/s | flash launches {launches['flash_attention']} "
+          f"| ssd_scan launches {launches['ssd_scan']}")
     print(f"latency p50/p99: {sstats['latency_p50_ms']:.1f}/"
           f"{sstats['latency_p99_ms']:.1f} ms | broker {hub['broker_bytes']:,}B "
           f"vs payload {hub['payload_bytes']:,}B")
@@ -137,7 +144,8 @@ def serve(args) -> dict:
         "wall_s": t_wall,
         "server": sstats,
         "stream": hub,
-        "flash_launches": launches,
+        "kernel_launches": launches,
+        "flash_launches": launches["flash_attention"],
         "prefills": timings["prefills"],
         "device": str(device),
         "prompts": prompts,

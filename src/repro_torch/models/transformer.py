@@ -1,11 +1,11 @@
 """Model assembly: layer blocks, the loop over stacked layers, prefill/decode.
 
-The dense decoder path of ``repro/models/transformer.py`` on tensors.  The
-parameter tree keeps the JAX layout: ``{"embedding", <group>: stacked layer
-params with a leading layer dim, "final_norm"}``, so weights bridge leaf by
-leaf.  Where the JAX package scans over the stacked dim, the port loops.
-MoE, SSM and hybrid layer kinds wait for later slices and raise
-``NotImplementedError``.
+The dense decoder and SSM (Mamba-2) paths of ``repro/models/transformer.py``
+on tensors.  The parameter tree keeps the JAX layout: ``{"embedding",
+<group>: stacked layer params with a leading layer dim, "final_norm"}``, so
+weights bridge leaf by leaf.  Where the JAX package scans over the stacked
+dim, the port loops.  MoE and hybrid layer kinds wait for later slices and
+raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -16,6 +16,7 @@ from typing import Any
 import torch
 
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import ModelConfig, shard_hint
 from repro_torch.models.layers import (
     apply_mlp,
@@ -76,7 +77,7 @@ def _check_ported(cfg: ModelConfig) -> None:
     if cfg.mla is not None:
         raise NotImplementedError(f"{cfg.name}: MLA is not ported yet")
     for group in layer_groups(cfg):
-        if group.kind != "dense":
+        if group.kind not in ("dense", "ssm"):
             raise NotImplementedError(
                 f"{cfg.name}: {group.kind} layers are not ported yet"
             )
@@ -99,6 +100,11 @@ def _leaves(tree):
 # -- layer init ---------------------------------------------------------------
 
 def _init_layer(cfg: ModelConfig, group: LayerGroup, gen: torch.Generator) -> Params:
+    if group.kind == "ssm":
+        return {
+            "ln1": init_norm(cfg, cfg.d_model, gen.device),
+            "mamba": ssm_mod.init_mamba(cfg, gen),
+        }
     return {
         "ln1": init_norm(cfg, cfg.d_model, gen.device),
         "attn": attn_mod.init_attention(cfg, gen),
@@ -154,8 +160,11 @@ def _apply_layer(
     cache: Params | None,
     ctx: RunCtx,
 ) -> torch.Tensor:
-    """One dense layer; a cache is updated in place."""
+    """One dense or SSM layer; a cache is updated in place."""
     h = apply_norm(cfg, p["ln1"], x)
+    if group.kind == "ssm":
+        y, _ = ssm_mod.apply_mamba(cfg, p["mamba"], h, cache=cache, ctx=ctx)
+        return x + y
     y, _ = attn_mod.apply_attention(
         cfg, p["attn"], h, positions=positions, causal=True,
         window=group.window, cache=cache, ctx=ctx,
@@ -194,7 +203,7 @@ def forward(
     """Returns (hidden_states, cache, aux_loss).
 
     A cache is updated in place and returned (the JAX function returns a new
-    one); the aux loss is 0 for dense layers.
+    one); the aux loss is 0 for dense and SSM layers.
     """
     _check_ported(cfg)
     B, S = tokens.shape
@@ -218,7 +227,10 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device) -> Params:
     _check_ported(cfg)
     cache: Params = {}
     for group in layer_groups(cfg):
-        one = attn_mod.init_kv_cache(cfg, batch, max_len, device=device)
+        if group.kind == "ssm":
+            one = ssm_mod.init_mamba_cache(cfg, batch, device=device)
+        else:
+            one = attn_mod.init_kv_cache(cfg, batch, max_len, device=device)
         cache[group.name] = _tree_map(
             lambda t: t[None].repeat(group.count, *([1] * t.dim())), one
         )

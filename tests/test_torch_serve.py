@@ -3,7 +3,10 @@
 ``repro_torch.launch.serve`` answers every request through the port's own
 ``Session``/``ModelServer``; its greedy tokens must equal those of a JAX
 ``prefill``/``decode_step`` loop on the same weights (carried across with
-``repro_torch.bridge``) and the same prompts.  Smoke config, float32.
+``repro_torch.bridge``) and the same prompts.  Smoke configs of qwen2.5-3b
+and mamba2-130m, float32.  For mamba2 the port's prefill takes the SSD
+kernel's plain version (the sequential recurrence) and the JAX loop its
+reference (the chunked form): the same function, so the tokens are equal.
 """
 
 from __future__ import annotations
@@ -51,6 +54,12 @@ def served():
     return args, serve(args)
 
 
+@pytest.fixture(scope="module")
+def served_mamba():
+    args = parse_args(ARGS + ["--arch", "mamba2-130m"])
+    return args, serve(args)
+
+
 def test_serve_answers_every_request(served):
     args, res = served
     assert res["requests"] == 5 and len(res["outputs"]) == 5
@@ -66,11 +75,28 @@ def test_serve_reports_the_jax_serve_fields(served):
     for key in ("prefill_s", "decode_tok_s", "requests", "wall_s", "server", "stream"):
         assert key in res
     assert res["flash_launches"] == 0  # CPU tensors take the plain version
+    assert res["kernel_launches"] == {"flash_attention": 0, "ssd_scan": 0}
     assert res["device"] == "cpu"
 
 
 def test_serve_tokens_equal_a_jax_greedy_loop(served):
     args, res = served
+    expect = _jax_greedy(args.arch, res["prompts"], args.gen)
+    np.testing.assert_array_equal(np.stack(res["outputs"]), expect)
+
+
+def test_serve_mamba_answers_every_request(served_mamba):
+    args, res = served_mamba
+    assert args.arch == "mamba2-130m" and len(res["outputs"]) == 5
+    assert res["prefills"] == res["server"]["batches"] >= 3
+    assert res["kernel_launches"] == {"flash_attention": 0, "ssd_scan": 0}  # CPU
+    vocab = get_smoke_config(args.arch).vocab_size
+    for out in res["outputs"]:
+        assert out.shape == (args.gen,) and 0 <= out.min() and out.max() < vocab
+
+
+def test_serve_mamba_tokens_equal_a_jax_greedy_loop(served_mamba):
+    args, res = served_mamba
     expect = _jax_greedy(args.arch, res["prompts"], args.gen)
     np.testing.assert_array_equal(np.stack(res["outputs"]), expect)
 

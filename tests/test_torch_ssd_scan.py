@@ -1,0 +1,212 @@
+"""The SSD scan in the PyTorch port against the JAX package, on the CPU.
+
+The port's plain version (``ref.ssd_scan_ref``) and its wrapper on CPU
+tensors (``ops.ssd_scan``) take the same numpy inputs as the JAX oracle and
+the JAX Pallas kernel (interpret mode, as the JAX tests run it).  Tolerances
+are the JAX kernel sweep's: 5e-4 in float32 (the chunked form and the
+sequential recurrence sum in other orders), 3e-2 in bfloat16 (one bf16
+rounding of outputs of a few units).  The CUDA kernel itself is held against
+the plain version on the card by ``chip_smoke.py``; here the ``meta`` device
+stands in for a non-CPU tensor, to show what the wrapper hands the launcher.
+"""
+
+from __future__ import annotations
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.ssd_scan.ops import ssd_scan as jax_scan
+from repro.kernels.ssd_scan.ref import ssd_scan_ref as jax_ref
+from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
+from repro_torch.kernels.ssd_scan import ops as ssd_ops
+from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
+
+torch.set_num_threads(1)
+
+SSD_SHAPES = [
+    # (B, S, H, P, N, chunk): the JAX kernel sweep's shapes
+    (1, 64, 2, 16, 8, 16),
+    (2, 100, 3, 32, 16, 32),      # ragged (padding path)
+    (1, 256, 1, 64, 128, 128),    # mamba2-130m geometry
+    (1, 33, 2, 16, 16, 64),       # S < chunk
+    (2, 128, 4, 64, 16, 32),      # hymba geometry
+]
+DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+TOL = {"float32": 5e-4, "bfloat16": 3e-2}
+
+
+def _inputs(shape, seed=0):
+    """x, a, b, c, s0 scaled as the JAX sweep scales them."""
+    B, S, H, P, N, _ = shape
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(B, S, H, P)) * 0.5
+    a = -np.abs(rng.normal(size=(B, S, H))) * 0.3
+    b = rng.normal(size=(B, S, H, N)) * 0.5
+    c = rng.normal(size=(B, S, H, N)) * 0.5
+    s0 = rng.normal(size=(B, H, P, N)) * 0.2
+    return [v.astype(np.float32) for v in (x, a, b, c, s0)]
+
+
+def _both(arrs, dname):
+    """The first four inputs in the working dtype, s0 in float32."""
+    jdt, tdt = DTYPES[dname]
+    j = [jnp.asarray(v).astype(jdt) for v in arrs[:4]] + [jnp.asarray(arrs[4])]
+    t = [torch.from_numpy(v).to(tdt) for v in arrs[:4]] + [torch.from_numpy(arrs[4])]
+    return j, t
+
+
+def _close(t_out, j_out, tol):
+    np.testing.assert_allclose(
+        t_out.float().numpy(), np.asarray(j_out, np.float32), rtol=tol, atol=tol
+    )
+
+
+def _flat(t, B, S, H):
+    return t.transpose(1, 2).reshape(B * H, S, *t.shape[3:])
+
+
+@pytest.mark.parametrize("shape", SSD_SHAPES, ids=str)
+@pytest.mark.parametrize("dname", list(DTYPES))
+def test_plain_version_matches_jax_oracle(shape, dname):
+    B, S, H, P, N, _ = shape
+    (jx, ja, jb, jc, js), (tx, ta, tb, tc, ts) = _both(_inputs(shape), dname)
+    jflat = lambda v: v.transpose(0, 2, 1, *range(3, v.ndim)).reshape(B * H, S, *v.shape[3:])  # noqa: E731
+    y, sf = ssd_scan_ref(*(_flat(v, B, S, H) for v in (tx, ta, tb, tc)), ts.reshape(B * H, P, N))
+    yr, sr = jax_ref(*(jflat(v) for v in (jx, ja, jb, jc)), js.reshape(B * H, P, N))
+    assert y.dtype == DTYPES[dname][1] and sf.dtype == torch.float32
+    _close(y, yr, TOL[dname])
+    _close(sf, sr, TOL[dname])
+
+
+@pytest.mark.parametrize("shape", SSD_SHAPES, ids=str)
+@pytest.mark.parametrize("dname", list(DTYPES))
+def test_wrapper_on_cpu_matches_jax_kernel(shape, dname):
+    chunk = shape[-1]
+    (jx, ja, jb, jc, js), (tx, ta, tb, tc, ts) = _both(_inputs(shape, seed=1), dname)
+    ssd_ops.launch_count = 0
+    y, sf = ssd_ops.ssd_scan(tx, ta, tb, tc, ts, chunk=chunk)
+    yr, sr = jax_scan(jx, ja, jb, jc, js, chunk=chunk)
+    assert y.shape == tuple(yr.shape) and y.dtype == DTYPES[dname][1]
+    assert sf.shape == tuple(sr.shape) and sf.dtype == torch.float32
+    _close(y, yr, TOL[dname])
+    _close(sf, sr, TOL[dname])
+    assert ssd_ops.launch_count == 0  # CPU tensors never launch the kernel
+
+
+def _f32(shape, seed):
+    return [torch.from_numpy(v) for v in _inputs(shape, seed)]
+
+
+def test_zero_initial_state_default():
+    x, a, b, c, s0 = _f32((1, 32, 2, 8, 8, 16), seed=2)
+    y1, s1 = ssd_ops.ssd_scan(x, a, b, c, chunk=16)
+    y2, s2 = ssd_ops.ssd_scan(x, a, b, c, torch.zeros_like(s0), chunk=16)
+    torch.testing.assert_close(y1, y2, rtol=0, atol=0)
+    torch.testing.assert_close(s1, s2, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("chunk", [8, 16, 64])
+def test_chunk_invariance_against_jax(chunk):
+    """Every chunk length gives the JAX kernel's result at that length."""
+    shape = (1, 64, 2, 16, 16, chunk)
+    arrs = _inputs(shape, seed=3)
+    (jx, ja, jb, jc, js), (tx, ta, tb, tc, ts) = _both(arrs, "float32")
+    y, sf = ssd_ops.ssd_scan(tx, ta, tb, tc, ts, chunk=chunk)
+    yr, sr = jax_scan(jx, ja, jb, jc, js, chunk=chunk)
+    _close(y, yr, 5e-4)
+    _close(sf, sr, 5e-4)
+
+
+def test_state_hand_off_equals_a_contiguous_scan():
+    """Scanning the first part, then the rest from the returned state, is
+    the scan of the whole (what a prefill followed by more prompt does)."""
+    x, a, b, c, s0 = _f32((2, 96, 3, 16, 16, 32), seed=4)
+    y, sf = ssd_ops.ssd_scan(x, a, b, c, s0, chunk=32)
+    cut = 40
+    y1, s1 = ssd_ops.ssd_scan(x[:, :cut], a[:, :cut], b[:, :cut], c[:, :cut], s0, chunk=32)
+    y2, s2 = ssd_ops.ssd_scan(x[:, cut:], a[:, cut:], b[:, cut:], c[:, cut:], s1, chunk=32)
+    torch.testing.assert_close(torch.cat([y1, y2], dim=1), y, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(s2, sf, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("S", [5, 37, 63])
+def test_ragged_lengths_match_jax(S):
+    shape = (2, S, 2, 16, 8, 16)
+    (jx, ja, jb, jc, js), (tx, ta, tb, tc, ts) = _both(_inputs(shape, seed=S), "float32")
+    y, sf = ssd_ops.ssd_scan(tx, ta, tb, tc, ts, chunk=16)
+    yr, sr = jax_scan(jx, ja, jb, jc, js, chunk=16)
+    assert y.shape == (2, S, 2, 16)
+    _close(y, yr, 5e-4)
+    _close(sf, sr, 5e-4)
+
+
+def test_head_broadcast_views_equal_contiguous_copies():
+    """B and C as the model passes them: one group expanded over heads."""
+    x, a, _, _, s0 = _f32((2, 48, 4, 16, 8, 16), seed=5)
+    rng = np.random.default_rng(6)
+    b1 = torch.from_numpy(rng.normal(size=(2, 48, 1, 8)).astype(np.float32))
+    c1 = torch.from_numpy(rng.normal(size=(2, 48, 1, 8)).astype(np.float32))
+    bv, cv = b1.expand(2, 48, 4, 8), c1.expand(2, 48, 4, 8)
+    assert bv.stride(2) == 0
+    y1, s1 = ssd_ops.ssd_scan(x, a, bv, cv, s0, chunk=16)
+    y2, s2 = ssd_ops.ssd_scan(x, a, bv.contiguous(), cv.contiguous(), s0, chunk=16)
+    torch.testing.assert_close(y1, y2, rtol=0, atol=0)
+    torch.testing.assert_close(s1, s2, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("S, chunk, expect", [(1024, 128, 128), (40, 128, 64), (5, 128, 8),
+                                              (100, 32, 32)])
+def test_non_cpu_tensors_go_to_the_launcher(monkeypatch, S, chunk, expect):
+    """A tensor off the CPU goes to the kernel launcher with the clamped
+    chunk, the head-broadcast views uncopied and s0 flattened; the launch is
+    counted.  (``meta`` stands in for a CUDA tensor.)"""
+    seen = {}
+
+    def launcher(x, a, b, c, s0, *, chunk):
+        seen.update(x=x, a=a, b=b, c=c, s0=s0, chunk=chunk)
+        return torch.empty_like(x), torch.empty_like(s0)
+
+    monkeypatch.setattr(ssd_ops, "ssd_scan_fwd", launcher)
+    B, H, P, N = 2, 3, 16, 8
+    x = torch.empty((B, S, H, P), device="meta")
+    b = torch.empty((B, S, 1, N), device="meta").expand(B, S, H, N)
+    ssd_ops.launch_count = 0
+    y, sf = ssd_ops.ssd_scan(x, torch.empty((B, S, H), device="meta"), b, b, chunk=chunk)
+    assert ssd_ops.launch_count == 1
+    assert seen["chunk"] == expect
+    assert seen["b"].stride() == b.stride() and seen["x"] is x
+    assert seen["a"].dtype == torch.float32 and seen["s0"].shape == (B * H, P, N)
+    assert y.shape == x.shape and sf.shape == (B, H, P, N)
+
+
+def test_kernel_launcher_refuses_non_cuda_tensors():
+    x = torch.zeros(1, 8, 2, 16)
+    a = torch.zeros(1, 8, 2)
+    b = torch.zeros(1, 8, 2, 8)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        ssd_kernel.ssd_scan_fwd(x, a, b, b, torch.zeros(2, 16, 8), chunk=8)
+    meta = [t.to("meta") for t in (x, a, b)]
+    with pytest.raises(ValueError, match="CUDA tensor"):  # no fallback off the CPU
+        ssd_ops.ssd_scan(meta[0], meta[1], meta[2], meta[2], chunk=8)
+
+
+def test_build_without_nvcc_raises(monkeypatch, tmp_path):
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.delenv("CUDA_PATH", raising=False)
+    monkeypatch.setattr(ssd_kernel, "BUILD_DIR", tmp_path / "build")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        ssd_kernel.build()
+    assert not (tmp_path / "build").exists()
+
+
+def test_kernel_source_targets_hopper():
+    from repro_torch.kernels._nvcc import NVCC_FLAGS
+
+    src = ssd_kernel.SOURCE.read_text()
+    assert 'extern "C" int repro_ssd_scan' in src
+    assert "repro/kernels/ssd_scan/kernel.py:96" in src
+    assert "arch=compute_90a,code=sm_90a" in NVCC_FLAGS
+    assert f"kMaxQ = {ssd_kernel.MAX_CHUNK}" in src and f"kMaxN = {ssd_kernel.MAX_STATE}" in src
