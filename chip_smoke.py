@@ -16,19 +16,30 @@ Phases, each of which must pass (any failure exits non-zero):
      (tolerance 5e-4 / 3e-2 on y and the final state, plus a per-step
      relative L2 limit on y) and at mamba2-130m's serving prefill geometry
      with head-broadcast B and C, where three planted faults must be
-     rejected.
-   Times each kernel, its plain version and, where one exists, one PyTorch
-   library call at the serving geometry for the ``kernels`` line.
+     rejected;
+   * the tensor fingerprint, where tokens must be equal, not close: the
+     kernel gives every pinned JAX token of ``FP_GOLDEN``, equals the plain
+     version over byte lengths that straddle word and block edges, at byte
+     offsets 0-3 and up to 64 MiB, and sees a one-bit flip at the first
+     byte, the last byte and a block boundary of a 1 GiB buffer.
+   Times the flash and SSD kernels, their plain versions and, where one
+   exists, one PyTorch library call at the serving geometry for the
+   ``kernels`` line.
 2. Model checks, for qwen2.5-3b and then mamba2-130m: the smoke config on
    the card against the same weights on the CPU (prefill and decode
    logits); the full-width bf16 model through the kernel, block by block no
    further from an f32-compute run than the reference path is (the planted
    faults must fail this check too); then a breakdown of the serving decode
-   step (host time, device kernel time, bound).
+   step (host time, device kernel time, bound).  The fingerprint's path
+   runs on qwen2.5-3b's full-width f32 parameters: every leaf fingerprinted
+   twice by the kernel (the tokens must agree), each leaf no larger than
+   the embedding and one (36, 2048, 11008) MLP stack held to the plain
+   version, and the kernel timed at the largest leaf and the embedding.
 3. Serve: ``repro_torch.launch.serve`` at full qwen2.5-3b width, then at
    full mamba2-130m width, behind ``Session``/``ModelServer``.  Launch
    counts are set to 0 just before each serve and read just after; every
-   kernel of the path must have launched, and no other.
+   kernel of the path must have launched, and no other (the fingerprint
+   runs on neither serve path).
 
 The last lines are the ``kernels`` JSON object, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.  Needs the repository's
@@ -44,6 +55,7 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
+import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
@@ -100,20 +112,61 @@ SSD_FAULTS = ("state not carried across chunks", "initial state ignored",
 MAMBA_SERVE_ARGS = ["--arch", "mamba2-130m", "--batch", "4", "--prompt-len", "1024",
                     "--gen", "32", "--requests", "8", "--device", "cuda"]
 
+# Fingerprint inputs made with numpy from a seed (``fp_golden_array``), each
+# with the token the JAX package gives it
+# (``repro.kernels.fingerprint.ops.fingerprint_token`` on the CPU; the tests
+# regenerate every entry against JAX and the port).  (kind, shape, seed,
+# token): kind is a numpy dtype, "bfloat16" (values stored as their bits) or
+# "float32.T" (a transposed, non-contiguous float32 array).  The 64-bit
+# kinds are narrowed to 32 bits before hashing, as JAX narrows them.
+FP_GOLDEN = [
+    ("uint8", (1,), 0, "f0f3fb00a8105be0"),
+    ("uint8", (64,), 1, "13ef863a5afd1781"),
+    ("uint8", (4095,), 2, "638b75fad1af73c4"),
+    ("uint8", (4096,), 3, "3e1aa25841c3e8c4"),
+    ("uint8", (4097,), 4, "80b09d92ecb09e39"),
+    ("uint8", (100_000,), 5, "978ab9718a4bbdb1"),
+    ("uint8", (2**20 + 3,), 6, "e794d481e7f63811"),
+    ("float32", (257, 33), 7, "70fe580bbb449dee"),
+    ("float16", (3, 1001), 8, "d22634507b29eb5d"),
+    ("bfloat16", (2049,), 9, "20b3e36f89a9a777"),
+    ("int32", (1000,), 10, "d14baab1d14566bc"),
+    ("float32.T", (64, 100), 11, "fdde963718449c2a"),
+    ("float64", (1000,), 12, "5a04968bc3a7ff96"),
+    ("int64", (1000,), 13, "59cf30aaace3fd17"),
+]
+# Byte lengths of the kernel-against-plain sweep: word and block edges, the
+# kernel's 64-block prefetch ring, 4k+1 and 4k+3, and up to 64 MiB
+FP_LENGTHS = [1, 2, 3, 4, 5, 7, 63, 64, 65, 4093, 4095, 4096, 4097, 4099, 8191, 8192, 8193,
+              4 * 12_345 + 1, 4 * 12_345 + 3, 64 * 4096 - 1, 64 * 4096, 64 * 4096 + 1,
+              129 * 4096 + 5, 2**20 + 3, 2**24 + 1, 2**26 - 1, 2**26]
+FP_OFFSETS = (0, 1, 2, 3)  # byte offsets of the sweep's views (alignment)
+FP_FLIP_BYTES = 1 << 30  # the bit-flip buffer
+# H100 SXM: 132 SMs x 64 INT32 lanes (Hopper white paper) at the 1.98 GHz
+# boost clock, one operation a lane a cycle
+PEAK_INT32_OPS = 132 * 64 * 1.98e9
+# cycles of one dependent step of a lane's chain: IMAD (4) then LOP3 (2)
+FP_CHAIN_CYCLES = 6
+
 
 def fail(msg: str) -> None:
     print(f"FAIL: {msg}", flush=True)
     sys.exit(1)
 
 
-def gpu_name_and_limit() -> str:
+def gpu_query(fields: str, units: bool = True) -> str:
+    fmt = "csv,noheader" + ("" if units else ",nounits")
     res = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        ["nvidia-smi", f"--query-gpu={fields}", f"--format={fmt}"],
         capture_output=True, text=True, timeout=60,
     )
     if res.returncode != 0:
         fail(f"nvidia-smi failed: {res.stderr.strip()}")
     return res.stdout.strip().splitlines()[0]
+
+
+def gpu_name_and_limit() -> str:
+    return gpu_query("name,power.limit")
 
 
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -162,6 +215,7 @@ def plant_fault(flash, fault: str, q_axis: int):
 
 def build_kernels() -> None:
     """Build every kernel library, one ``nvcc`` per source, all at once."""
+    from repro_torch.kernels.fingerprint import kernel as fp_kernel
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
 
@@ -169,7 +223,7 @@ def build_kernels() -> None:
         t0 = time.perf_counter()
         return mod.build(), time.perf_counter() - t0
 
-    mods = {"flash_attention": fa_kernel, "ssd_scan": ssd_kernel}
+    mods = {"flash_attention": fa_kernel, "ssd_scan": ssd_kernel, "fingerprint": fp_kernel}
     with ThreadPoolExecutor(len(mods)) as pool:
         futures = {name: pool.submit(timed_build, mod) for name, mod in mods.items()}
     for name, mod in mods.items():
@@ -182,7 +236,7 @@ def build_kernels() -> None:
 
 def phase_kernels(gen) -> list[dict]:
     build_kernels()
-    return [check_flash(gen), check_ssd(gen)]
+    return [check_flash(gen), check_ssd(gen), check_fingerprint(gen)]
 
 
 def check_flash(gen) -> dict:
@@ -409,6 +463,195 @@ def check_ssd(gen) -> dict:
     }
 
 
+def fp_golden_array(kind: str, shape: tuple, seed: int) -> np.ndarray:
+    """The numpy input of an ``FP_GOLDEN`` entry."""
+    rng = np.random.default_rng(seed)
+    if kind == "uint8":
+        return rng.integers(0, 256, shape, dtype=np.uint8)
+    if kind == "int32":
+        return rng.integers(-2**31, 2**31, shape, dtype=np.int32)
+    if kind == "int64":  # values beyond 32 bits: narrowing keeps the low 32
+        return rng.integers(-2**62, 2**62, shape, dtype=np.int64)
+    vals = rng.normal(size=shape) * 100
+    if kind == "float64":
+        vals[:3] = (1e300, -1e300, 1e-300)  # narrowed to inf, -inf and 0
+        return vals
+    if kind == "bfloat16":  # bf16 values by truncation, as their bits
+        return (vals.astype(np.float32).view(np.uint32) >> 16).astype(np.uint16)
+    if kind == "float32.T":
+        return vals.astype(np.float32).T
+    return vals.astype(kind)
+
+
+def fp_golden_tensor(kind: str, shape: tuple, seed: int, device) -> torch.Tensor:
+    """The same input as a tensor on ``device``: bf16 for "bfloat16", and a
+    transposed view for "float32.T"."""
+    arr = fp_golden_array(kind, shape, seed)
+    if kind == "float32.T":
+        return torch.from_numpy(np.ascontiguousarray(arr.T)).to(device).T
+    t = torch.from_numpy(arr).to(device)
+    return t.view(torch.bfloat16) if kind == "bfloat16" else t
+
+
+def check_fingerprint(gen) -> dict:
+    """Token equality, not closeness: the kernel against the pinned JAX
+    tokens, against the plain version on the sweep, and under bit flips."""
+    from repro_torch.kernels.fingerprint import ops as fp_ops
+    from repro_torch.kernels.fingerprint.ops import format_token as fp_token
+    from repro_torch.kernels.fingerprint.ref import fingerprint_ref
+
+    for kind, shape, seed, want in FP_GOLDEN:
+        t = fp_golden_tensor(kind, shape, seed, "cuda")
+        got = fp_ops.fingerprint_token(t)
+        from_numpy = fp_ops.fingerprint_token(fp_golden_array(kind, shape, seed))
+        if got != want or from_numpy != want:
+            fail(f"fingerprint {kind}{shape}: kernel {got} (from numpy {from_numpy}), JAX {want}")
+    print(f"[fingerprint] {len(FP_GOLDEN)} pinned JAX tokens reproduced by the kernel")
+
+    buf = torch.randint(0, 256, (FP_LENGTHS[-1] + 8,), dtype=torch.uint8, device="cuda",
+                        generator=gen)
+    n_cases = 0
+    for n in FP_LENGTHS:
+        for off in FP_OFFSETS:
+            view = buf[off:off + n]
+            got = fp_token(fp_ops.fingerprint(view))
+            want = fp_token(fingerprint_ref(view))
+            if got != want:
+                fail(f"fingerprint of {n} bytes at offset {off}: kernel {got}, plain {want}")
+            n_cases += 1
+    # a 16-bit view at an odd element starts 2 bytes off a word boundary
+    halves = buf[:2 * 4097].view(torch.float16)[1:]
+    if fp_token(fp_ops.fingerprint(halves)) != fp_token(fingerprint_ref(fp_ops.as_bytes(halves))):
+        fail("fingerprint of a float16 view at an odd element: kernel and plain differ")
+    print(f"[fingerprint] kernel equals the plain version on {n_cases + 1} inputs "
+          f"({len(FP_LENGTHS)} lengths of 1 B to {FP_LENGTHS[-1]} B x offsets {FP_OFFSETS}, "
+          f"one float16 view)")
+    del buf
+
+    big = torch.randint(0, 256, (FP_FLIP_BYTES,), dtype=torch.uint8, device="cuda",
+                        generator=gen)
+    base = fp_token(fp_ops.fingerprint(big))
+    twin = big.clone()
+    if fp_token(fp_ops.fingerprint(twin)) != base:
+        fail("fingerprint of an unchanged clone differs")
+    mid = FP_FLIP_BYTES // 2  # a block boundary
+    for pos in (0, FP_FLIP_BYTES - 1, mid - 1, mid):
+        twin[pos:pos + 1].bitwise_xor_(1)
+        flipped = fp_token(fp_ops.fingerprint(twin))
+        twin[pos:pos + 1].bitwise_xor_(1)
+        if flipped == base:
+            fail(f"a bit flip at byte {pos} of {FP_FLIP_BYTES} leaves the token {base}")
+    if fp_token(fp_ops.fingerprint(twin)) != base:
+        fail("fingerprint after undoing the flips differs")
+    ms = time_ms(lambda: fp_ops.fingerprint(big), iters=5, warmup=1)
+    print(f"[fingerprint] {FP_FLIP_BYTES:,} B buffer: token {base}; a one-bit flip at bytes 0, "
+          f"{FP_FLIP_BYTES - 1}, {mid - 1} and {mid} changes it; the clone keeps it | kernel "
+          f"{ms:.4f} ms ({FP_FLIP_BYTES / ms / 1e6:.1f} GB/s)")
+    del big, twin
+    torch.cuda.empty_cache()
+    return {
+        "name": "fingerprint",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/fingerprint/csrc/fingerprint.cu",
+        "replaces": "src/repro/kernels/fingerprint/kernel.py:45",
+        "launches": 0,
+        "max_abs_err": 0.0,
+        "ms": None,
+        "plain_ms": None,
+        "bound_ms": None,
+        "bound_by": "bytes",
+        "library_ms": None,
+    }
+
+
+def _named_leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _named_leaves(v, f"{prefix}/{k}")
+    else:
+        yield prefix, tree
+
+
+def events_ms(fn) -> tuple[object, float]:
+    """``fn()`` once, and its time on the card's clock."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def fingerprint_leaves(params, fp: dict) -> dict:
+    """The fingerprint's path: every leaf of the full-width f32 parameter
+    tree through the kernel, twice; leaves no larger than the embedding and
+    one MLP stack against the plain version.  Fills ``fp``'s numbers for the
+    ``kernels`` line and returns the timings of both timed leaves."""
+    from repro_torch.kernels.fingerprint import ops as fp_ops
+    from repro_torch.kernels.fingerprint.ops import format_token as fp_token
+    from repro_torch.kernels.fingerprint.ref import fingerprint_ref
+
+    leaves = dict(_named_leaves(params))
+    nbytes = {name: t.numel() * t.element_size() for name, t in leaves.items()}
+    total = sum(nbytes.values())
+    fp_ops.launch_count = 0  # counts of this path only
+    tokens, pass_ms = {}, []
+    for _ in range(2):
+        out, ms = events_ms(lambda: {name: fp_ops.fingerprint(t) for name, t in leaves.items()})
+        pass_ms.append(ms)
+        for name, h in out.items():
+            tokens.setdefault(name, []).append(fp_token(h))
+    launches = fp_ops.launch_count
+    if launches != 2 * len(leaves):
+        fail(f"fingerprint launched {launches} times for 2 x {len(leaves)} leaves")
+    unstable = [name for name, (a, b) in tokens.items() if a != b]
+    if unstable:
+        fail(f"fingerprint of {unstable} differs between two passes")
+
+    emb = "/embedding/embed"
+    largest = max(nbytes, key=nbytes.get)
+    held = list(dict.fromkeys([n for n in nbytes if nbytes[n] <= nbytes[emb]] + [largest]))
+    plain_ms = {}
+    for name in held:
+        t = leaves[name]
+        h, plain_ms[name] = events_ms(lambda: fingerprint_ref(fp_ops.as_bytes(t)))
+        if fp_token(h) != tokens[name][0]:
+            fail(f"fingerprint of {name}: kernel {tokens[name][0]}, plain {fp_token(h)}")
+    print(f"[fingerprint] qwen2.5-3b f32 tree: {len(leaves)} leaves, {total:,} B, largest "
+          f"{largest} {nbytes[largest]:,} B | kernel launches {launches} (2 passes), "
+          f"{pass_ms[0]:.3f} / {pass_ms[1]:.3f} ms a pass | tokens equal in both passes; "
+          f"equal to the plain version on {len(held)} leaves "
+          f"({sum(nbytes[n] for n in held):,} B, plain {sum(plain_ms.values()) / 1e3:.1f} s)")
+    detail = {"tree": {"leaves": len(leaves), "bytes": total, "pass_ms": pass_ms,
+                       "launches": launches}}
+
+    clock_mhz = gpu_query("clocks.max.sm", units=False)
+    clock = float(clock_mhz) * 1e6 if clock_mhz.replace(".", "").isdigit() else 1.98e9
+    for name in dict.fromkeys((largest, emb)):
+        t = leaves[name]
+        n = nbytes[name]
+        ms = time_ms(lambda: fp_ops.fingerprint(t), iters=5, warmup=1)
+        read_ms = time_ms(lambda: t.view(torch.int32).sum(), iters=5, warmup=1)
+        t_bytes = n / PEAK_BYTES * 1e3
+        t_ops = 0.75 * n / PEAK_INT32_OPS * 1e3  # add, multiply, xor per 4-byte word
+        blocks = -(-n // 4096)
+        chain = blocks * FP_CHAIN_CYCLES / clock * 1e3
+        print(f"[fingerprint] {name} {tuple(t.shape)} {n:,} B: kernel {ms:.4f} ms "
+              f"({n / ms / 1e6:.1f} GB/s) | plain {plain_ms[name]:.1f} ms | read yardstick "
+              f"int32 sum {read_ms:.4f} ms | byte bound {t_bytes:.4f} ms (operations "
+              f"{t_ops:.4f} ms) | chain estimate {chain:.4f} ms ({blocks:,} steps x "
+              f"{FP_CHAIN_CYCLES} cycles at {clock / 1e6:.0f} MHz)")
+        if name == largest:
+            fp.update(launches=launches, ms=ms, plain_ms=plain_ms[name],
+                      bound_ms=max(t_bytes, t_ops),
+                      bound_by="operations" if t_ops > t_bytes else "bytes")
+        detail[name] = {"bytes": n, "ms": ms, "plain_ms": plain_ms[name], "read_ms": read_ms,
+                        "bound_ms": t_bytes, "chain_ms": chain}
+    return detail
+
+
 def smoke_check(tx, arch: str) -> None:
     """The smoke config in f32: the card (kernels) against the CPU reference,
     prefill and 4 decode steps, logits within 1e-3."""
@@ -448,7 +691,9 @@ def block_rel(a, b, block: int) -> torch.Tensor:
     return (blocks(a) - blocks(b)).norm(dim=1) / blocks(b).norm(dim=1)
 
 
-def phase_model() -> dict:
+def phase_model(fp: dict) -> tuple[dict, dict]:
+    """qwen2.5-3b's model checks and decode breakdown, then the fingerprint's
+    path on the same full-width parameters (filling ``fp``)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.models import attention
@@ -506,9 +751,10 @@ def phase_model() -> dict:
         fail("full-width forward: flash path disagrees with the reference")
     del ref, exact, out, planted
     decode = decode_breakdown(tx, cfg, params)
+    fp_detail = fingerprint_leaves(params, fp)
     del params
     torch.cuda.empty_cache()
-    return decode
+    return decode, fp_detail
 
 
 def phase_model_mamba() -> dict:
@@ -673,11 +919,7 @@ def decode_breakdown(tx, cfg, params) -> dict:
 
 
 def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    else:
-        yield tree
+    return (t for _, t in _named_leaves(tree))
 
 
 def _to(tree, device):
@@ -690,11 +932,12 @@ def phase_serve(argv: list[str], kernel: str) -> dict:
     """Serve 8 requests of ``argv``'s arch; ``kernel`` must launch at least
     once per layer and prefill, and no other kernel at all."""
     from repro_torch.configs import get_config
+    from repro_torch.kernels.fingerprint import ops as fp_ops
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
     from repro_torch.launch.serve import parse_args, serve
 
-    counters = {"flash_attention": fa_ops, "ssd_scan": ssd_ops}
+    counters = {"flash_attention": fa_ops, "ssd_scan": ssd_ops, "fingerprint": fp_ops}
     args = parse_args(argv)
     cfg = get_config(args.arch)
     for ops in counters.values():
@@ -737,9 +980,10 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(0)
-    fa, ssd = phase_kernels(gen)
+    fa, ssd, fp = phase_kernels(gen)
     print(f"[phase 1] kernels ok ({time.perf_counter() - t0:.1f}s)")
-    decode = {"qwen2.5-3b": phase_model(), "mamba2-130m": phase_model_mamba()}
+    qwen_decode, fp_detail = phase_model(fp)
+    decode = {"qwen2.5-3b": qwen_decode, "mamba2-130m": phase_model_mamba()}
     print(f"[phase 2] model ok ({time.perf_counter() - t0:.1f}s)")
     served = {"qwen2.5-3b": phase_serve(SERVE_ARGS, "flash_attention"),
               "mamba2-130m": phase_serve(MAMBA_SERVE_ARGS, "ssd_scan")}
@@ -748,12 +992,12 @@ def main() -> int:
     print(f"[phase 3] serve ok ({time.perf_counter() - t0:.1f}s)")
 
     gpu = gpu_name_and_limit()
-    result = {"kernels": [fa, ssd]}
+    result = {"kernels": [fa, ssd, fp]}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
-    (out_dir / "chip_smoke.json").write_text(
-        json.dumps({**result, "serve": served, "decode": decode, "gpu": gpu}, indent=1)
-    )
+    (out_dir / "chip_smoke.json").write_text(json.dumps(
+        {**result, "serve": served, "decode": decode, "fingerprint": fp_detail, "gpu": gpu},
+        indent=1))
     print(json.dumps(result))
     print(gpu)
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

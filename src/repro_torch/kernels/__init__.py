@@ -9,6 +9,6 @@ Each kernel mirrors the JAX package's layout (``repro/kernels/<name>/``):
   tensors take the plain version, CUDA tensors launch the kernel or raise;
 * ``ref.py`` -- the plain PyTorch version of the JAX oracle.
 
-Ported so far: flash_attention, ssd_scan.  ``fingerprint`` waits for a
-later slice.
+Ported: flash_attention, ssd_scan and fingerprint -- every kernel of the
+JAX package.
 """
