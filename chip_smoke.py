@@ -9,9 +9,12 @@ Phases, each of which must pass (any failure exits non-zero):
    together) and hold each wrapper against its plain PyTorch version on the
    card:
    * flash attention over the kernel test shapes x {float32, bfloat16}
-     (tolerance 2e-4 / 2e-2, plus a per-row relative L2 limit) and at
-     qwen2.5-3b's serving prefill geometry, where two planted faults must be
-     rejected;
+     (tolerance 2e-4 / 2e-2, plus a per-row relative L2 limit), over bf16
+     shapes at the wgmma + TMA kernel's edges (ragged 128-row tiles, one q
+     row, the 32 B and 64 B swizzles, an input off TMA's 16-byte alignment,
+     and V = identity so that O reads back P), and at qwen2.5-3b's serving
+     prefill geometry, where two planted faults must be rejected; the f32
+     scalar kernel is timed there too;
    * the SSD scan over the kernel test shapes x {float32, bfloat16}
      (tolerance 5e-4 / 3e-2 on y and the final state, plus a per-step
      relative L2 limit on y) and at mamba2-130m's serving prefill geometry
@@ -80,10 +83,20 @@ FA_SHAPES = [
 # few late rows, whose outputs are small, cannot hide under the first limit.
 TOL = {"float32": 2e-4, "bfloat16": 2e-2}
 ROW_REL_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
-KV_TILE = 32  # keys per kv tile of the kernel (kBK in flash_attention.cu)
-# Full-width bf16 forward: over every block of KV_TILE tokens, the flash
-# path's relative L2 distance from an f32-compute forward is at most
+# bf16 shapes at the wgmma + TMA kernel's edges, beside the sweep above:
+# Sq and Skv off its 128-row tiles (built as the model's strided views),
+# one q row against many keys, and the 32 B and 64 B swizzles (hd 16, 32)
+FA_BF16_EDGES = [
+    (2, 16, 2, 1000, 1000, 128, True),
+    (1, 8, 1, 1, 1024, 128, False),
+    (1, 4, 4, 300, 300, 16, True),
+    (1, 4, 2, 300, 300, 32, True),
+]
+FAULT_TILE = 128  # keys per K/V tile of the bf16 kernel (kRows in flash_attention.cu)
+# Full-width bf16 forward: over every block of FORWARD_BLOCK tokens, the
+# flash path's relative L2 distance from an f32-compute forward is at most
 # FORWARD_NOISE times the reference path's
+FORWARD_BLOCK = 32
 FORWARD_NOISE = 1.25
 # Planted faults each check must reject: a kernel that ignores the causal
 # mask, and one that skips the last kv tile of the sequence
@@ -169,12 +182,18 @@ def gpu_name_and_limit() -> str:
     return gpu_query("name,power.limit")
 
 
-def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+def time_ms(fn, iters: int = 20, warmup: int = 3, card_only: bool = False) -> float:
+    """Event time per call of ``fn`` over ``iters`` calls issued back to
+    back: a call shorter than its host cost is timed at the host's rate.
+    With ``card_only`` the card first sleeps about 25 ms while the host
+    enqueues the calls, so the events time the card's work alone."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if card_only:
+        torch.cuda._sleep(50_000_000)
     start.record()
     for _ in range(iters):
         fn()
@@ -203,7 +222,7 @@ def plant_fault(flash, fault: str, q_axis: int):
     def faulty(q, k, v, *, causal):
         if fault == "non-causal":
             return flash(q, k, v, causal=False)
-        t = q.shape[q_axis] - KV_TILE
+        t = q.shape[q_axis] - FAULT_TILE
         head = lambda x, a, b: x.narrow(q_axis, a, b - a)  # noqa: E731
         out = flash(q, k, v, causal=causal).clone()
         tail = flash(head(q, t, q.shape[q_axis]), head(k, 0, t), head(v, 0, t), causal=False)
@@ -230,7 +249,7 @@ def build_kernels() -> None:
         lib, secs = futures[name].result()  # a failed build raises here
         print(f"[build] {lib.name} in {secs:.1f}s")
         for line in mod.build_log.splitlines():
-            if "Used" in line or "spill" in line:
+            if "Used" in line or "spill" in line or "entry function" in line:
                 print(f"[ptxas] {name}: {line.strip()}")
 
 
@@ -240,39 +259,69 @@ def phase_kernels(gen) -> list[dict]:
 
 
 def check_flash(gen) -> dict:
+    from repro_torch.kernels.flash_attention.kernel import tma_ready
     from repro_torch.kernels.flash_attention.ops import flash_attention_gqa
     from repro_torch.kernels.flash_attention.ref import attention_ref
 
     def randn(*shape, dtype):
         return torch.randn(shape, generator=gen, device="cuda").to(dtype)
 
+    def model_views(B, H, KV, Sq, Skv, hd, dtype):
+        """q, k and v as the model hands them to the kernel: views of
+        (B, S, KV, G, hd) and (B, S, KV, hd), permuted and transposed."""
+        q = randn(B, Sq, KV, H // KV, hd, dtype=dtype).permute(0, 2, 3, 1, 4)
+        k = randn(B, Skv, KV, hd, dtype=dtype).transpose(1, 2)
+        v = randn(B, Skv, KV, hd, dtype=dtype).transpose(1, 2)
+        return q.reshape(B, H, Sq, hd), k, v
+
+    def contiguous(B, H, KV, Sq, Skv, hd, dtype):
+        return (randn(B, H, Sq, hd, dtype=dtype), randn(B, KV, Skv, hd, dtype=dtype),
+                randn(B, KV, Skv, hd, dtype=dtype))
+
+    def held(label, dname, q, k, v, causal):
+        """The kernel against the plain version, within TOL and ROW_REL_TOL."""
+        out = flash_attention_gqa(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        ref = attention_ref(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        if out.shape != ref.shape or out.dtype != ref.dtype:
+            fail(f"flash {label} {dname}: {out.shape}/{out.dtype} vs {ref.shape}/{ref.dtype}")
+        err, row_rel, *oks = compare(out, ref, dname)
+        print(f"[flash] {dname} {label} max_abs_err {err:.3e} (tol {TOL[dname]}) "
+              f"row rel_l2 {row_rel:.3e} (tol {ROW_REL_TOL[dname]})")
+        if not all(oks):
+            fail(f"flash {label} {dname}: kernel disagrees with the plain version")
+
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[-1]
-        for B, H, KV, Sq, Skv, hd, causal in FA_SHAPES:
-            q = randn(B, H, Sq, hd, dtype=dtype)
-            k = randn(B, KV, Skv, hd, dtype=dtype)
-            v = randn(B, KV, Skv, hd, dtype=dtype)
-            out = flash_attention_gqa(q, k, v, causal=causal)
-            torch.cuda.synchronize()
-            ref = attention_ref(q, k, v, causal=causal)
-            torch.cuda.synchronize()
-            shape = (B, H, KV, Sq, Skv, hd, causal)
-            if out.shape != ref.shape or out.dtype != ref.dtype:
-                fail(f"flash {shape} {dname}: {out.shape}/{out.dtype} vs {ref.shape}/{ref.dtype}")
-            err, row_rel, *oks = compare(out, ref, dname)
-            print(f"[flash] {dname} {shape} max_abs_err {err:.3e} (tol {TOL[dname]}) "
-                  f"row rel_l2 {row_rel:.3e} (tol {ROW_REL_TOL[dname]})")
-            if not all(oks):
-                fail(f"flash {shape} {dname}: kernel disagrees with the plain version")
+        for shape in FA_SHAPES:
+            held(shape, dname, *contiguous(*shape[:6], dtype), shape[6])
+    bf16 = torch.bfloat16
+    for i, shape in enumerate(FA_BF16_EDGES):
+        make = model_views if i == 0 else contiguous
+        held(shape, "bfloat16", *make(*shape[:6], bf16), shape[6])
+    # a base 2 bytes off a 16-byte boundary: TMA cannot read it, so the
+    # wrapper copies it to a contiguous tensor first
+    B, H, KV, S, hd = 1, 4, 2, 256, 64
+    q = randn(B * H * S * hd + 1, dtype=bf16)[1:].view(B, H, S, hd)
+    k, v = contiguous(B, H, KV, S, S, hd, bf16)[1:]
+    if tma_ready(q):
+        fail("a q 2 bytes off a 16-byte boundary passes as TMA-ready")
+    held(f"{(B, H, KV, S, S, hd, True)} q off a 16-byte boundary", "bfloat16", q, k, v, True)
+    # P read back: with V the identity (Skv = hd), O is the normalised P
+    # itself, so a fault in P's register layout shows row by row
+    B, H, KV, S, hd = 1, 4, 2, 128, 128
+    q, k, _ = contiguous(B, H, KV, S, S, hd, bf16)
+    eye = torch.eye(hd, device="cuda", dtype=bf16).expand(B, KV, hd, hd)
+    held(f"{(B, H, KV, S, S, hd, False)} V = identity", "bfloat16", q * 3, k, eye, False)
 
     # qwen2.5-3b serving prefill: q/k/v reach the kernel as the model's
     # transposed views of (B, S, KV, G, hd) and (B, S, KV, hd)
     B, H, KV, S, hd = 4, 16, 2, 1024, 128
     G = H // KV
-    dtype = torch.bfloat16
-    q = randn(B, S, KV, G, hd, dtype=dtype).permute(0, 2, 3, 1, 4).reshape(B, H, S, hd)
-    k = randn(B, S, KV, hd, dtype=dtype).transpose(1, 2)
-    v = randn(B, S, KV, hd, dtype=dtype).transpose(1, 2)
+    q, k, v = model_views(B, H, KV, S, S, hd, bf16)
+    if not all(tma_ready(t) for t in (q, k, v)):
+        fail("the model's strided views would be copied before the kernel")
     out = flash_attention_gqa(q, k, v, causal=True)
     torch.cuda.synchronize()
     ref = attention_ref(q, k, v, causal=True)
@@ -298,6 +347,8 @@ def check_flash(gen) -> dict:
     v_rep = v.repeat_interleave(G, dim=1)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     library_ms = time_ms(lambda: sdpa(q, k_rep, v_rep, is_causal=True))
+    card_ms = time_ms(lambda: flash_attention_gqa(q, k, v, causal=True), card_only=True)
+    card_library_ms = time_ms(lambda: sdpa(q, k_rep, v_rep, is_causal=True), card_only=True)
     lib_err = (sdpa(q, k_rep, v_rep, is_causal=True).float() - ref.float()).abs().max().item()
     print(f"[flash] sdpa yardstick max_abs_err vs plain {lib_err:.3e}")
 
@@ -306,8 +357,18 @@ def check_flash(gen) -> dict:
     nbytes = (q.numel() + k.numel() + v.numel() + out.numel()) * q.element_size()
     t_ops = flops / PEAK_FLOPS["bfloat16"] * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
+    q32, k32, v32 = (t.float() for t in (q, k, v))
+    f32_ms = time_ms(lambda: flash_attention_gqa(q32, k32, v32, causal=True))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(100):  # the host's cost of a call: checks, tensor maps, launch
+        flash_attention_gqa(q, k, v, causal=True)
+    host_us = (time.perf_counter() - t0) * 1e4
+    torch.cuda.synchronize()
     print(f"[flash] prefill: kernel {ms:.4f} ms | plain {plain_ms:.4f} ms | sdpa {library_ms:.4f} ms"
-          f" | bound {max(t_ops, t_bytes):.4f} ms ({flops:.4e} FLOP, {nbytes} B)")
+          f" | bound {max(t_ops, t_bytes):.4f} ms ({flops:.4e} FLOP, {nbytes} B)"
+          f" | f32 scalar kernel {f32_ms:.4f} ms | wrapper host time {host_us:.1f} us a call"
+          f" | card only (card slept first): kernel {card_ms:.4f} ms, sdpa {card_library_ms:.4f} ms")
     return {
         "name": "flash_attention",
         "route": "cuda",
@@ -731,8 +792,8 @@ def phase_model(fp: dict) -> tuple[dict, dict]:
     # Through 36 random-weight layers the bf16 rounding noise itself is a
     # few 1e-2 of relative L2, so the flash path is held to the reference
     # path's own distance from the f32 forward, block by block
-    noise = block_rel(ref, exact, KV_TILE)
-    ratio = (block_rel(out, exact, KV_TILE) / noise).max().item()
+    noise = block_rel(ref, exact, FORWARD_BLOCK)
+    ratio = (block_rel(out, exact, FORWARD_BLOCK) / noise).max().item()
     err = (out.float() - ref.float()).abs().max().item()
     print(f"[model] full-width forward (B=1, S=1024), bf16: flash vs reference max_abs_err "
           f"{err:.3e} rel_l2 {rel(out, ref):.3e} | against the f32-compute forward: reference "
@@ -742,7 +803,7 @@ def phase_model(fp: dict) -> tuple[dict, dict]:
     if out.shape != (1, 1024, cfg.d_model) or not bool(torch.isfinite(out).all()):
         fail("full-width forward: wrong shape or non-finite values")
     for fault, bad in planted.items():
-        b_ratio = (block_rel(bad, exact, KV_TILE) / noise).max().item()
+        b_ratio = (block_rel(bad, exact, FORWARD_BLOCK) / noise).max().item()
         print(f"[model] planted fault '{fault}': rel_l2 vs f32 forward {rel(bad, exact):.3e}, "
               f"worst block ratio {b_ratio:.3f} -> {'PASSED' if b_ratio <= FORWARD_NOISE else 'rejected'}")
         if b_ratio <= FORWARD_NOISE:

@@ -6,38 +6,64 @@
 // k_pos <= q_pos (both counted from 0); a row whose denominator is 0 divides
 // by 1; the output has q's dtype.
 //
-// What bounds it on the H100: at the serving prefill shape (S = 1024,
-// hd = 128, 8 query heads per kv head) the causal work is a few hundred
-// FLOPs per byte of q, k, v and o, above the card's bf16 ridge, so the
-// products bound it.  This first version does them with scalar f32 FMAs on
-// the CUDA cores: no tensor cores (wgmma) and no TMA yet.  What the design
-// does about the bound is what flash attention is for: the score tile and
-// the running state never leave the chip, Q K^T over a tile reuses each
-// shared-memory operand across a 4 x 4 register block, and kv tiles wholly
-// above the causal diagonal are never visited, halving the causal work.
+// What bounds it on the H100: at qwen2.5-3b's serving prefill (B = 4,
+// H = 16, KV = 2, S = 1024, hd = 128, causal) the work is 1.72e10 FLOP of
+// products over 37.7 MB of q, k, v and o: 0.0174 ms at the bf16 tensor-core
+// peak against 0.0113 ms at the memory rate, so the products bound it, and
+// only the tensor cores can approach that bound.
 //
-// Layout of the work:
-//  * one CTA of 128 threads per (b*h, 64-row q tile); a loop over 32-key kv
-//    tiles inside the CTA replaces the TPU's sequential kv grid axis;
-//  * the q tile (pre-scaled, as the TPU kernel does), the k tile and the v
-//    tile are staged in shared memory as f32 (dynamic shared memory, about
-//    74 KB at hd = 128, opted in with cudaFuncSetAttribute);
-//  * thread (ty, tx) owns q rows 4*ty .. 4*ty+3; for those rows it holds a
-//    4 x 4 block of scores (keys tx + 8*c) and the f32 accumulator columns
-//    tx + 8*j, so the running max m and denominator l are reduced across the
-//    8 threads of a row group with warp shuffles and kept in registers;
-//  * K and V are addressed through kv head h / group with the caller's batch,
-//    head and sequence strides, so neither the GQA broadcast nor a
-//    transposed layout is copied;
-//  * the ragged Sq and Skv edges are masked here, so nothing is padded.
+// bfloat16 inputs (the serve path's) take fa_fwd_bf16, built for that:
+//  * both products run on the tensor cores with wgmma (f32 accumulate):
+//    S = Q K^T with Q and K from shared memory (K stored keys x hd is the
+//    K-major B operand), then O += P V with P from registers (the S
+//    accumulator fragment, rounded to bf16, is the A fragment of the next
+//    product, so no shuffle through shared memory) and V from shared memory
+//    as an MN-major B operand (the transpose bit);
+//  * the scale is applied to S in f32 after the product, folded with log2 e
+//    into exp2 (the SFU's ex2.approx): a pre-scaled Q rounded to bf16
+//    would add error;
+//  * K and V stream through a 2-stage ring filled by TMA: one producer
+//    warp issues the copies (mbarrier expect-tx completion) while two
+//    consumer warpgroups of 64 q rows each run the products on the stage
+//    before.  Q's 128-row tile is loaded once per CTA.  The producer keeps
+//    the consumers' register allotment: setmaxnreg acts on a whole
+//    warpgroup, and one warp is a quarter of one;
+//  * the tensor maps are encoded on the host per call over the caller's
+//    strided views (the model's permuted q, transposed k and v), so neither
+//    the GQA broadcast nor a transpose is copied.  Tiles land with the
+//    swizzle the wgmma descriptors name: 128 B for hd 64 and 128 (hd 128 as
+//    two 64-column boxes), 64 B for hd 32, 32 B for hd 16;
+//  * the running max and denominator stay in registers, reduced across the
+//    four threads that share an accumulator row; K/V tiles wholly above
+//    the causal diagonal are never loaded and only diagonal and ragged
+//    tiles are masked (rows that TMA zero-fills past Skv become -inf before
+//    the max); the q tiles of largest q0 launch first, so the long causal
+//    rows do not form the last wave.
 //
-// f32 inputs stay f32 end to end (no TF32); bf16 inputs are widened to f32
-// on load and the output is rounded once.
+// float32 inputs take fa_fwd_f32, scalar f32 FMAs on the CUDA cores (64-row
+// q and 32-key tiles staged as f32 in shared memory, state in registers).
+// It is kept for its contract, full f32 within 2e-4: TF32 tensor cores keep
+// about three decimal digits and cannot meet it.  The serve path never sends
+// it f32.  The choice is by dtype; nothing falls back from one to the other.
+//
+// cuTensorMapEncodeTiled is a driver function, reached through the
+// runtime's entry-point query: the library links nothing beyond cudart.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
+
+// Element strides of the batch, head and sequence dims (head dim is dense).
+struct Strides {
+  long long b, h, s;
+};
+
+// ---------------------------------------------------------------------------
+// float32: scalar kernel
+// ---------------------------------------------------------------------------
 
 constexpr int kBQ = 64;                        // q rows per CTA
 constexpr int kBK = 32;                        // keys per kv tile
@@ -46,20 +72,6 @@ constexpr int kTX = 8;                         // threads sharing a row group
 constexpr int kRQ = kBQ / (kThreads / kTX);    // q rows per thread (4)
 constexpr int kCK = kBK / kTX;                 // key columns per thread (4)
 constexpr float kNegInf = -1e30f;              // the TPU kernel's NEG_INF
-
-__device__ __forceinline__ float load_f32(const float* p) { return *p; }
-__device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-__device__ __forceinline__ void store_f32(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store_f32(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
-
-// Element strides of the batch, head and sequence dims (head dim is dense).
-struct Strides {
-  long long b, h, s;
-};
 
 template <int HD>
 constexpr int smem_floats() {
@@ -78,12 +90,12 @@ __device__ __forceinline__ float row_group_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 4);
 }
 
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(kThreads)
-fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-              const T* __restrict__ v, T* __restrict__ o, int H, int group,
-              int Sq, int Skv, Strides qs, Strides ks, Strides vs, Strides os,
-              float scale, int causal) {
+fa_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
+           const float* __restrict__ v, float* __restrict__ o, int H, int group,
+           int Sq, int Skv, Strides qs, Strides ks, Strides vs, Strides os,
+           float scale, int causal) {
   static_assert(HD % kTX == 0, "head dim must split over a row group");
   constexpr int kLd = HD + 1;    // padded rows: conflict-free column walks
   constexpr int kPd = kBK + 1;
@@ -104,16 +116,16 @@ fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int ty = tid / kTX;
   const int tx = tid - ty * kTX;
 
-  const T* qb = q + b * qs.b + h * qs.h;
-  const T* kb = k + b * ks.b + kvh * ks.h;
-  const T* vb = v + b * vs.b + kvh * vs.h;
-  T* ob = o + b * os.b + h * os.h;
+  const float* qb = q + b * qs.b + h * qs.h;
+  const float* kb = k + b * ks.b + kvh * ks.h;
+  const float* vb = v + b * vs.b + kvh * vs.h;
+  float* ob = o + b * os.b + h * os.h;
 
   for (int i = tid; i < kBQ * HD; i += kThreads) {
     const int r = i / HD;
     const int c = i - r * HD;
     const int qp = q0 + r;
-    sq[r * kLd + c] = qp < Sq ? load_f32(qb + qp * qs.s + c) * scale : 0.f;
+    sq[r * kLd + c] = qp < Sq ? qb[qp * qs.s + c] * scale : 0.f;
   }
 
   float m[kRQ], l[kRQ], acc[kRQ][kDC];
@@ -134,8 +146,8 @@ fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int c = i - r * HD;
       const int kp = k0 + r;
       const bool in = kp < Skv;
-      sk[r * kLd + c] = in ? load_f32(kb + kp * ks.s + c) : 0.f;
-      sv[r * HD + c] = in ? load_f32(vb + kp * vs.s + c) : 0.f;
+      sk[r * kLd + c] = in ? kb[kp * ks.s + c] : 0.f;
+      sv[r * HD + c] = in ? vb[kp * vs.s + c] : 0.f;
     }
     __syncthreads();
 
@@ -206,52 +218,482 @@ fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const float den = l[r] == 0.f ? 1.f : l[r];  // fully masked rows
 #pragma unroll
       for (int j = 0; j < kDC; ++j)
-        store_f32(ob + qp * os.s + tx + j * kTX, acc[r][j] / den);
+        ob[qp * os.s + tx + j * kTX] = acc[r][j] / den;
     }
   }
 }
 
-template <typename T, int HD>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B,
-                   int H, int KV, int Sq, int Skv, Strides qs, Strides ks,
-                   Strides vs, Strides os, float scale, int causal,
-                   cudaStream_t stream) {
+template <int HD>
+cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, int B,
+                       int H, int KV, int Sq, int Skv, Strides qs, Strides ks,
+                       Strides vs, Strides os, float scale, int causal,
+                       cudaStream_t stream) {
   const int smem = smem_floats<HD>() * static_cast<int>(sizeof(float));
   cudaError_t err = cudaFuncSetAttribute(
-      fa_fwd_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      fa_fwd_f32<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(B * H, (Sq + kBQ - 1) / kBQ);
-  fa_fwd_kernel<T, HD><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), H, H / KV, Sq, Skv, qs, ks,
-      vs, os, scale, causal);
+  fa_fwd_f32<HD><<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), H, H / KV, Sq, Skv,
+      qs, ks, vs, os, scale, causal);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch_hd(int hd, const void* q, const void* k, const void* v,
-                        void* o, int B, int H, int KV, int Sq, int Skv,
-                        Strides qs, Strides ks, Strides vs, Strides os,
-                        float scale, int causal, cudaStream_t stream) {
-  switch (hd) {
-    case 16:
-      return launch<T, 16>(q, k, v, o, B, H, KV, Sq, Skv, qs, ks, vs, os, scale, causal, stream);
-    case 32:
-      return launch<T, 32>(q, k, v, o, B, H, KV, Sq, Skv, qs, ks, vs, os, scale, causal, stream);
-    case 64:
-      return launch<T, 64>(q, k, v, o, B, H, KV, Sq, Skv, qs, ks, vs, os, scale, causal, stream);
-    case 128:
-      return launch<T, 128>(q, k, v, o, B, H, KV, Sq, Skv, qs, ks, vs, os, scale, causal, stream);
-    default:
-      return cudaErrorInvalidValue;
+// ---------------------------------------------------------------------------
+// bfloat16: wgmma + TMA kernel
+// ---------------------------------------------------------------------------
+
+namespace hopper {
+
+constexpr int kRows = 128;                // q rows per CTA, and keys per K/V tile
+constexpr int kStages = 2;                // K/V ring depth
+constexpr int kConsumers = 256;           // two warpgroups of 64 q rows each
+constexpr int kThreads = kConsumers + 32; // and one producer warp
+constexpr float kLog2e = 1.4426950408889634f;
+// A wait longer than this (about 2 s at the H100's clock) is a fault (a
+// byte count that never completes); the kernel traps instead of hanging.
+constexpr long long kHangCycles = 1LL << 32;
+
+// Shared-memory geometry at head dim HD.  A tile (Q's, or a stage's K or V)
+// is 128 rows; a row of hd bf16 is split into boxes of at most 64 columns so
+// that a box row is one swizzle span (32, 64 or 128 bytes); each box holds
+// 128 rows, one after another, as TMA writes them.
+template <int HD>
+struct Geometry {
+  static constexpr int kBoxCols = HD < 64 ? HD : 64;
+  static constexpr int kBoxes = HD / kBoxCols;
+  static constexpr int kRowBytes = kBoxCols * 2;
+  static constexpr int kBoxBytes = kRows * kRowBytes;
+  static constexpr int kTileBytes = kBoxes * kBoxBytes;
+  // wgmma descriptor layout type: 1 = 128 B swizzle, 2 = 64 B, 3 = 32 B
+  static constexpr uint64_t kLayout = kRowBytes == 128 ? 1 : kRowBytes == 64 ? 2 : 3;
+  static constexpr int kKOff = kTileBytes;                      // after Q
+  static constexpr int kVOff = kKOff + kStages * kTileBytes;
+  static constexpr int kBarOff = kVOff + kStages * kTileBytes;
+  // barriers (Q, K full x2, V full x2, empty x2) and slack to align the base
+  static constexpr int kSmemBytes = kBarOff + 64 + 1024;
+  static_assert(HD % kBoxCols == 0 && kRowBytes >= 32, "head dim 16, 32, 64 or 128");
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try(uint32_t bar, uint32_t parity) {
+  uint32_t ok;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(ok)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return ok != 0;
+}
+
+// Wait until the barrier's phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  if (mbar_try(bar, parity)) return;
+  const long long t0 = clock64();
+  while (!mbar_try(bar, parity))
+    if (clock64() - t0 > kHangCycles) __trap();
+}
+
+// One box of a 4-d tensor map (hd, rows, heads, batch) into shared memory.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int col, int row, int head, int batch) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4, %5}], [%6];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(col), "r"(row), "r"(head), "r"(batch), "r"(bar)
+      : "memory");
+}
+
+// wgmma shared-memory matrix descriptor: start address, leading and stride
+// byte offsets (16-byte units) and the swizzle layout type.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo,
+                                              uint64_t layout) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | static_cast<uint64_t>(lbo >> 4) << 16 |
+         static_cast<uint64_t>(sbo >> 4) << 32 | layout << 62;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+
+// Keeps the compiler from moving reads of an accumulator across the wait.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// 2^x by the SFU's approximation (relative error about 2^-22), flushing
+// results below 2^-126 to 0: p is rounded to bf16 next, so this is exact
+// enough, and cheaper than exp2f's full-range path.
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+// The accumulator operands of a wgmma: WG_D<n>(0) binds d[0] .. d[n - 1]
+// as in-out registers and WG_R<n> names them (%0 .. %(n - 1)) in the
+// instruction.
+#define WG_D8(i)                                                                               \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), \
+      "+f"(d[i + 6]), "+f"(d[i + 7])
+#define WG_D16(i) WG_D8(i), WG_D8(i + 8)
+#define WG_D32(i) WG_D16(i), WG_D16(i + 16)
+#define WG_D64(i) WG_D32(i), WG_D32(i + 32)
+#define WG_R8 "%0, %1, %2, %3, %4, %5, %6, %7"
+#define WG_R16 WG_R8 ", %8, %9, %10, %11, %12, %13, %14, %15"
+#define WG_R32 WG_R16 ", %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+#define WG_R64                                                                                \
+  WG_R32 ", %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "  \
+         "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+
+// S = Q K^T for one 16-wide k step: m64n128k16, A and B from shared memory.
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint64_t db,
+                                              int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {" WG_R64 "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : WG_D64(0)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// O += P V for one 16-key k step at head dim N: m64nNk16 into NACC = N / 2
+// accumulators, A (P) from registers, B (V) from shared memory, MN-major
+// (transpose bit set).  A, B and P name P's four registers, V's descriptor
+// and the accumulate flag, numbered after the accumulators.
+#define WGMMA_RS(N, NACC, A, B, P)                                                      \
+  __device__ __forceinline__ void wgmma_rs(float (&d)[NACC], const uint32_t (&a)[4],     \
+                                           uint64_t db) {                                \
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, " P ", 0;\n"                          \
+                 "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32.bf16.bf16 {" WG_R##NACC \
+                 "}, {" A "}, " B ", p, 1, 1, 1;\n}\n"                                  \
+                 : WG_D##NACC(0)                                                         \
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));         \
+  }
+WGMMA_RS(16, 8, "%8, %9, %10, %11", "%12", "%13")
+WGMMA_RS(32, 16, "%16, %17, %18, %19", "%20", "%21")
+WGMMA_RS(64, 32, "%32, %33, %34, %35", "%36", "%37")
+WGMMA_RS(128, 64, "%64, %65, %66, %67", "%68", "%69")
+#undef WGMMA_RS
+
+// One CTA: 128 q rows of one (batch, head).  Warps 0-7 are two consumer
+// warpgroups (rows q0 .. q0+63 and q0+64 .. q0+127); warp 8 is the producer,
+// one thread of which issues every copy.
+template <int HD>
+__global__ void __launch_bounds__(kThreads, 1)
+fa_fwd_bf16(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
+            const __grid_constant__ CUtensorMap vmap, __nv_bfloat16* __restrict__ o, int H,
+            int group, int Sq, int Skv, Strides os, float scale, int causal) {
+  using G = Geometry<HD>;
+  extern __shared__ unsigned char smem_raw[];
+  // 1024-byte alignment: the 128 B swizzle pattern repeats every 8 rows
+  const uint32_t base = (smem_addr(smem_raw) + 1023) & ~1023u;
+  const uint32_t sq = base;
+  const uint32_t q_bar = base + G::kBarOff;
+  auto k_tile = [&](int st) { return base + G::kKOff + st * G::kTileBytes; };
+  auto v_tile = [&](int st) { return base + G::kVOff + st * G::kTileBytes; };
+  auto k_full = [&](int st) { return q_bar + 8 * (1 + st); };
+  auto v_full = [&](int st) { return q_bar + 8 * (1 + kStages + st); };
+  auto empty = [&](int st) { return q_bar + 8 * (1 + 2 * kStages + st); };
+
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const int kvh = h / group;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kRows;  // largest q0 first
+  const int kv_end = causal ? min(Skv, q0 + kRows) : Skv;
+  const int n_tiles = (kv_end + kRows - 1) / kRows;
+  const int tid = threadIdx.x;
+
+  if (tid == 0) {
+    mbar_init(q_bar, 1);
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(k_full(st), 1);
+      mbar_init(v_full(st), 1);
+      mbar_init(empty(st), kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= kConsumers) {
+    if (tid == kConsumers) {
+      mbar_expect_tx(q_bar, G::kTileBytes);
+      for (int x = 0; x < G::kBoxes; ++x)
+        tma_load(sq + x * G::kBoxBytes, &qmap, q_bar, x * G::kBoxCols, q0, h, b);
+      for (int it = 0; it < n_tiles; ++it) {
+        const int st = it % kStages;
+        // the stage's previous tile (it - kStages) consumed; passes at once
+        // on the first round
+        mbar_wait(empty(st), ((it / kStages) & 1) ^ 1);
+        mbar_expect_tx(k_full(st), G::kTileBytes);
+        for (int x = 0; x < G::kBoxes; ++x)
+          tma_load(k_tile(st) + x * G::kBoxBytes, &kmap, k_full(st), x * G::kBoxCols,
+                   it * kRows, kvh, b);
+        mbar_expect_tx(v_full(st), G::kTileBytes);
+        for (int x = 0; x < G::kBoxes; ++x)
+          tma_load(v_tile(st) + x * G::kBoxBytes, &vmap, v_full(st), x * G::kBoxCols,
+                   it * kRows, kvh, b);
+      }
+    }
+  } else {
+    // Consumer warpgroup wg: q rows qw .. qw+63.  Thread t holds rows
+    // r0 = 16 * (t / 32) + (t % 32) / 4 and r0 + 8 of them, and columns
+    // 8 j + 2 (t % 4) + {0, 1} of the S and O accumulators.
+    const int wg = tid / 128;
+    const int t = tid % 128;
+    const int lane = t % 32;
+    const int r0 = 16 * (t / 32) + lane / 4;
+    const int qw = q0 + 64 * wg;
+    const int qp0 = qw + r0, qp1 = qp0 + 8;
+    const float c = scale * kLog2e;
+    const float ninf = __int_as_float(0xff800000);
+
+    float acc[HD / 2];
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
+    float m0 = ninf, m1 = ninf;  // running max of scale * log2 e * s
+    float l0 = 0.f, l1 = 0.f;    // this thread's share of the denominator
+
+    mbar_wait(q_bar, 0);
+    const uint32_t q_rows = sq + wg * 64 * G::kRowBytes;
+    for (int it = 0; it < n_tiles; ++it) {
+      const int st = it % kStages;
+      const uint32_t parity = (it / kStages) & 1;
+      const int k0 = it * kRows;
+
+      // S = Q K^T: 64 x 128 keys, K-major A and B, hd / 16 k steps
+      float s[64];
+#pragma unroll
+      for (int i = 0; i < 64; ++i) s[i] = 0.f;
+      mbar_wait(k_full(st), parity);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        const uint32_t off = (kk * 16 / G::kBoxCols) * G::kBoxBytes + (kk * 32) % G::kRowBytes;
+        wgmma_ss_n128(s,
+                      smem_desc(q_rows + off, 16, 8 * G::kRowBytes, G::kLayout),
+                      smem_desc(k_tile(st) + off, 16, 8 * G::kRowBytes, G::kLayout), kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(s);
+
+      // Online softmax in the exp2 domain.  Masked: keys past Skv (TMA
+      // zero-filled them) and, on the diagonal tile, keys after the row.
+      const bool masked = k0 + kRows > Skv || (causal && k0 + kRows - 1 > qw);
+      float mx0 = m0, mx1 = m1;
+#pragma unroll
+      for (int i = 0; i < 64; ++i) {
+        float x = s[i] * c;
+        if (masked) {
+          const int kp = k0 + 8 * (i / 4) + 2 * (lane % 4) + (i % 2);
+          const int qp = (i / 2) % 2 ? qp1 : qp0;
+          if (kp >= Skv || (causal && kp > qp)) x = ninf;
+        }
+        s[i] = x;
+        if ((i / 2) % 2) mx1 = fmaxf(mx1, x);
+        else mx0 = fmaxf(mx0, x);
+      }
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+      // a row with no live key yet keeps p = 0 and alpha = 0 (no inf - inf)
+      const float b0 = mx0 == ninf ? 0.f : mx0;
+      const float b1 = mx1 == ninf ? 0.f : mx1;
+      const float alpha0 = fast_exp2(m0 - b0), alpha1 = fast_exp2(m1 - b1);
+      m0 = mx0;
+      m1 = mx1;
+      float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+      for (int i = 0; i < 64; ++i) {
+        if ((i / 2) % 2) {
+          s[i] = fast_exp2(s[i] - b1);
+          sum1 += s[i];
+        } else {
+          s[i] = fast_exp2(s[i] - b0);
+          sum0 += s[i];
+        }
+      }
+      l0 = l0 * alpha0 + sum0;
+      l1 = l1 * alpha1 + sum1;
+#pragma unroll
+      for (int i = 0; i < HD / 2; ++i) acc[i] *= (i / 2) % 2 ? alpha1 : alpha0;
+
+      // P in bf16, laid out as the A fragments of the 8 k steps of P V
+      uint32_t p[8][4];
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) p[kk][r] = pack_bf16(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
+
+      // O += P V: V (keys x hd, hd contiguous) is the MN-major B operand;
+      // 8 key rows per swizzle atom, the next 64 columns one box further
+      mbar_wait(v_full(st), parity);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk)
+        wgmma_rs(acc, p[kk],
+                 smem_desc(v_tile(st) + kk * 16 * G::kRowBytes, G::kBoxBytes, 8 * G::kRowBytes,
+                           G::kLayout));
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(acc);
+      mbar_arrive(empty(st));
+    }
+
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+    const float inv0 = 1.f / (l0 == 0.f ? 1.f : l0);  // fully masked rows
+    const float inv1 = 1.f / (l1 == 0.f ? 1.f : l1);
+    __nv_bfloat16* ob = o + b * os.b + h * os.h + 2 * (lane % 4);
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j) {
+      if (qp0 < Sq)
+        *reinterpret_cast<__nv_bfloat162*>(ob + qp0 * os.s + 8 * j) =
+            __floats2bfloat162_rn(acc[4 * j] * inv0, acc[4 * j + 1] * inv0);
+      if (qp1 < Sq)
+        *reinterpret_cast<__nv_bfloat162*>(ob + qp1 * os.s + 8 * j) =
+            __floats2bfloat162_rn(acc[4 * j + 2] * inv1, acc[4 * j + 3] * inv1);
+    }
   }
 }
+
+using EncodeTiled = decltype(&cuTensorMapEncodeTiled);
+
+// The driver's cuTensorMapEncodeTiled, looked up once; null if the driver
+// lacks it.
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A 4-d map (hd, rows, heads, batch) over a strided bf16 tensor, boxes of
+// kBoxCols x 128 rows with the swizzle the descriptors expect.  Strides are
+// elements; rows past `rows` read as zeros.
+template <int HD>
+CUresult encode(EncodeTiled encode_fn, CUtensorMap* map, const void* ptr, int rows, int heads,
+                int batch, Strides st) {
+  using G = Geometry<HD>;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(HD), static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(heads), static_cast<cuuint64_t>(batch)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(st.s) * 2,
+                                 static_cast<cuuint64_t>(st.h) * 2,
+                                 static_cast<cuuint64_t>(st.b) * 2};
+  const cuuint32_t box[4] = {G::kBoxCols, kRows, 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUtensorMapSwizzle swizzle = G::kRowBytes == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+                                     : G::kRowBytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                          : CU_TENSOR_MAP_SWIZZLE_32B;
+  return encode_fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
+                   box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                   CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+template <int HD>
+cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, int B, int H,
+                        int KV, int Sq, int Skv, Strides qs, Strides ks, Strides vs,
+                        Strides os, float scale, int causal, cudaStream_t stream) {
+  using G = Geometry<HD>;
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return cudaErrorSymbolNotFound;
+  CUtensorMap qmap, kmap, vmap;
+  // Skv = 0 loads no tile; the maps still need a non-empty row dim
+  const int kv_rows = Skv > 0 ? Skv : 1;
+  if (encode<HD>(fn, &qmap, q, Sq, H, B, qs) != CUDA_SUCCESS ||
+      encode<HD>(fn, &kmap, k, kv_rows, KV, B, ks) != CUDA_SUCCESS ||
+      encode<HD>(fn, &vmap, v, kv_rows, KV, B, vs) != CUDA_SUCCESS)
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      fa_fwd_bf16<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, G::kSmemBytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(B * H, (Sq + kRows - 1) / kRows);
+  fa_fwd_bf16<HD><<<grid, kThreads, G::kSmemBytes, stream>>>(
+      qmap, kmap, vmap, static_cast<__nv_bfloat16*>(o), H, H / KV, Sq, Skv, os, scale, causal);
+  return cudaGetLastError();
+}
+
+}  // namespace hopper
+
+#define REPRO_FA_ARGS q, k, v, o, B, H, KV, Sq, Skv, qs, ks, vs, os, scale, causal, stream
+
+cudaError_t dispatch(int dtype, int hd, const void* q, const void* k, const void* v, void* o,
+                     int B, int H, int KV, int Sq, int Skv, Strides qs, Strides ks, Strides vs,
+                     Strides os, float scale, int causal, cudaStream_t stream) {
+  if (dtype == 0) {
+    switch (hd) {
+      case 16: return launch_f32<16>(REPRO_FA_ARGS);
+      case 32: return launch_f32<32>(REPRO_FA_ARGS);
+      case 64: return launch_f32<64>(REPRO_FA_ARGS);
+      case 128: return launch_f32<128>(REPRO_FA_ARGS);
+    }
+  } else if (dtype == 1) {
+    switch (hd) {
+      case 16: return hopper::launch_bf16<16>(REPRO_FA_ARGS);
+      case 32: return hopper::launch_bf16<32>(REPRO_FA_ARGS);
+      case 64: return hopper::launch_bf16<64>(REPRO_FA_ARGS);
+      case 128: return hopper::launch_bf16<128>(REPRO_FA_ARGS);
+    }
+  }
+  return cudaErrorInvalidValue;
+}
+
+#undef REPRO_FA_ARGS
 
 }  // namespace
 
 // q (B, H, Sq, hd), k and v (B, KV, Skv, hd), o (B, H, Sq, hd), each with
 // the element strides given for its first three dims and a dense head dim.
-// dtype: 0 = float32, 1 = bfloat16.  Returns a cudaError_t (0 = launched).
+// dtype: 0 = float32, 1 = bfloat16; a bfloat16 pointer is 16-byte aligned
+// and its strides are multiples of 8 elements (TMA's terms).  Returns a
+// cudaError_t (0 = launched).
 extern "C" int repro_fa_fwd(const void* q, const void* k, const void* v,
                             void* o, int dtype, int B, int H, int KV, int Sq,
                             int Skv, int hd, long long q_sb, long long q_sh,
@@ -264,15 +706,8 @@ extern "C" int repro_fa_fwd(const void* q, const void* k, const void* v,
     return static_cast<int>(cudaErrorInvalidValue);
   const Strides qs{q_sb, q_sh, q_ss}, ks{k_sb, k_sh, k_ss};
   const Strides vs{v_sb, v_sh, v_ss}, os{o_sb, o_sh, o_ss};
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (dtype == 0)
-    err = dispatch_hd<float>(hd, q, k, v, o, B, H, KV, Sq, Skv, qs, ks, vs, os, scale, causal, s);
-  else if (dtype == 1)
-    err = dispatch_hd<__nv_bfloat16>(hd, q, k, v, o, B, H, KV, Sq, Skv, qs, ks, vs, os, scale, causal, s);
-  else
-    err = cudaErrorInvalidValue;
-  return static_cast<int>(err);
+  return static_cast<int>(dispatch(dtype, hd, q, k, v, o, B, H, KV, Sq, Skv, qs, ks, vs, os,
+                                   scale, causal, static_cast<cudaStream_t>(stream)));
 }
 
 extern "C" const char* repro_fa_error_string(int err) {

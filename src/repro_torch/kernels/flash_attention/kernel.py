@@ -2,8 +2,9 @@
 
 The kernel is CUDA C++ (``csrc/flash_attention.cu``) compiled for ``sm_90a``
 by ``nvcc`` into a shared library with a plain C interface at first use
-(``kernels/_nvcc.py``), then loaded with ``ctypes``.  A failed build raises:
-there is no fallback for CUDA tensors.
+(``kernels/_nvcc.py``), then loaded with ``ctypes``.  bfloat16 runs on the
+wgmma + TMA kernel, float32 on the scalar one.  A failed build raises: there
+is no fallback for CUDA tensors.
 """
 
 from __future__ import annotations
@@ -67,6 +68,40 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError(f"head dim {hd} not in {HEAD_DIMS}")
 
 
+def tma_ready(t: torch.Tensor) -> bool:
+    """Whether TMA can read ``t`` where it lies: a 16-byte-aligned base and,
+    for each of the first three dims longer than 1, a positive stride of a
+    multiple of 16 bytes (the head dim is dense)."""
+    el = t.element_size()
+    return t.data_ptr() % 16 == 0 and all(
+        s > 0 and s * el % 16 == 0 for s, n in zip(t.stride()[:3], t.shape[:3]) if n > 1
+    )
+
+
+def kernel_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> tuple:
+    """q, k and v as the kernel reads them.  The bfloat16 kernel loads
+    through TMA, so an input that breaks TMA's alignment is copied to a
+    contiguous tensor; strided views that keep it (the model's permuted q,
+    transposed k and v) pass as they are.  float32 inputs always pass."""
+    if q.dtype != torch.bfloat16:
+        return q, k, v
+    return tuple(t if tma_ready(t) else t.clone(memory_format=torch.contiguous_format)
+                 for t in (q, k, v))
+
+
+def kernel_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                out: torch.Tensor) -> tuple:
+    """The arguments of ``repro_fa_fwd`` between the pointers and the scale:
+    the dtype code, B, H, KV, Sq, Skv, hd, then the element strides of the
+    batch, head and sequence dims of q, k, v and out.  A dim of length 1 is
+    never stepped over; its stride is given as hd, which TMA accepts."""
+    B, H, Sq, hd = q.shape
+    KV, Skv = k.shape[1], k.shape[2]
+    strides = [s if n > 1 else hd
+               for t in (q, k, v, out) for s, n in zip(t.stride()[:3], t.shape[:3])]
+    return (_DTYPES[q.dtype], B, H, KV, Sq, Skv, hd, *strides)
+
+
 def flash_attention_fwd(
     q: torch.Tensor,   # (B, H, Sq, hd)
     k: torch.Tensor,   # (B, KV, Skv, hd)
@@ -77,17 +112,15 @@ def flash_attention_fwd(
 ) -> torch.Tensor:
     """Launch the kernel on PyTorch's current stream; returns (B, H, Sq, hd)."""
     _check(q, k, v)
+    q, k, v = kernel_inputs(q, k, v)
     B, H, Sq, hd = q.shape
-    KV, Skv = k.shape[1], k.shape[2]
     out = torch.empty((B, H, Sq, hd), dtype=q.dtype, device=q.device)
     lib = _library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.repro_fa_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            _DTYPES[q.dtype], B, H, KV, Sq, Skv, hd,
-            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
-            float(scale), int(causal), stream,
+            *kernel_args(q, k, v, out), float(scale), int(causal), stream,
         )
     if err != 0:
         msg = lib.repro_fa_error_string(err).decode()

@@ -123,3 +123,123 @@ def test_kernel_source_targets_hopper():
     assert 'extern "C" int repro_fa_fwd' in src
     assert "arch=compute_90a,code=sm_90a" in fa_kernel.NVCC_FLAGS
     assert fa_kernel.HEAD_DIMS == (16, 32, 64, 128)
+    assert "wgmma.mma_async" in src and ".m64n128k16.f32.bf16.bf16" in src
+    assert "cp.async.bulk.tensor.4d" in src and "mbarrier.arrive.expect_tx" in src
+    # the tensor-map encoder comes from the driver through the runtime, so
+    # the library is built with the flags every kernel shares
+    assert "cuTensorMapEncodeTiled" in src and "cudaGetDriverEntryPoint" in src
+
+
+def _rand(*shape, dtype):
+    return torch.from_numpy(np.random.default_rng(4).normal(size=shape).astype(np.float32)).to(dtype)
+
+
+def _model_views(B, H, KV, S, hd, dtype, device="cpu"):
+    """q, k and v as ``models/attention.py::_flash`` hands them to the kernel."""
+    q = _rand(B, S, KV, H // KV, hd, dtype=dtype).to(device)
+    kv = _rand(B, S, KV, hd, dtype=dtype).to(device)
+    return q.permute(0, 2, 3, 1, 4).reshape(B, H, S, hd), kv.transpose(1, 2), kv.transpose(1, 2)
+
+
+@pytest.mark.parametrize("dtype, code", [(torch.bfloat16, 1), (torch.float32, 0)])
+@pytest.mark.parametrize("device", ["cpu", "meta"])
+def test_kernel_args_route_by_dtype_and_keep_model_strides(dtype, code, device):
+    """What reaches ``repro_fa_fwd``: the dtype code picks the kernel
+    (bfloat16 wgmma + TMA, float32 scalar) and the model's permuted and
+    transposed views arrive with their own strides, uncopied."""
+    B, H, KV, S, hd = 2, 8, 2, 48, 32
+    q, k, v = _model_views(B, H, KV, S, hd, dtype, device)
+    assert fa_kernel.kernel_inputs(q, k, v) == (q, k, v)
+    out = torch.empty((B, H, S, hd), dtype=dtype, device=device)
+    args = fa_kernel.kernel_args(q, k, v, out)
+    assert args[:7] == (code, B, H, KV, S, S, hd)
+    assert args[7:10] == (S * H * hd, hd, H * hd)          # q: sequence stride H*hd
+    assert args[10:13] == args[13:16] == (S * KV * hd, hd, KV * hd)
+    assert args[16:] == (H * S * hd, S * hd, hd)
+
+
+def test_kernel_args_give_unit_dims_a_tma_stride():
+    """A dim of length 1 is never stepped over: its stride is sent as hd,
+    whatever the view says."""
+    q = torch.zeros(1, 2, 5, 16, dtype=torch.bfloat16).as_strided((1, 2, 1, 16), (3, 80, 7, 1))
+    k = torch.zeros(1, 1, 5, 16, dtype=torch.bfloat16)
+    args = fa_kernel.kernel_args(q, k, k, q)
+    assert args[7:10] == (16, 80, 16) and args[10:13] == (16, 16, 16)
+
+
+def _misaligned_base(dtype):
+    return _rand(2 * 4 * 8 * 32 + 1, dtype=dtype)[1:].view(2, 4, 8, 32)
+
+
+def _odd_sequence_stride(dtype):
+    return _rand(2, 4, 8, 33, dtype=dtype)[..., :32]
+
+
+def _head_broadcast(dtype):
+    return _rand(2, 1, 8, 32, dtype=dtype).expand(2, 4, 8, 32)
+
+
+def _odd_unit_strides(dtype):
+    return _rand(1, 4, 1, 32, dtype=dtype).as_strided((1, 4, 1, 32), (5, 32, 3, 1))
+
+
+@pytest.mark.parametrize("make, copied", [
+    (lambda dt: _model_views(2, 8, 2, 48, 32, dt)[0], False),
+    (lambda dt: _model_views(2, 8, 2, 48, 32, dt)[1], False),
+    (lambda dt: _rand(2, 4, 8, 32, dtype=dt), False),
+    (_odd_unit_strides, False),
+    (_misaligned_base, True),
+    (_odd_sequence_stride, True),
+    (_head_broadcast, True),
+], ids=["model-q", "model-kv", "contiguous", "odd-unit-strides", "base-off-16B",
+        "odd-seq-stride", "stride-0"])
+def test_bf16_inputs_off_tma_alignment_are_copied(make, copied):
+    """bfloat16 inputs that TMA cannot read (base off 16 bytes, a stride not
+    a multiple of 16 bytes, a broadcast) are copied to contiguous tensors
+    with the same values; the rest pass as they are.  float32 always passes."""
+    t = make(torch.bfloat16)
+    assert fa_kernel.tma_ready(t) is not copied
+    got = fa_kernel.kernel_inputs(t, t, t)
+    for g in got:
+        assert (g is not t) is copied
+        torch.testing.assert_close(g, t, rtol=0, atol=0)
+        if copied:
+            assert g.is_contiguous() and fa_kernel.tma_ready(g)
+    t32 = make(torch.float32)
+    assert all(g is t32 for g in fa_kernel.kernel_inputs(t32, t32, t32))
+
+
+def test_non_cpu_tensors_go_to_the_launcher(monkeypatch):
+    """A tensor off the CPU goes to the kernel launcher with the model's
+    views uncopied and the default scale; the launch is counted.  (``meta``
+    stands in for a CUDA tensor.)"""
+    seen = {}
+
+    def launcher(q, k, v, *, causal, scale):
+        seen.update(q=q, k=k, v=v, causal=causal, scale=scale)
+        return torch.empty_like(q)
+
+    monkeypatch.setattr(fa_ops, "flash_attention_fwd", launcher)
+    q, k, v = _model_views(1, 4, 2, 16, 64, torch.bfloat16, "meta")
+    fa_ops.launch_count = 0
+    out = fa_ops.flash_attention_gqa(q, k, v)
+    assert fa_ops.launch_count == 1 and out.shape == q.shape
+    assert seen["q"] is q and seen["k"] is k and seen["v"] is v
+    assert seen["causal"] is True and seen["scale"] == 64**-0.5
+
+
+@pytest.mark.parametrize("kernel_name", ["flash_attention", "ssd_scan", "fingerprint"])
+def test_library_name_hashes_source_and_shared_flags(kernel_name, tmp_path):
+    """Every kernel's library is named by a hash of its source and the one
+    shared ``NVCC_FLAGS``, and a library of that name is reused without
+    ``nvcc``: the flash kernel needs no flags of its own."""
+    import hashlib
+    import importlib
+
+    from repro_torch.kernels import _nvcc
+
+    mod = importlib.import_module(f"repro_torch.kernels.{kernel_name}.kernel")
+    digest = hashlib.sha256(mod.SOURCE.read_bytes() + " ".join(_nvcc.NVCC_FLAGS).encode())
+    want = tmp_path / f"lib{kernel_name}_{digest.hexdigest()[:16]}.so"
+    want.write_bytes(b"")
+    assert _nvcc.compile_library(mod.SOURCE, tmp_path, kernel_name) == (want, "")
