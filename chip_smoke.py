@@ -17,14 +17,19 @@ Phases, each of which must pass (any failure exits non-zero):
      scalar kernel is timed there too;
    * the SSD scan over the kernel test shapes x {float32, bfloat16}
      (tolerance 5e-4 / 3e-2 on y and the final state, plus a per-step
-     relative L2 limit on y) and at mamba2-130m's serving prefill geometry
-     with head-broadcast B and C, where three planted faults must be
-     rejected;
+     relative L2 limit on y), over bf16 shapes at the tensor-core kernel's
+     edges (ragged S, S below one chunk, B/C per head, x off a 16-byte
+     boundary, so that both of its load modes run), and at mamba2-130m's
+     serving prefill geometry with head-broadcast B and C, where three
+     planted faults must be rejected; timed there by both methods, with
+     the wrapper's host cost, the f32 kernel and batch 8 beside it;
    * the tensor fingerprint, where tokens must be equal, not close: the
      kernel gives every pinned JAX token of ``FP_GOLDEN``, equals the plain
-     version over byte lengths that straddle word and block edges, at byte
-     offsets 0-3 and up to 64 MiB, and sees a one-bit flip at the first
-     byte, the last byte and a block boundary of a 1 GiB buffer.
+     version over byte lengths that straddle word and block edges and the
+     TMA route's stage and ring edges, up to 64 MiB, at byte offsets 0
+     (the TMA route) and 1-3, 4, 8 and 12 (the register-ring route), and
+     sees a one-bit flip at the first byte, the last byte and a block
+     boundary of a 1 GiB buffer.
    Times the flash and SSD kernels, their plain versions and, where one
    exists, one PyTorch library call at the serving geometry for the
    ``kernels`` line.
@@ -37,7 +42,8 @@ Phases, each of which must pass (any failure exits non-zero):
    runs on qwen2.5-3b's full-width f32 parameters: every leaf fingerprinted
    twice by the kernel (the tokens must agree), each leaf no larger than
    the embedding and one (36, 2048, 11008) MLP stack held to the plain
-   version, and the kernel timed at the largest leaf and the embedding.
+   version, and the kernel timed at the largest leaf and the embedding
+   (with the measured cycles a chain step).
 3. Serve: ``repro_torch.launch.serve`` at full qwen2.5-3b width, then at
    full mamba2-130m width, behind ``Session``/``ModelServer``.  Launch
    counts are set to 0 just before each serve and read just after; every
@@ -119,6 +125,14 @@ SSD_SHAPES = [
 SSD_TOL = {"float32": 5e-4, "bfloat16": 3e-2}
 SSD_STEP_REL_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
 SSD_CHUNK = 128  # mamba2-130m's chunk: the model check's block of tokens
+# bf16 shapes at the tensor-core kernel's edges, at mamba2-130m's width
+# (B, S, H, P, N, B/C head-broadcast): ragged S, S below one chunk, and B/C
+# not broadcast
+SSD_BF16_EDGES = [
+    (2, 1000, 24, 64, 128, True),
+    (4, 37, 24, 64, 128, True),
+    (2, 256, 24, 64, 128, False),
+]
 # Planted faults the SSD checks must reject (each built from wrapper calls)
 SSD_FAULTS = ("state not carried across chunks", "initial state ignored",
               "final state dropped")
@@ -148,18 +162,34 @@ FP_GOLDEN = [
     ("float64", (1000,), 12, "5a04968bc3a7ff96"),
     ("int64", (1000,), 13, "59cf30aaace3fd17"),
 ]
+# The TMA route's stage and ring in blocks of 4096 B (TMA_ROWS and
+# TMA_ROWS * TMA_STAGES in the kernel's kernel.py; check_fingerprint holds them)
+FP_STAGE_BLOCKS = 2048
+FP_RING_BLOCKS = 3 * 2048
 # Byte lengths of the kernel-against-plain sweep: word and block edges, the
-# kernel's 64-block prefetch ring, 4k+1 and 4k+3, and up to 64 MiB
+# register ring's 64 blocks, 4k+1 and 4k+3, one TMA stage and one TMA ring of
+# blocks (each -1, +0 and +1 block, and +1 byte), and up to 64 MiB
 FP_LENGTHS = [1, 2, 3, 4, 5, 7, 63, 64, 65, 4093, 4095, 4096, 4097, 4099, 8191, 8192, 8193,
               4 * 12_345 + 1, 4 * 12_345 + 3, 64 * 4096 - 1, 64 * 4096, 64 * 4096 + 1,
-              129 * 4096 + 5, 2**20 + 3, 2**24 + 1, 2**26 - 1, 2**26]
-FP_OFFSETS = (0, 1, 2, 3)  # byte offsets of the sweep's views (alignment)
+              129 * 4096 + 5,
+              *(4096 * (blocks + d) for blocks in (FP_STAGE_BLOCKS, FP_RING_BLOCKS)
+                for d in (-1, 0, 1)),
+              4096 * FP_STAGE_BLOCKS + 1, 4096 * FP_RING_BLOCKS + 1,
+              2**20 + 3, 2**24 + 1, 2**26 - 1, 2**26]
+# byte offsets of the sweep's views: 0 takes the TMA route (a 16-byte-aligned
+# start); 1-3 (off a word) and 4, 8, 12 (on a word, off 16 bytes) the
+# register-ring route
+FP_OFFSETS = (0, 1, 2, 3, 4, 8, 12)
 FP_FLIP_BYTES = 1 << 30  # the bit-flip buffer
 # H100 SXM: 132 SMs x 64 INT32 lanes (Hopper white paper) at the 1.98 GHz
 # boost clock, one operation a lane a cycle
 PEAK_INT32_OPS = 132 * 64 * 1.98e9
-# cycles of one dependent step of a lane's chain: IMAD (4) then LOP3 (2)
-FP_CHAIN_CYCLES = 6
+# cycles of one dependent step of a lane's chain, IMAD then LOP3, as the
+# kernel runs it on the H100: the TMA route's layout comparison
+# (kernels/fingerprint/bench.py) reads 10.5 with its tallest stages, of which
+# a few hundred cycles a stage are not the chain's; the leaves' lines print
+# the measured cycles
+FP_CHAIN_CYCLES = 10
 
 
 def fail(msg: str) -> None:
@@ -434,6 +464,7 @@ def compare_ssd(y, state, y_ref, s_ref, dname: str) -> tuple[float, float, bool,
 
 
 def check_ssd(gen) -> dict:
+    from repro_torch.kernels.ssd_scan.kernel import kernel_route
     from repro_torch.kernels.ssd_scan.ops import ssd_scan
 
     def inputs(B, S, H, P, N, dtype, shared_bc=False):
@@ -451,25 +482,46 @@ def check_ssd(gen) -> dict:
         s0 = randn(B, H, P, N) * 0.2
         return x, a, b, c, s0
 
-    def report(label, dname, res):
+    def report(label, dname, res, route=""):
         err, step_rel, *_ = res
         print(f"[ssd] {label} {dname} max_abs_err {err:.3e} (tol {SSD_TOL[dname]}) "
-              f"step rel_l2 {step_rel:.3e} (tol {SSD_STEP_REL_TOL[dname]})")
+              f"step rel_l2 {step_rel:.3e} (tol {SSD_STEP_REL_TOL[dname]}){route}")
+
+    routes = {}
+
+    def held(label, dname, x, a, b, c, s0, chunk):
+        """The kernel against the plain version, within SSD_TOL and SSD_STEP_REL_TOL."""
+        route = kernel_route(x, b, c)
+        routes[route] = routes.get(route, 0) + 1
+        y, sf = ssd_scan(x, a, b, c, s0, chunk=chunk)
+        torch.cuda.synchronize()
+        y_ref, s_ref = ssd_plain(x, a, b, c, s0)
+        if y.shape != y_ref.shape or y.dtype != x.dtype or sf.dtype != torch.float32:
+            fail(f"ssd {label} {dname}: {y.shape}/{y.dtype}/{sf.dtype}")
+        res = compare_ssd(y, sf, y_ref, s_ref, dname)
+        report(label, dname, res, f" | {route[0]} kernel, {route[1]} loads")
+        if not all(res[2:]):
+            fail(f"ssd {label} {dname}: kernel disagrees with the plain version")
 
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[-1]
         for shape in SSD_SHAPES:
             B, S, H, P, N, chunk = shape
-            x, a, b, c, s0 = inputs(B, S, H, P, N, dtype)
-            y, sf = ssd_scan(x, a, b, c, s0, chunk=chunk)
-            torch.cuda.synchronize()
-            y_ref, s_ref = ssd_plain(x, a, b, c, s0)
-            if y.shape != y_ref.shape or y.dtype != dtype or sf.dtype != torch.float32:
-                fail(f"ssd {shape} {dname}: {y.shape}/{y.dtype}/{sf.dtype}")
-            res = compare_ssd(y, sf, y_ref, s_ref, dname)
-            report(shape, dname, res)
-            if not all(res[2:]):
-                fail(f"ssd {shape} {dname}: kernel disagrees with the plain version")
+            held(shape, dname, *inputs(B, S, H, P, N, dtype), chunk)
+    for B, S, H, P, N, shared in SSD_BF16_EDGES:
+        held((B, S, H, P, N, SSD_CHUNK, "shared B/C" if shared else "B/C per head"), "bfloat16",
+             *inputs(B, S, H, P, N, torch.bfloat16, shared_bc=shared), SSD_CHUNK)
+    # x 2 bytes off a 16-byte boundary: the tensor-core kernel loads it element
+    # by element, in place
+    x, a, b, c, s0 = inputs(2, 300, 4, 64, 64, torch.bfloat16)
+    x = torch.cat([x.new_zeros(1), x.reshape(-1)])[1:].view(x.shape)
+    held((2, 300, 4, 64, 64, SSD_CHUNK, "x off a 16-byte boundary"), "bfloat16", x, a, b, c, s0,
+         SSD_CHUNK)
+    want = {("scalar", "elementwise"), ("tensor-core", "cp.async16"),
+            ("tensor-core", "elementwise")}
+    if set(routes) != want:
+        fail(f"the SSD checks took the routes {routes}, not all of {want}")
+    print(f"[ssd] routes taken (kernel, loads): {routes}")
 
     # mamba2-130m serving prefill: batch 4 of 1024 steps, 24 heads, B and C
     # head-broadcast views (head stride 0), as apply_mamba passes them
@@ -496,8 +548,22 @@ def check_ssd(gen) -> dict:
         if b_within and b_step_ok:
             fail(f"the kernel check does not see the planted fault '{fault}'")
 
-    ms = time_ms(lambda: ssd_scan(x, a, b, c, s0, chunk=SSD_CHUNK))
+    scan = lambda: ssd_scan(x, a, b, c, s0, chunk=SSD_CHUNK)  # noqa: E731
+    ms = time_ms(scan)
+    card_ms = time_ms(scan, card_only=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(100):  # the host's cost of a call: checks, routing, launch
+        scan()
+    host_us = (time.perf_counter() - t0) * 1e4
+    torch.cuda.synchronize()
     plain_ms = time_ms(lambda: ssd_plain(x, a, b, c, s0), iters=3, warmup=1)
+    x32, b32, c32 = x.float(), b.float(), c.float()
+    f32_ms = time_ms(lambda: ssd_scan(x32, a, b32, c32, s0, chunk=SSD_CHUNK))
+    # batch 8: 192 streams, more than the 132 SMs at one CTA an SM (a second wave)
+    x8, a8, b8, c8, s08 = inputs(2 * B, S, H, P, N, dtype, shared_bc=True)
+    card8_ms = time_ms(lambda: ssd_scan(x8, a8, b8, c8, s08, chunk=SSD_CHUNK), card_only=True)
+    del x8, a8, b8, c8, s08, x32, b32, c32
     Q, n_chunks = SSD_CHUNK, S // SSD_CHUNK
     # per chunk: C B^T, its product with X, C S^T and the state update
     flops = (2 * Q * Q * N + 2 * Q * Q * P + 2 * Q * N * P + 2 * P * Q * N) * n_chunks * B * H
@@ -508,7 +574,10 @@ def check_ssd(gen) -> dict:
     t_ops = flops / PEAK_FLOPS["bfloat16"] * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
     print(f"[ssd] prefill: kernel {ms:.4f} ms | plain {plain_ms:.4f} ms | library none"
-          f" | bound {max(t_ops, t_bytes):.4f} ms ({flops:.4e} FLOP, {nbytes} B)")
+          f" | bound {max(t_ops, t_bytes):.4f} ms ({flops:.4e} FLOP, {nbytes} B)"
+          f" | card only (card slept first) {card_ms:.4f} ms | wrapper host time "
+          f"{host_us:.1f} us a call | f32 scalar kernel {f32_ms:.4f} ms | batch {2 * B} "
+          f"card only {card8_ms:.4f} ms ({card8_ms / card_ms:.2f}x batch {B})")
     return {
         "name": "ssd_scan",
         "route": "cuda",
@@ -557,10 +626,14 @@ def fp_golden_tensor(kind: str, shape: tuple, seed: int, device) -> torch.Tensor
 def check_fingerprint(gen) -> dict:
     """Token equality, not closeness: the kernel against the pinned JAX
     tokens, against the plain version on the sweep, and under bit flips."""
+    from repro_torch.kernels.fingerprint import kernel as fp_kernel
     from repro_torch.kernels.fingerprint import ops as fp_ops
     from repro_torch.kernels.fingerprint.ops import format_token as fp_token
     from repro_torch.kernels.fingerprint.ref import fingerprint_ref
 
+    if (FP_STAGE_BLOCKS, FP_RING_BLOCKS) != (fp_kernel.TMA_ROWS,
+                                             fp_kernel.TMA_ROWS * fp_kernel.TMA_STAGES):
+        fail("FP_STAGE_BLOCKS / FP_RING_BLOCKS do not match the kernel's TMA ring")
     for kind, shape, seed, want in FP_GOLDEN:
         t = fp_golden_tensor(kind, shape, seed, "cuda")
         got = fp_ops.fingerprint_token(t)
@@ -571,22 +644,29 @@ def check_fingerprint(gen) -> dict:
 
     buf = torch.randint(0, 256, (FP_LENGTHS[-1] + 8,), dtype=torch.uint8, device="cuda",
                         generator=gen)
-    n_cases = 0
+    n_cases, routes = 0, {"tma": 0, "ring": 0}
     for n in FP_LENGTHS:
         for off in FP_OFFSETS:
             view = buf[off:off + n]
+            route = fp_kernel.route(view)
+            if route != ("tma" if off % 16 == 0 else "ring"):
+                fail(f"a view at byte offset {off} takes the {route} route")
             got = fp_token(fp_ops.fingerprint(view))
             want = fp_token(fingerprint_ref(view))
             if got != want:
-                fail(f"fingerprint of {n} bytes at offset {off}: kernel {got}, plain {want}")
+                fail(f"fingerprint of {n} bytes at offset {off} ({route} route): kernel {got}, "
+                     f"plain {want}")
             n_cases += 1
+            routes[route] += 1
+    if not all(routes.values()):
+        fail(f"the sweep did not launch both routes: {routes}")
     # a 16-bit view at an odd element starts 2 bytes off a word boundary
     halves = buf[:2 * 4097].view(torch.float16)[1:]
     if fp_token(fp_ops.fingerprint(halves)) != fp_token(fingerprint_ref(fp_ops.as_bytes(halves))):
         fail("fingerprint of a float16 view at an odd element: kernel and plain differ")
     print(f"[fingerprint] kernel equals the plain version on {n_cases + 1} inputs "
           f"({len(FP_LENGTHS)} lengths of 1 B to {FP_LENGTHS[-1]} B x offsets {FP_OFFSETS}, "
-          f"one float16 view)")
+          f"one float16 view) | routes: TMA {routes['tma']}, register ring {routes['ring'] + 1}")
     del buf
 
     big = torch.randint(0, 256, (FP_FLIP_BYTES,), dtype=torch.uint8, device="cuda",
@@ -650,6 +730,7 @@ def fingerprint_leaves(params, fp: dict) -> dict:
     tree through the kernel, twice; leaves no larger than the embedding and
     one MLP stack against the plain version.  Fills ``fp``'s numbers for the
     ``kernels`` line and returns the timings of both timed leaves."""
+    from repro_torch.kernels.fingerprint import kernel as fp_kernel
     from repro_torch.kernels.fingerprint import ops as fp_ops
     from repro_torch.kernels.fingerprint.ops import format_token as fp_token
     from repro_torch.kernels.fingerprint.ref import fingerprint_ref
@@ -699,17 +780,20 @@ def fingerprint_leaves(params, fp: dict) -> dict:
         t_ops = 0.75 * n / PEAK_INT32_OPS * 1e3  # add, multiply, xor per 4-byte word
         blocks = -(-n // 4096)
         chain = blocks * FP_CHAIN_CYCLES / clock * 1e3
-        print(f"[fingerprint] {name} {tuple(t.shape)} {n:,} B: kernel {ms:.4f} ms "
+        cycles = ms * 1e-3 * clock / blocks  # measured cycles a chain step
+        route = fp_kernel.route(fp_ops.as_bytes(t))
+        print(f"[fingerprint] {name} {tuple(t.shape)} {n:,} B ({route} route): kernel {ms:.4f} ms "
               f"({n / ms / 1e6:.1f} GB/s) | plain {plain_ms[name]:.1f} ms | read yardstick "
               f"int32 sum {read_ms:.4f} ms | byte bound {t_bytes:.4f} ms (operations "
               f"{t_ops:.4f} ms) | chain estimate {chain:.4f} ms ({blocks:,} steps x "
-              f"{FP_CHAIN_CYCLES} cycles at {clock / 1e6:.0f} MHz)")
+              f"{FP_CHAIN_CYCLES} cycles at {clock / 1e6:.0f} MHz) | measured {cycles:.2f} "
+              f"cycles a chain step")
         if name == largest:
             fp.update(launches=launches, ms=ms, plain_ms=plain_ms[name],
                       bound_ms=max(t_bytes, t_ops),
                       bound_by="operations" if t_ops > t_bytes else "bytes")
         detail[name] = {"bytes": n, "ms": ms, "plain_ms": plain_ms[name], "read_ms": read_ms,
-                        "bound_ms": t_bytes, "chain_ms": chain}
+                        "bound_ms": t_bytes, "chain_ms": chain, "cycles_per_step": cycles}
     return detail
 
 

@@ -4,6 +4,12 @@ The kernel is CUDA C++ (``csrc/ssd_scan.cu``) compiled for ``sm_90a`` by
 ``nvcc`` into a shared library with a plain C interface at first use
 (``kernels/_nvcc.py``), then loaded with ``ctypes``.  A failed build raises:
 there is no fallback for CUDA tensors.
+
+The kernel is chosen by dtype (``kernel_route``): bfloat16 runs on the
+tensor-core kernel, float32 on the scalar one.  The tensor-core kernel loads
+with 16-byte ``cp.async`` when every row of x, b and c starts on a 16-byte
+boundary (the model's views do), else element by element; the C side
+refuses a 16-byte load it cannot make, so nothing is rerouted there.
 """
 
 from __future__ import annotations
@@ -43,7 +49,7 @@ def _library() -> ctypes.CDLL:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
             vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-            lib.repro_ssd_scan.argtypes = [vp] * 7 + [i32] * 7 + [i64] * 15 + [vp]
+            lib.repro_ssd_scan.argtypes = [vp] * 7 + [i32] * 8 + [i64] * 15 + [vp]
             lib.repro_ssd_scan.restype = i32
             lib.repro_ssd_error_string.argtypes = [i32]
             lib.repro_ssd_error_string.restype = ctypes.c_char_p
@@ -73,6 +79,33 @@ def _check(x, a, b, c, s0, chunk: int) -> None:
         raise ValueError(f"state width {N} and chunk {chunk} must be in 1..{MAX_STATE}")
 
 
+def rows_aligned(t: torch.Tensor) -> bool:
+    """Whether 16-byte ``cp.async`` can read every row (last dim) of a bf16
+    (B, S, H, n) tensor: a 16-byte-aligned base, strides of multiples of 8
+    elements and n a multiple of 8 (a head stride of 0 is one)."""
+    return (t.data_ptr() % 16 == 0 and t.shape[3] % 8 == 0
+            and all(st % 8 == 0 for st in t.stride()[:3]))
+
+
+def kernel_route(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> tuple[str, str]:
+    """(kernel, loads) for these inputs: ("tensor-core", "cp.async16" or
+    "elementwise") for bfloat16, ("scalar", "elementwise") for float32."""
+    if x.dtype == torch.float32:
+        return "scalar", "elementwise"
+    aligned = all(rows_aligned(t) for t in (x, b, c))
+    return "tensor-core", "cp.async16" if aligned else "elementwise"
+
+
+def kernel_args(x, a, b, c, y, chunk: int) -> tuple:
+    """The arguments of ``repro_ssd_scan`` between the pointers and the
+    stream: dtype code, load mode, B, S, H, P, N, chunk, then the element
+    strides of the batch, sequence and head dims of x, a, b, c and y."""
+    B, S, H, P = x.shape
+    load_mode = 1 if kernel_route(x, b, c)[1] == "cp.async16" else 0
+    return (_DTYPES[x.dtype], load_mode, B, S, H, P, b.shape[3], chunk,
+            *x.stride()[:3], *a.stride(), *b.stride()[:3], *c.stride()[:3], *y.stride()[:3])
+
+
 def ssd_scan_fwd(
     x: torch.Tensor,    # (B, S, H, P)
     a: torch.Tensor,    # (B, S, H) float32
@@ -97,9 +130,7 @@ def ssd_scan_fwd(
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.repro_ssd_scan(
             x.data_ptr(), a.data_ptr(), b.data_ptr(), c.data_ptr(), s0.data_ptr(),
-            y.data_ptr(), s_out.data_ptr(), _DTYPES[x.dtype], B, S, H, P, N, chunk,
-            *x.stride()[:3], *a.stride(), *b.stride()[:3], *c.stride()[:3], *y.stride()[:3],
-            stream,
+            y.data_ptr(), s_out.data_ptr(), *kernel_args(x, a, b, c, y, chunk), stream,
         )
     if err != 0:
         msg = lib.repro_ssd_error_string(err).decode()

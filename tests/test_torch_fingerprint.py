@@ -324,3 +324,81 @@ def test_kernel_source_targets_hopper_and_keeps_the_constants():
     assert f"kLanes = {fp_kernel.LANES}" in src and fp_kernel.LANES == fp_ref.BLOCK_U32
     for name, value in (("kSeed", fp_ref.SEED), ("kPhi", fp_ref.PHI), ("kM1", fp_ref.M1)):
         assert f"{name} = 0x{value:08X}u" in src
+
+
+@pytest.mark.parametrize("offset, route", [(0, "tma"), (16, "tma"), (4096, "tma"), (1, "ring"),
+                                           (2, "ring"), (3, "ring"), (4, "ring"), (8, "ring"),
+                                           (12, "ring")])
+def test_route_follows_the_16_byte_alignment(launcher, offset, route):
+    """A view whose first byte is 16-byte aligned takes the TMA route, any
+    other the register ring; either way it reaches the launcher uncopied."""
+    base = torch.empty(3 * 4096, dtype=torch.uint8, device="meta")
+    view = base[offset:offset + 4097]
+    assert fp_kernel.route(view) == route
+    fp_ops.fingerprint(view)
+    data = launcher["data"]
+    assert _same_storage(data, base) and data.storage_offset() == offset
+    assert fp_kernel.route(data) == route
+
+
+def test_tma_geometry_of_the_mlp_stack():
+    """The map over qwen2.5-3b's (36, 2048, 11008) f32 MLP stack: whole
+    blocks as rows of 1024 words, 4096 bytes apart, read in boxes of the
+    default layout."""
+    n = 36 * 2048 * 11008 * 4
+    geo = fp_kernel.tma_geometry(n)
+    assert geo["dims"] == (1024, n // 4096) == (1024, 792_576)
+    assert geo["strides"] == (4096,)
+    assert geo["box"] == (fp_kernel.TMA_LANES, min(fp_kernel.TMA_ROWS, 256))
+    assert geo["boxes_a_stage"] * geo["box"][1] == fp_kernel.TMA_ROWS
+    assert geo["grid"] * fp_kernel.TMA_LANES == 1024
+    assert geo["stages_filled"] == -(-792_576 // fp_kernel.TMA_ROWS)
+    assert geo["stage_bytes"] == 4 * fp_kernel.TMA_LANES * fp_kernel.TMA_ROWS
+    assert geo["smem_bytes"] <= fp_kernel.MAX_SMEM
+
+
+@pytest.mark.parametrize("n, rows, filled", [(1, 1, 0), (4095, 1, 0), (4096, 1, 1),
+                                             (4096 * 256, 256, 1), (4096 * 257 + 3, 257, 2)])
+def test_tma_geometry_counts_whole_blocks_only(n, rows, filled):
+    """The partial last block is the kernel's masked tail, never a row of the
+    map; an input of less than one block loads no box but keeps one row."""
+    geo = fp_kernel.tma_geometry(n, lanes=32, rows=256, stages=2)
+    assert geo["dims"] == (1024, rows) and geo["stages_filled"] == filled
+
+
+@pytest.mark.parametrize("lanes, rows, per_stage", [(32, 128, 1), (32, 256, 1), (32, 512, 2),
+                                                    (16, 1024, 4), (8, 2048, 8)])
+def test_a_stage_of_more_than_256_blocks_is_several_boxes(lanes, rows, per_stage):
+    """TMA's box has at most 256 rows: a taller stage is loaded as several
+    boxes onto one barrier."""
+    geo = fp_kernel.tma_geometry(1 << 30, lanes=lanes, rows=rows, stages=2)
+    assert geo["box"] == (lanes, min(rows, 256)) and geo["boxes_a_stage"] == per_stage
+    assert geo["stage_bytes"] == 4 * lanes * rows
+
+
+@pytest.mark.parametrize("lanes, rows, stages", [(7, 256, 4), (64, 256, 4), (32, 96, 4),
+                                                 (32, 320, 2), (32, 0, 4), (32, 256, 0),
+                                                 (32, 1024, 2)])
+def test_tma_geometry_refuses_boxes_the_kernel_cannot_take(lanes, rows, stages):
+    with pytest.raises(ValueError, match="box"):
+        fp_kernel.tma_geometry(1 << 20, lanes=lanes, rows=rows, stages=stages)
+
+
+def test_kernel_source_has_both_routes_and_their_guards():
+    src = fp_kernel.SOURCE.read_text()
+    assert "fingerprint_tma" in src and "fingerprint_ring" in src
+    assert "cp.async.bulk.tensor.2d" in src and "kHangCycles" in src and "__trap()" in src
+    assert "kMaxBoxRows = 256" in src
+    assert "cudaErrorMisalignedAddress" in src  # an unaligned input is refused on the TMA route
+    for name, code in fp_kernel.ROUTES.items():
+        assert f"route {code} ({'TMA' if name == 'tma' else 'register ring'})" in src
+
+
+def test_chip_smoke_sweep_straddles_both_routes_and_the_ring_edges():
+    assert (chip_smoke.FP_STAGE_BLOCKS, chip_smoke.FP_RING_BLOCKS) == (
+        fp_kernel.TMA_ROWS, fp_kernel.TMA_ROWS * fp_kernel.TMA_STAGES)
+    assert {0, 1, 2, 3, 4, 8, 12} <= set(chip_smoke.FP_OFFSETS)
+    lengths = set(chip_smoke.FP_LENGTHS)
+    for blocks in (chip_smoke.FP_STAGE_BLOCKS, chip_smoke.FP_RING_BLOCKS):
+        assert {4096 * (blocks - 1), 4096 * blocks, 4096 * (blocks + 1),
+                4096 * blocks + 1} <= lengths

@@ -210,3 +210,99 @@ def test_kernel_source_targets_hopper():
     assert "repro/kernels/ssd_scan/kernel.py:96" in src
     assert "arch=compute_90a,code=sm_90a" in NVCC_FLAGS
     assert f"kMaxQ = {ssd_kernel.MAX_CHUNK}" in src and f"kMaxN = {ssd_kernel.MAX_STATE}" in src
+
+
+def _model_views(B, S, H, P, N, dtype=torch.bfloat16):
+    """x, a, b and c as ``apply_mamba`` hands them to the kernel: b and c
+    split out of the conv output and expanded over heads (head stride 0)."""
+    din = H * P
+    conv = torch.empty((B, S, din + 2 * N), dtype=dtype, device="meta")
+    _, b, c = torch.split(conv, [din, N, N], dim=-1)
+    expand = lambda t: t[:, :, None, :].expand(B, S, H, N)  # noqa: E731
+    x = torch.empty((B, S, H, P), dtype=dtype, device="meta")
+    return x, torch.empty((B, S, H), device="meta"), expand(b), expand(c)
+
+
+def test_serving_views_take_the_tensor_core_kernel_with_16_byte_loads():
+    """mamba2-130m's prefill: every row of x and of the broadcast b and c
+    starts on a 16-byte boundary, so the views load by cp.async as they lie."""
+    x, a, b, c = _model_views(4, 1024, 24, 64, 128)
+    assert b.stride(2) == 0 and b.data_ptr() % 16 == 0
+    assert ssd_kernel.kernel_route(x, b, c) == ("tensor-core", "cp.async16")
+    y = torch.empty_like(x)
+    args = ssd_kernel.kernel_args(x, a, b, c, y, 128)
+    assert args[:8] == (1, 1, 4, 1024, 24, 64, 128, 128)  # bf16, 16-byte loads, B S H P N Q
+    assert args[8:11] == x.stride()[:3] and args[11:14] == a.stride()
+    assert args[14:17] == b.stride()[:3] and args[17:20] == c.stride()[:3]
+    assert args[16] == 0 and args[19] == 0  # the head broadcast is passed, not copied
+    assert args[20:23] == y.stride()[:3] and len(args) == 23
+
+
+@pytest.mark.parametrize("case, loads", [
+    ("contiguous", "cp.async16"),
+    ("x off 16 bytes", "elementwise"),
+    ("b off 16 bytes", "elementwise"),
+    ("N = 12", "elementwise"),
+    ("P = 20", "elementwise"),
+    ("sequence stride of 4 elements", "elementwise"),
+])
+def test_every_bf16_input_takes_the_tensor_core_kernel(case, loads):
+    """The dtype picks the kernel; alignment picks only how it loads.  No
+    bf16 shape goes back to the scalar kernel."""
+    B, S, H, P, N = 1, 40, 2, 16, 16
+    if case == "N = 12":
+        N = 12
+    if case == "P = 20":
+        P = 20
+    new = lambda *s: torch.empty(s, dtype=torch.bfloat16, device="meta")  # noqa: E731
+    x, b, c = new(B, S, H, P), new(B, S, H, N), new(B, S, H, N)
+    if case == "x off 16 bytes":
+        x = new(B * S * H * P + 1)[1:].view(B, S, H, P)
+    if case == "b off 16 bytes":
+        b = new(B * S * H * N + 4)[4:].view(B, S, H, N)
+    if case == "sequence stride of 4 elements":
+        b = torch.as_strided(new(B * S * 4 + N), (B, S, H, N), (S * 4, 4, 0, 1))
+    assert ssd_kernel.kernel_route(x, b, c) == ("tensor-core", loads)
+    a = torch.empty((B, S, H), device="meta")
+    assert ssd_kernel.kernel_args(x, a, b, c, torch.empty_like(x), 32)[:2] == (
+        1, 1 if loads == "cp.async16" else 0)
+
+
+def test_float32_takes_the_scalar_kernel():
+    new = lambda *s: torch.empty(s, device="meta")  # noqa: E731
+    x, b = new(1, 40, 2, 16), new(1, 40, 2, 16)
+    assert ssd_kernel.kernel_route(x, b, b) == ("scalar", "elementwise")
+    args = ssd_kernel.kernel_args(x, new(1, 40, 2), b, b, torch.empty_like(x), 32)
+    assert args[:2] == (0, 0)
+
+
+def test_kernel_source_has_the_tensor_core_kernel_for_bf16_only():
+    src = ssd_kernel.SOURCE.read_text()
+    assert "ssd_scan_bf16" in src and "ssd_scan_f32" in src
+    assert "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32" in src
+    assert "ldmatrix.sync.aligned" in src and "cp.async.cg.shared.global" in src
+    assert "ssd_scan_f32<" in src and "ssd_scan_kernel<" not in src  # no bf16 scalar kernel
+    assert "-INFINITY" in src  # the segment sum is -inf above the diagonal before the exp
+    assert "cudaErrorMisalignedAddress" in src  # a 16-byte load it cannot make is refused
+
+
+@pytest.mark.parametrize("chunk", [16, 32])
+def test_rounding_study_chunked_form_matches_the_recurrence(chunk):
+    """The rounding study's chunked f32 form, every rounding off, is the
+    sequential recurrence; with the kernel's roundings it stays within the
+    bf16 check's tolerance."""
+    from repro_torch.kernels.ssd_scan import rounding
+
+    B, S, H, P, N = 2, 64, 3, 16, 16
+    x, a, b, c, s0 = (torch.from_numpy(v) for v in _inputs((B, S, H, P, N, chunk), seed=7))
+    x, b, c = x.bfloat16(), b.bfloat16(), c.bfloat16()
+    y_ref, s_ref = ssd_scan_ref(*(_flat(v, B, S, H) for v in (x, a, b, c)),
+                                s0.reshape(B * H, P, N))
+    y_ref = y_ref.reshape(B, H, S, P).transpose(1, 2)
+    y, state = rounding.chunked(x, a, b, c, s0, *rounding.CONFIGS["exact"], chunk=chunk)
+    _close(y, y_ref.float().numpy(), 1e-2)  # y rounded to bf16 on both sides
+    _close(state.reshape(B * H, P, N), s_ref.numpy(), 1e-4)
+    y_k, state_k = rounding.chunked(x, a, b, c, s0,
+                                    *rounding.CONFIGS["P and S hi/lo (the kernel)"], chunk=chunk)
+    _close(y_k, y_ref.float().numpy(), TOL["bfloat16"])
+    _close(state_k.reshape(B * H, P, N), s_ref.numpy(), TOL["bfloat16"])
