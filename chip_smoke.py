@@ -49,6 +49,29 @@ Phases, each of which must pass (any failure exits non-zero):
    counts are set to 0 just before each serve and read just after; every
    kernel of the path must have launched, and no other (the fingerprint
    runs on neither serve path).
+4. Train (no kernel: the training path runs the plain attention and SSD
+   under autograd, as the JAX package does):
+   a. ``repro_torch.launch.train`` at full mamba2-130m width (batch 8, seq
+      256, 30 steps, a sharded-store checkpoint every 10): finite losses,
+      three checkpoints kept; tokens/s, step ms, peak memory, save seconds
+      and bytes;
+   b. a second run on the same run dir to step 40: it resumes from step 30
+      with the state ``restore()`` gives, bit for bit, ends with a step-40
+      checkpoint, and the evicted checkpoints' keys are gone;
+   c. one train step of mamba2-130m, f32 compute, on the card and on the
+      CPU from the same weights and batch: loss and grad norm within 1e-4,
+      every leaf's first moment within 1e-4 relative L2; then bf16 compute
+      on the card, its loss within 2e-2 of the f32 loss;
+   d. five steps on one repeated batch: the loss must fall by 1 %, and a
+      planted fault (the optimizer's lr forced to 0) must fail that check;
+   e. qwen2.5-3b at full width, all 36 layers, ``remat="full"``, batch 2,
+      seq 1024, three steps: finite losses and grad norms, no kernel
+      launched; one step that slices each layer out of the stacks one at a
+      time (the loop before ``unbind``) for comparison; a step with
+      ``attention_impl="pallas"`` must raise and leave the state alone;
+   f. ``serve --run-dir`` on run b's checkpoint: the params it loads equal
+      the run's final params bit for bit, every request is served, and
+      ``ssd_scan`` launches as often as in the fresh serve.
 
 The last lines are the ``kernels`` JSON object, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.  Needs the repository's
@@ -138,6 +161,21 @@ SSD_FAULTS = ("state not carried across chunks", "initial state ignored",
               "final state dropped")
 MAMBA_SERVE_ARGS = ["--arch", "mamba2-130m", "--batch", "4", "--prompt-len", "1024",
                     "--gen", "32", "--requests", "8", "--device", "cuda"]
+# Phase 4: the train driver at full mamba2-130m width (the JAX driver's own
+# default arch, batch and seq), then a restart to RESTART_STEPS
+TRAIN_ARGS = ["--arch", "mamba2-130m", "--batch", "8", "--seq", "256", "--steps", "30",
+              "--ckpt-every", "10", "--log-every", "1", "--connector", "sharded",
+              "--device", "cuda"]
+RESTART_STEPS = 40
+# One step on the card against the CPU, f32 compute: loss and grad norm
+# (relative), every leaf's first moment (relative L2); bf16 compute's loss
+# against the f32 loss (relative)
+TRAIN_RTOL = 1e-4
+MOMENT_REL_L2 = 1e-4
+BF16_LOSS_REL = 2e-2
+LOSS_FALL = 0.01  # five steps on one batch must cut the loss by at least 1 %
+# qwen2.5-3b at full width: batch, seq, steps
+DENSE_TRAIN = (2, 1024, 3)
 
 # Fingerprint inputs made with numpy from a seed (``fp_golden_array``), each
 # with the token the JAX package gives it
@@ -1068,21 +1106,19 @@ def _leaves(tree):
 
 
 def _to(tree, device):
+    """A copy of ``tree`` on ``device``."""
     if isinstance(tree, dict):
         return {k: _to(v, device) for k, v in tree.items()}
-    return tree.to(device)
+    return tree.to(device, copy=True)
 
 
 def phase_serve(argv: list[str], kernel: str) -> dict:
     """Serve 8 requests of ``argv``'s arch; ``kernel`` must launch at least
     once per layer and prefill, and no other kernel at all."""
     from repro_torch.configs import get_config
-    from repro_torch.kernels.fingerprint import ops as fp_ops
-    from repro_torch.kernels.flash_attention import ops as fa_ops
-    from repro_torch.kernels.ssd_scan import ops as ssd_ops
     from repro_torch.launch.serve import parse_args, serve
 
-    counters = {"flash_attention": fa_ops, "ssd_scan": ssd_ops, "fingerprint": fp_ops}
+    counters = _kernel_counters()
     args = parse_args(argv)
     cfg = get_config(args.arch)
     for ops in counters.values():
@@ -1110,6 +1146,443 @@ def phase_serve(argv: list[str], kernel: str) -> dict:
             "latency_p50_ms": sstats["latency_p50_ms"], "latency_p99_ms": sstats["latency_p99_ms"]}
 
 
+# -- phase 4: training -----------------------------------------------------------------
+
+
+class _Tee:
+    """Standard output that is also kept, to read the driver's lines."""
+
+    def __init__(self, stream):
+        self.stream, self.lines = stream, []
+
+    def write(self, text):
+        self.lines.append(text)
+        return self.stream.write(text)
+
+    def flush(self):
+        self.stream.flush()
+
+
+def _kernel_counters() -> dict:
+    from repro_torch.kernels.fingerprint import ops as fp_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+
+    return {"flash_attention": fa_ops, "ssd_scan": ssd_ops, "fingerprint": fp_ops}
+
+
+def _host_copy(tree) -> list:
+    """(path, numpy copy) of every leaf, in the checkpoint's leaf order."""
+    from repro_torch import bridge
+
+    return [(path, np.array(bridge.to_numpy(t) if isinstance(t, torch.Tensor) else t))
+            for path, t in bridge.flatten(tree)]
+
+
+def _run_store(run_dir: str, arch: str):
+    from repro_torch.api import ConnectorSpec, StoreConfig
+    from repro_torch.train.checkpoint import CheckpointManager
+
+    store = StoreConfig(f"train-{arch}", ConnectorSpec(
+        "sharded", store_dir=f"{run_dir}/objects", num_shards=8)).build(register=True)
+    return store, CheckpointManager(store, f"{run_dir}/ckpt_index.json")
+
+
+def train_driver(run_dir: str) -> dict:
+    """4a: the train driver at full mamba2-130m width."""
+    from repro_torch import bridge
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import parse_args, train
+    from repro_torch.models import transformer as tx
+    from repro_torch.train import AdamWConfig, init_train_state, make_train_step
+
+    args = parse_args(TRAIN_ARGS + ["--run-dir", run_dir])
+    cfg = get_config(args.arch)
+    # a checkpoint holds f32 params, m and v, and the int32 step
+    n_params = sum(t.numel() for _, t in bridge.flatten(
+        tx.init_params(cfg, torch.Generator(device="cuda").manual_seed(0))))
+    reckoned = 3 * 4 * n_params + 4
+    counters = _kernel_counters()
+    for ops in counters.values():
+        ops.launch_count = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = train(args)
+    secs = time.perf_counter() - t0
+    launches = {name: ops.launch_count for name, ops in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    log = out["log"]
+    losses = [e["loss"] for e in log]
+    if len(log) != args.steps or not all(np.isfinite(losses)):
+        fail(f"train driver: {len(log)} logged steps, losses {losses}")
+    if any(launches.values()):
+        fail(f"the training path launched kernels: {launches}")
+    step_s = [e["seconds_since_last_log"] for e in log if e["step"] >= 1]  # all but the first
+    med_ms = float(np.median(step_s)) * 1e3
+    tok_s = len(step_s) * args.batch * args.seq / sum(step_s)
+    index = json.loads((Path(run_dir) / "ckpt_index.json").read_text())
+    cps = index["checkpoints"]
+    if [m["step"] for m in cps] != [10, 20, 30] or len(cps) != args.keep_checkpoints:
+        fail(f"train driver kept checkpoints {[m['step'] for m in cps]}")
+    if any(m["nbytes"] != reckoned for m in cps):
+        fail(f"checkpoints of {[m['nbytes'] for m in cps]} B, reckoned {reckoned} B")
+    print(f"[train] {args.arch} driver, batch {args.batch} x seq {args.seq}, {args.steps} steps "
+          f"in {secs:.2f}s: loss {losses[0]:.4f} -> {losses[-1]:.4f} | steps 1-{args.steps - 1}: "
+          f"median {med_ms:.3f} ms/step, {tok_s:,.0f} tokens/s (whole run "
+          f"{log[-1]['tokens_per_s']:,.0f}) | peak memory {peak:,} B | launches {launches}")
+    # a save's snapshot (a host copy) lands in the step logged after it
+    after_save = {e["step"]: e["seconds_since_last_log"] * 1e3 for e in log
+                  if e["step"] - 1 in (10, 20)}
+    for m in cps:
+        print(f"[train]   checkpoint step {m['step']}: {m['nbytes']:,} B (reckoned 3 x 4 B x "
+              f"{n_params:,} params + 4 B) in {len(m['keys'])} leaves, saved in "
+              f"{m['save_seconds']:.3f}s off the step path")
+    print(f"[train]   steps that follow a save (its snapshot is on the step path): "
+          f"{', '.join(f'step {k} {v:.1f} ms' for k, v in after_save.items())}")
+    state = init_train_state(cfg, torch.Generator(device="cuda").manual_seed(0))
+    tokens = _mamba_batch(cfg, args.batch, args.seq, 0).cuda()
+    breakdown, _ = step_breakdown(f"{args.arch} batch {args.batch} x seq {args.seq}",
+                                  make_train_step(cfg, AdamWConfig()), state, tokens, 3)
+    del state
+    return {"seconds": secs, "losses": losses, "median_step_ms": med_ms, "tokens_per_s": tok_s,
+            "step_ms": [x * 1e3 for x in step_s], "peak_bytes": peak, "launches": launches,
+            "checkpoints": [{k: m[k] for k in ("step", "nbytes", "save_seconds")} for m in cps],
+            "after_save_ms": after_save, "params": n_params, "ckpt_nbytes": reckoned,
+            "breakdown": breakdown}
+
+
+def step_breakdown(label: str, step, state, tokens, steps: int) -> tuple[dict, dict]:
+    """A train step outside the driver: host time a step, device kernel
+    time a step from the profiler, the idle share, and the top kernels;
+    returns them and the state after the steps."""
+    from torch.profiler import ProfilerActivity, profile
+
+    batch = {"tokens": tokens}
+    state, _ = step(state, batch)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        state, _ = step(state, batch)
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3 / steps
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            state, _ = step(state, batch)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if getattr(e, "device_type", None) is not None and "CUDA" in str(e.device_type)]
+    dev_ms = sum(e.self_device_time_total for e in kernels) / steps / 1e3
+    n_kernels = sum(e.count for e in kernels) / steps
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+    res = {"host_ms_per_step": host_ms, "device_ms_per_step": dev_ms or None,
+           "kernels_per_step": n_kernels,
+           "top_kernels": [(e.key[:80], e.self_device_time_total / steps / 1e3) for e in top]}
+    idle = f"{100 * (1 - dev_ms / host_ms):.1f} %" if dev_ms else "not measured"
+    print(f"[train] step breakdown, {label}: {host_ms:.3f} ms/step on the host clock | device "
+          f"kernels {dev_ms:.3f} ms/step ({n_kernels:,.0f} kernels) | device idle {idle}")
+    for name, ms in res["top_kernels"]:
+        print(f"[train]   {ms:.4f} ms/step  {name}")
+    return res, state
+
+
+def train_restart(run_dir: str) -> dict:
+    """4b: a second run on the same run dir resumes from step 30."""
+    from repro_torch import bridge
+    from repro_torch.core.connectors.base import Key
+    from repro_torch.launch import train as train_mod
+
+    store, ckpt = _run_store(run_dir, "mamba2-130m")
+    t0 = time.perf_counter()
+    step, saved = ckpt.restore()
+    restore_s = time.perf_counter() - t0
+    saved = bridge.flatten(saved)
+    evicted = [m["keys"] for m in ckpt._index["checkpoints"] if m["step"] < step]
+    seen = {}
+    real = train_mod.make_train_step
+
+    def spy(cfg, opt_cfg, ctx):
+        fn = real(cfg, opt_cfg, ctx)
+
+        def step_fn(state, batch):
+            if "state" not in seen:  # a copy: the step updates the state in place
+                seen["state"] = _host_copy(state)
+            return fn(state, batch)
+
+        return step_fn
+
+    argv = list(TRAIN_ARGS)
+    argv[argv.index("--steps") + 1] = str(RESTART_STEPS)
+    tee = _Tee(sys.stdout)
+    train_mod.make_train_step = spy
+    sys.stdout = tee
+    try:
+        t0 = time.perf_counter()
+        out = train_mod.train(train_mod.parse_args(argv + ["--run-dir", run_dir]))
+        secs = time.perf_counter() - t0
+    finally:
+        sys.stdout = tee.stream
+        train_mod.make_train_step = real
+    if f"[restore] resumed from step {step}\n" not in "".join(tee.lines) or step != 30:
+        fail(f"the restarted run did not print '[restore] resumed from step 30' (latest {step})")
+    got = seen["state"]
+    if [p for p, _ in got] != [p for p, _ in saved]:
+        fail("the restarted run's state has other leaves than the checkpoint")
+    differ = [p for (p, a), (_, b) in zip(got, saved)
+              if a.dtype != b.dtype or a.shape != b.shape or not np.array_equal(a, b)]
+    if differ:
+        fail(f"the restarted run did not start from the checkpoint: {differ}")
+    cps = json.loads((Path(run_dir) / "ckpt_index.json").read_text())["checkpoints"]
+    steps = [m["step"] for m in cps]
+    if steps[-1] != RESTART_STEPS or len(steps) != 3:
+        fail(f"the restarted run kept checkpoints {steps}")
+    alive = [store.exists(Key(k["object_id"], k["size"], k["tag"])) for ks in evicted for k in ks]
+    if not evicted or any(alive):
+        fail(f"evicted checkpoints' keys: {sum(alive)} of {len(alive)} still in the store")
+    losses = [e["loss"] for e in out["log"]]
+    if [e["step"] for e in out["log"]] != list(range(step, RESTART_STEPS)) or \
+            not all(np.isfinite(losses)):
+        fail(f"the restarted run logged {[e['step'] for e in out['log']]}, losses {losses}")
+    print(f"[train] restart: resumed from step {step} with the checkpoint's {len(got)} leaves "
+          f"bit for bit, steps {step}-{RESTART_STEPS - 1} in {secs:.2f}s, loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f} | checkpoints now {steps}; the "
+          f"{len(alive)} keys of the {len(evicted)} evicted ones are gone from the store | "
+          f"eager restore of the step-{step} checkpoint ({sum(a.nbytes for _, a in saved):,} B "
+          f"to host memory) {restore_s:.3f}s")
+    return {"seconds": secs, "resumed_from": step, "checkpoints": steps, "losses": losses,
+            "evicted_keys": len(alive), "restore_seconds": restore_s}
+
+
+def _mamba_batch(cfg, batch: int, seq: int, seed: int) -> torch.Tensor:
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.integers(0, cfg.vocab_size, (batch, seq)).astype(np.int32))
+
+
+def train_card_vs_cpu() -> dict:
+    """4c: one step on the card against the same step on the CPU."""
+    from repro_torch import bridge
+    from repro_torch.configs import get_config
+    from repro_torch.train import AdamWConfig, init_train_state, make_train_step
+
+    cfg = get_config("mamba2-130m").replace(compute_dtype=torch.float32)
+    state_cpu = init_train_state(cfg, torch.Generator().manual_seed(0))
+    state_gpu = _to(state_cpu, "cuda")
+    state_bf16 = _to(state_cpu, "cuda")
+    tokens = _mamba_batch(cfg, 2, 256, 4)
+    step = make_train_step(cfg, AdamWConfig())
+    t0 = time.perf_counter()
+    state_gpu, mg = step(state_gpu, {"tokens": tokens.cuda()})
+    torch.cuda.synchronize()
+    gpu_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    state_cpu, mc = step(state_cpu, {"tokens": tokens})
+    cpu_s = time.perf_counter() - t0
+    loss_g, loss_c = float(mg["loss"]), float(mc["loss"])
+    gn_g, gn_c = float(mg["grad_norm"]), float(mc["grad_norm"])
+    worst = max(
+        rel(a.cpu(), b) for (_, a), (_, b) in zip(bridge.flatten(state_gpu["opt"]["m"]),
+                                                  bridge.flatten(state_cpu["opt"]["m"])))
+    _, mb = make_train_step(cfg.replace(compute_dtype=torch.bfloat16), AdamWConfig())(
+        state_bf16, {"tokens": tokens.cuda()})
+    loss_b = float(mb["loss"])
+    ratio = loss_b / loss_g
+    print(f"[train] mamba2-130m one step, batch 2 x seq 256, f32 compute: loss card {loss_g:.7f} "
+          f"CPU {loss_c:.7f} (rel {abs(loss_g / loss_c - 1):.2e}, tol {TRAIN_RTOL}) | grad_norm "
+          f"card {gn_g:.7f} CPU {gn_c:.7f} (rel {abs(gn_g / gn_c - 1):.2e}) | worst leaf's m "
+          f"rel_l2 {worst:.2e} (tol {MOMENT_REL_L2}) | bf16 compute loss {loss_b:.7f}, "
+          f"bf16 / f32 {ratio:.6f} (tol {BF16_LOSS_REL}) | step {gpu_s:.3f}s card (first), "
+          f"{cpu_s:.3f}s CPU")
+    if not (abs(loss_g / loss_c - 1) <= TRAIN_RTOL and abs(gn_g / gn_c - 1) <= TRAIN_RTOL
+            and worst <= MOMENT_REL_L2):
+        fail("the train step on the card disagrees with the CPU")
+    if not abs(ratio - 1) <= BF16_LOSS_REL:
+        fail("the bf16-compute train step's loss is too far from the f32 loss")
+    return {"loss_card": loss_g, "loss_cpu": loss_c, "grad_norm_card": gn_g,
+            "grad_norm_cpu": gn_c, "m_rel_l2": worst, "loss_bf16": loss_b,
+            "bf16_over_f32": ratio}
+
+
+def train_loss_falls() -> dict:
+    """4d: five steps on one repeated batch must cut the loss; the same
+    check must reject a planted fault (the optimizer's lr forced to 0)."""
+    from repro_torch.configs import get_config
+    from repro_torch.train import AdamWConfig, init_train_state, make_train_step
+
+    cfg = get_config("mamba2-130m")
+    tokens = _mamba_batch(cfg, 2, 256, 5).cuda()
+
+    def losses_of(lr: float) -> list[float]:
+        state = init_train_state(cfg, torch.Generator(device="cuda").manual_seed(1))
+        step = make_train_step(cfg, AdamWConfig(lr=lr, warmup_steps=0))
+        out = []
+        for _ in range(5):
+            state, metrics = step(state, {"tokens": tokens})
+            out.append(float(metrics["loss"]))
+        return out
+
+    falls = lambda ls: ls[-1] < (1 - LOSS_FALL) * ls[0]  # noqa: E731
+    losses, planted = losses_of(3e-3), losses_of(0.0)
+    print(f"[train] mamba2-130m 5 steps on one batch (lr 3e-3): losses "
+          f"{', '.join(f'{x:.4f}' for x in losses)} -> {'falls' if falls(losses) else 'FLAT'} | "
+          f"planted fault 'lr forced to 0': {', '.join(f'{x:.4f}' for x in planted)} -> "
+          f"{'PASSED' if falls(planted) else 'rejected'}")
+    if not falls(losses):
+        fail("the loss does not fall over five steps on one batch")
+    if falls(planted):
+        fail("the loss check does not see the planted fault 'lr forced to 0'")
+    return {"losses": losses, "planted_lr0": planted}
+
+
+def _sliced_run_group(cfg, group, gparams, x, positions, gcache, ctx):
+    """The layer loop before ``unbind``: each layer indexed out of the stacks."""
+    from repro_torch.models import transformer as tx
+
+    apply = tx._remat_wrap(cfg, tx._apply_layer) if torch.is_grad_enabled() else tx._apply_layer
+    for i in range(group.count):
+        lp = tx._tree_map(lambda t: t[i], gparams)
+        x = apply(cfg, group, lp, x, positions, None, ctx)
+    return x
+
+
+def train_dense() -> dict:
+    """4e: qwen2.5-3b at full width, full remat; no kernel on the training
+    steps; the sliced loop for comparison; a pallas step must raise."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tx
+    from repro_torch.train import AdamWConfig, init_train_state, make_train_step
+
+    B, S, steps = DENSE_TRAIN
+    cfg = get_config("qwen2.5-3b").replace(remat="full")
+    torch.cuda.reset_peak_memory_stats()
+    state = init_train_state(cfg, torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    state_bytes = torch.cuda.memory_allocated()
+    tokens = torch.randint(0, cfg.vocab_size, (B, S), device="cuda",
+                           generator=torch.Generator(device="cuda").manual_seed(3))
+    counters = _kernel_counters()
+    for ops in counters.values():
+        ops.launch_count = 0
+    step = make_train_step(cfg, AdamWConfig())
+
+    def timed(n):
+        out = []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            nonlocal state
+            state, metrics = step(state, {"tokens": tokens})
+            loss, gn = float(metrics["loss"]), float(metrics["grad_norm"])
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - t0, loss, gn))
+        return out
+
+    runs = timed(steps)
+    peak = torch.cuda.max_memory_allocated()
+    launches = {name: ops.launch_count for name, ops in counters.items()}
+    breakdown, state = step_breakdown(f"qwen2.5-3b remat full, batch {B} x seq {S}", step,
+                                      state, tokens, 1)
+    real = tx._run_group
+    torch.cuda.reset_peak_memory_stats()
+    tx._run_group = _sliced_run_group
+    try:  # the same measurement as the breakdown above, on the old loop
+        sliced, state = step_breakdown(
+            "the same, each layer indexed out of the stacks (the loop before unbind)", step,
+            state, tokens, 1)
+    finally:
+        tx._run_group = real
+    sliced_peak = torch.cuda.max_memory_allocated()
+    done = int(state["opt"]["step"])
+    before = state["params"]["final_norm"]["scale"].clone()
+    try:
+        make_train_step(cfg.replace(attention_impl="pallas"), AdamWConfig())(
+            state, {"tokens": tokens})
+    except RuntimeError as exc:
+        raised = str(exc)
+    else:
+        fail("a pallas train step on the card did not raise")
+    untouched = (int(state["opt"]["step"]) == done
+                 and torch.equal(state["params"]["final_norm"]["scale"], before))
+    pallas_launches = {name: ops.launch_count for name, ops in counters.items()}
+    step_s = [r[0] for r in runs]
+    med = float(np.median(step_s[1:]))
+    print(f"[train] qwen2.5-3b full width, remat full, batch {B} x seq {S}: state "
+          f"{state_bytes:,} B (params + m + v) | steps "
+          f"{', '.join(f'{r[0] * 1e3:.1f}' for r in runs)} ms, losses "
+          f"{', '.join(f'{r[1]:.4f}' for r in runs)}, grad_norm "
+          f"{', '.join(f'{r[2]:.4f}' for r in runs)} | all but the first: median "
+          f"{med * 1e3:.1f} ms, "
+          f"{B * S / med:,.0f} tokens/s | peak memory {peak:,} B | launches {launches}")
+    ms = lambda v: f"{v:.1f} ms" if v else "not measured"  # noqa: E731
+    print(f"[train]   the loop before unbind against unbind: host "
+          f"{ms(sliced['host_ms_per_step'])} / {ms(breakdown['host_ms_per_step'])}, device "
+          f"{ms(sliced['device_ms_per_step'])} / {ms(breakdown['device_ms_per_step'])} a "
+          f"step; peak memory {sliced_peak:,} / {peak:,} B | pallas step: raised "
+          f"'{raised}', state untouched {untouched}, launches {pallas_launches}")
+    if not all(np.isfinite([r[1] for r in runs] + [r[2] for r in runs])):
+        fail("qwen2.5-3b training: non-finite loss or grad norm")
+    if any(launches.values()) or any(pallas_launches.values()):
+        fail(f"qwen2.5-3b training launched kernels: {launches} / {pallas_launches}")
+    if "no backward" not in raised or not untouched:
+        fail("the pallas train step did not refuse cleanly")
+    del state, before
+    torch.cuda.empty_cache()
+    return {"state_bytes": state_bytes, "step_ms": [x * 1e3 for x in step_s],
+            "median_step_ms": med * 1e3, "tokens_per_s": B * S / med,
+            "losses": [r[1] for r in runs], "grad_norms": [r[2] for r in runs],
+            "peak_bytes": peak, "sliced": sliced, "sliced_peak_bytes": sliced_peak,
+            "launches": launches, "breakdown": breakdown}
+
+
+def serve_run_dir(run_dir: str, fresh_ssd_launches: int) -> dict:
+    """4f: serve the restarted run's checkpoint."""
+    from repro_torch.launch import serve as serve_mod
+
+    _, ckpt = _run_store(run_dir, "mamba2-130m")
+    step, saved = ckpt.restore()
+    want = _host_copy(saved["params"])
+    loaded = {}
+    real = serve_mod._load_params
+
+    def spy(args, cfg, device):
+        loaded["params"] = real(args, cfg, device)
+        return loaded["params"]
+
+    serve_mod._load_params = spy
+    try:
+        res = phase_serve(MAMBA_SERVE_ARGS + ["--run-dir", run_dir], "ssd_scan")
+    finally:
+        serve_mod._load_params = real
+    got = _host_copy(loaded["params"])
+    equal = [p for p, _ in got] == [p for p, _ in want] and all(
+        a.dtype == b.dtype and np.array_equal(a, b) for (_, a), (_, b) in zip(got, want))
+    n = res["launches"]["ssd_scan"]
+    print(f"[train] serve --run-dir: step-{step} params ({len(got)} leaves) equal to the run's "
+          f"final params bit for bit: {equal} | ssd_scan launches {n} (fresh serve "
+          f"{fresh_ssd_launches})")
+    if step != RESTART_STEPS or not equal:
+        fail(f"serve --run-dir loaded other params than the step-{RESTART_STEPS} checkpoint's")
+    if n != fresh_ssd_launches:
+        fail(f"serve --run-dir launched ssd_scan {n} times, the fresh serve {fresh_ssd_launches}")
+    return {**res, "step": step}
+
+
+def phase_train(gpu: str, fresh_ssd_launches: int) -> dict:
+    import tempfile
+
+    print(f"[phase 4] training on {gpu}")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as run_dir:
+        out = {"driver": train_driver(run_dir)}
+        torch.cuda.empty_cache()
+        out["restart"] = train_restart(run_dir)
+        torch.cuda.empty_cache()
+        out["card_vs_cpu"] = train_card_vs_cpu()
+        torch.cuda.empty_cache()
+        out["loss_falls"] = train_loss_falls()
+        torch.cuda.empty_cache()
+        out["dense"] = train_dense()
+        out["serve_run_dir"] = serve_run_dir(run_dir, fresh_ssd_launches)
+        torch.cuda.empty_cache()
+    return {**out, "gpu": gpu}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1126,23 +1599,32 @@ def main() -> int:
     t0 = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(0)
     fa, ssd, fp = phase_kernels(gen)
+    torch.cuda.empty_cache()
     print(f"[phase 1] kernels ok ({time.perf_counter() - t0:.1f}s)")
     qwen_decode, fp_detail = phase_model(fp)
     decode = {"qwen2.5-3b": qwen_decode, "mamba2-130m": phase_model_mamba()}
+    torch.cuda.empty_cache()
     print(f"[phase 2] model ok ({time.perf_counter() - t0:.1f}s)")
     served = {"qwen2.5-3b": phase_serve(SERVE_ARGS, "flash_attention"),
               "mamba2-130m": phase_serve(MAMBA_SERVE_ARGS, "ssd_scan")}
     fa["launches"] = served["qwen2.5-3b"]["launches"]["flash_attention"]
     ssd["launches"] = served["mamba2-130m"]["launches"]["ssd_scan"]
     print(f"[phase 3] serve ok ({time.perf_counter() - t0:.1f}s)")
+    torch.cuda.empty_cache()
 
     gpu = gpu_name_and_limit()
+    t4 = time.perf_counter()
+    trained = phase_train(gpu, ssd["launches"])
+    trained["seconds"] = time.perf_counter() - t4
+    print(f"[phase 4] train ok ({trained['seconds']:.1f}s of phase 4; "
+          f"{time.perf_counter() - t0:.1f}s in all)")
+
     result = {"kernels": [fa, ssd, fp]}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
-        {**result, "serve": served, "decode": decode, "fingerprint": fp_detail, "gpu": gpu},
-        indent=1))
+        {**result, "serve": served, "decode": decode, "fingerprint": fp_detail,
+         "train": trained, "gpu": gpu}, indent=1))
     print(json.dumps(result))
     print(gpu)
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

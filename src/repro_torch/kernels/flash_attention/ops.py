@@ -4,7 +4,10 @@ Keeps the JAX wrapper's contract (``repro/kernels/flash_attention/ops.py``):
 layout (B, H, S, hd) for q and (B, KV, S, hd) for k and v, ``H % KV == 0``,
 and ``scale = hd**-0.5`` by default.  CPU tensors take the plain version
 (``ref.attention_ref``); CUDA tensors launch the hand-written kernel, which
-masks ragged lengths itself (no padding), or the call raises.
+masks ragged lengths itself (no padding), or the call raises.  The kernel
+has no backward (neither has the Pallas kernel: no ``custom_vjp``), so a
+CUDA call with an input that needs gradients raises rather than return a
+result with no ``grad_fn``.
 """
 
 from __future__ import annotations
@@ -42,6 +45,11 @@ def flash_attention_gqa(
         scale = hd**-0.5
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal, scale=scale)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError(
+            "flash_attention_gqa: the CUDA kernel has no backward; an input "
+            "requires grad (train with attention_impl='reference')"
+        )
     if q.numel() == 0:
         return torch.empty_like(q)
     out = flash_attention_fwd(q, k, v, causal=causal, scale=scale)

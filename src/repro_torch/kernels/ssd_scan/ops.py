@@ -9,7 +9,9 @@ tensors launch the hand-written kernel, or the call raises.  The kernel reads
 x, a, b and c through their strides, so the model's head-broadcast views of
 b and c (head stride 0) are not copied, and it masks the ragged tail of S
 itself, where the JAX wrapper pads with (inert) zeros.  On CUDA, x, b and c
-need a dense last dim.
+need a dense last dim.  The kernel has no backward (neither has the Pallas
+kernel), so a CUDA call with an input that needs gradients raises rather
+than return a result with no ``grad_fn``.
 """
 
 from __future__ import annotations
@@ -42,6 +44,13 @@ def ssd_scan(
         if initial_state is not None
         else torch.zeros((B * H, P, N), dtype=torch.float32, device=x.device)
     )
+    if x.device.type != "cpu" and torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in (x, a, b, c, initial_state)
+    ):
+        raise RuntimeError(
+            "ssd_scan: the CUDA kernel has no backward; an input requires grad "
+            "(train with attention_impl='reference')"
+        )
     if x.device.type == "cpu":
         flat = lambda t: t.transpose(1, 2).reshape(B * H, S, *t.shape[3:])  # noqa: E731
         y, s_final = ssd_scan_ref(flat(x), flat(a), flat(b), flat(c), s0)

@@ -15,8 +15,9 @@ prompt's SSD scan through ``ssd_scan`` (mamba2-130m).
         --prompt-len 1024 --gen 32
 
 Runs on ``cuda`` unless ``--device cpu`` is given; it never falls back to the
-CPU on its own.  ``--run-dir`` checkpoint restore waits for the checkpoint
-slice of the port and raises until then.
+CPU on its own.  ``--run-dir`` serves a training run's latest checkpoint
+(``repro_torch.launch.train``): its params resolve by proxy from the run's
+store, leaf by leaf, onto the device.
 """
 
 from __future__ import annotations
@@ -27,26 +28,42 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.api import ClusterSpec, ServeSpec, Session
+from repro_torch import bridge
+from repro_torch.api import ClusterSpec, ConnectorSpec, ServeSpec, Session, StoreConfig
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.models import transformer as tx
+from repro_torch.train.checkpoint import CheckpointManager
 
 
 def resolve_device(name: str) -> torch.device:
     device = torch.device(name)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
-            "CUDA is not available; pass --device cpu to serve on the CPU"
+            "CUDA is not available; pass --device cpu to run on the CPU"
         )
     return device
 
 
 def _load_params(args, cfg, device: torch.device):
-    """Fresh random weights from a generator seeded with 0, made on the device."""
+    """Weights from the checkpoint store (lazy proxies, only the params
+    resolved) or fresh random weights from a generator seeded with 0, made
+    on the device."""
     if args.run_dir:
-        raise NotImplementedError("--run-dir restore waits for the checkpoint port")
+        store = StoreConfig(
+            f"train-{args.arch}",
+            ConnectorSpec("sharded", store_dir=f"{args.run_dir}/objects",
+                          num_shards=8),
+        ).build(register=True)
+        ckpt = CheckpointManager(store, f"{args.run_dir}/ckpt_index.json")
+        restored = ckpt.restore_lazy()
+        if restored is None:
+            raise SystemExit(f"no checkpoint under {args.run_dir}")
+        step, lazy = restored
+        params = bridge.params_from_jax(lazy.get("params", lazy), device=device)
+        print(f"[restore] lazily resolved step-{step} weights by proxy")
+        return params
     gen = torch.Generator(device=device).manual_seed(0)
     return tx.init_params(cfg, gen)
 
@@ -166,8 +183,7 @@ def parse_args(argv=None):
     ap.add_argument("--requests", type=int, default=0,
                     help="request count (default: 2x batch)")
     ap.add_argument("--run-dir", default="",
-                    help="restore weights from this train run's store "
-                         "(not ported yet: raises)")
+                    help="restore weights from this train run's store")
     ap.add_argument("--device", default="cuda",
                     help="torch device to serve on (default: cuda)")
     return ap.parse_args(argv)

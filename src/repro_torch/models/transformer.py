@@ -1,19 +1,30 @@
-"""Model assembly: layer blocks, the loop over stacked layers, prefill/decode.
+"""Model assembly: layer blocks, the loop over stacked layers, train/prefill/decode.
 
 The dense decoder and SSM (Mamba-2) paths of ``repro/models/transformer.py``
 on tensors.  The parameter tree keeps the JAX layout: ``{"embedding",
 <group>: stacked layer params with a leading layer dim, "final_norm"}``, so
 weights bridge leaf by leaf.  Where the JAX package scans over the stacked
-dim, the port loops.  MoE and hybrid layer kinds wait for later slices and
-raise ``NotImplementedError``.
+dim, the port loops; each stacked leaf is split once per group with
+``unbind(0)``, whose backward stacks the layers' gradients once (indexing
+layer by layer would give every layer's backward a zero buffer the size of
+the whole stack).  ``remat`` maps to ``torch.utils.checkpoint`` around each
+layer.  MoE and hybrid layer kinds wait for later slices and raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+import functools
+from typing import Any, Callable
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import ssm as ssm_mod
@@ -174,6 +185,33 @@ def _apply_layer(
     return x + apply_mlp(cfg, p["mlp"], h2)
 
 
+# the matrix products "dots" keeps (JAX's ``dots_with_no_batch_dims_saveable``
+# keeps only those without batch dims; here batched products are kept too)
+_DOT_OPS = frozenset({
+    torch.ops.aten.mm.default,
+    torch.ops.aten.bmm.default,
+    torch.ops.aten.addmm.default,
+    torch.ops.aten.baddbmm.default,
+})
+
+
+def _save_dots(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    return CheckpointPolicy.MUST_SAVE if op in _DOT_OPS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat_wrap(cfg: ModelConfig, fn: Callable) -> Callable:
+    """``"full"`` recomputes the whole layer in the backward; ``"dots"`` keeps
+    the matrix products' outputs and recomputes the rest."""
+    if cfg.remat == "full":
+        return functools.partial(checkpoint, fn, use_reentrant=False)
+    if cfg.remat == "dots":
+        return functools.partial(
+            checkpoint, fn, use_reentrant=False,
+            context_fn=functools.partial(create_selective_checkpoint_contexts, _save_dots),
+        )
+    return fn
+
+
 def _run_group(
     cfg: ModelConfig,
     group: LayerGroup,
@@ -184,10 +222,15 @@ def _run_group(
     ctx: RunCtx,
 ) -> torch.Tensor:
     """Run a homogeneous stack of layers; a stacked cache is updated in place."""
+    layers = _tree_map(lambda t: t.unbind(0), gparams)
+    if gcache is None and torch.is_grad_enabled():
+        apply = _remat_wrap(cfg, _apply_layer)
+    else:
+        apply = _apply_layer
     for i in range(group.count):
-        lp = _tree_map(lambda t: t[i], gparams)
+        lp = _tree_map(lambda ts: ts[i], layers)
         lcache = None if gcache is None else _tree_map(lambda t: t[i], gcache)
-        x = _apply_layer(cfg, group, lp, x, positions, lcache, ctx)
+        x = apply(cfg, group, lp, x, positions, lcache, ctx)
     return x
 
 
@@ -199,16 +242,21 @@ def forward(
     positions: torch.Tensor | None = None,
     cache: Params | None = None,      # {group: stacked layer caches}
     ctx: RunCtx = RunCtx(),
+    patch_embeds: torch.Tensor | None = None,  # (B, n_img, d): vlm stub input
 ) -> tuple[torch.Tensor, Params | None, torch.Tensor]:
     """Returns (hidden_states, cache, aux_loss).
 
     A cache is updated in place and returned (the JAX function returns a new
-    one); the aux loss is 0 for dense and SSM layers.
+    one); the aux loss is 0 for dense and SSM layers.  ``patch_embeds``
+    replace the embeddings of the leading positions when they fit in S.
     """
     _check_ported(cfg)
     B, S = tokens.shape
     x = embed_tokens(cfg, params["embedding"], tokens)
     x = shard_hint(x, ctx, ("dp", None, None))
+    if patch_embeds is not None and S >= patch_embeds.shape[1]:
+        n_img = patch_embeds.shape[1]
+        x = torch.cat([patch_embeds.to(x.dtype), x[:, n_img:]], dim=1)
     if positions is None:
         positions = torch.arange(S, device=tokens.device)[None, :].expand(B, S)
 
@@ -221,6 +269,50 @@ def forward(
 
 
 # -- public step functions ------------------------------------------------------------
+
+def _chunk_nll(cfg: ModelConfig, emb: Params, x: torch.Tensor,
+               targets: torch.Tensor) -> torch.Tensor:
+    logits = logits_matmul(cfg, emb, x).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    return lse - logits.gather(-1, targets[..., None])[..., 0]
+
+
+def _nll(cfg: ModelConfig, emb: Params, x: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Per-token negative log likelihood (B, S); over chunks of
+    ``cfg.logits_chunk`` positions when configured, where the JAX package
+    scans."""
+    S = x.shape[1]
+    C = cfg.logits_chunk
+    if C <= 0 or S % C != 0 or S <= C:
+        return _chunk_nll(cfg, emb, x, targets)
+    return torch.cat(
+        [_chunk_nll(cfg, emb, x[:, i:i + C], targets[:, i:i + C]) for i in range(0, S, C)],
+        dim=1,
+    )
+
+
+def loss_fn(
+    cfg: ModelConfig,
+    params: Params,
+    batch: dict[str, torch.Tensor],
+    ctx: RunCtx = RunCtx(),
+) -> torch.Tensor:
+    """Next-token cross-entropy (+ router aux for MoE), the last position masked."""
+    tokens = batch["tokens"]
+    x, _, aux = forward(
+        cfg, params, tokens, ctx=ctx, patch_embeds=batch.get("patch_embeds"),
+    )
+    targets = batch.get("labels")
+    if targets is None:
+        targets = F.pad(tokens[:, 1:], (0, 1))
+    nll = _nll(cfg, params["embedding"], x, targets.long())
+    mask = torch.ones_like(nll)
+    mask[:, -1] = 0.0
+    loss = (nll * mask).sum() / mask.sum()
+    if cfg.moe is not None:
+        loss = loss + cfg.moe.router_aux_coef * aux
+    return loss
+
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device) -> Params:
     """Stacked per-group decode caches."""
@@ -259,13 +351,15 @@ def prefill(
     tokens: torch.Tensor,        # (B, S)
     cache: Params,
     ctx: RunCtx = RunCtx(),
+    patch_embeds: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, Params]:
     """Run the full prompt through the model, filling the (empty) cache."""
     B, S = tokens.shape
     positions = torch.arange(S, device=tokens.device)[None, :].expand(B, S)
     ctx = dataclasses.replace(ctx, prefill=True)
     x, new_cache, _ = forward(
-        cfg, params, tokens, positions=positions, cache=cache, ctx=ctx
+        cfg, params, tokens, positions=positions, cache=cache, ctx=ctx,
+        patch_embeds=patch_embeds,
     )
     logits = logits_matmul(cfg, params["embedding"], x[:, -1:])
     return logits, new_cache

@@ -228,6 +228,33 @@ def test_non_cpu_tensors_go_to_the_launcher(monkeypatch):
     assert seen["causal"] is True and seen["scale"] == 64**-0.5
 
 
+@pytest.mark.parametrize("needs_grad", ["q", "k", "v"])
+def test_non_cpu_inputs_that_need_grad_raise(monkeypatch, needs_grad):
+    """The kernel has no backward: off the CPU, an input that requires grad
+    raises before the launcher is reached (``meta`` stands in for CUDA); under
+    ``no_grad`` the same inputs launch, and on the CPU the plain version
+    keeps its autograd."""
+    launched = []
+    monkeypatch.setattr(fa_ops, "flash_attention_fwd",
+                        lambda q, k, v, **kw: launched.append(1) or torch.empty_like(q))
+    q, k, v = _model_views(1, 4, 2, 16, 64, torch.bfloat16, "meta")
+    inputs = {"q": q, "k": k, "v": v}
+    inputs[needs_grad] = inputs[needs_grad].detach().requires_grad_()
+    fa_ops.launch_count = 0
+    with pytest.raises(RuntimeError, match="no backward"):
+        fa_ops.flash_attention_gqa(**inputs)
+    assert launched == [] and fa_ops.launch_count == 0
+    with torch.no_grad():
+        fa_ops.flash_attention_gqa(**inputs)
+    assert launched == [1] and fa_ops.launch_count == 1
+
+    cpu = {n: torch.randn(1, 4 if n == "q" else 2, 16, 64) for n in "qkv"}
+    cpu[needs_grad].requires_grad_()
+    out = fa_ops.flash_attention_gqa(**cpu)
+    (grad,) = torch.autograd.grad(out.sum(), cpu[needs_grad])
+    assert grad.shape == cpu[needs_grad].shape and bool(grad.abs().sum() > 0)
+
+
 @pytest.mark.parametrize("kernel_name", ["flash_attention", "ssd_scan", "fingerprint"])
 def test_library_name_hashes_source_and_shared_flags(kernel_name, tmp_path):
     """Every kernel's library is named by a hash of its source and the one

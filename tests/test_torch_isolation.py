@@ -2,7 +2,7 @@
 
 An AST scan of every module of ``src/repro_torch`` and of ``chip_smoke.py``
 finds no import of ``jax``/``jaxlib`` or of the ``repro`` package, and a
-fresh interpreter that imports the serve path loads neither.
+fresh interpreter that imports the serve and train paths loads neither.
 """
 
 from __future__ import annotations
@@ -54,6 +54,7 @@ def test_serve_path_loads_neither_jax_nor_repro():
     code = (
         "import sys\n"
         "import repro_torch.launch.serve, repro_torch.api, repro_torch.bridge\n"
+        "import repro_torch.launch.train, repro_torch.train\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "print(bad)\n"

@@ -101,11 +101,6 @@ def test_serve_mamba_tokens_equal_a_jax_greedy_loop(served_mamba):
     np.testing.assert_array_equal(np.stack(res["outputs"]), expect)
 
 
-def test_run_dir_restore_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="run-dir"):
-        serve(parse_args(ARGS + ["--run-dir", "/nonexistent"]))
-
-
 def test_serve_defaults_to_cuda():
     assert parse_args([]).device == "cuda"
     assert parse_args([]).arch == "qwen2.5-3b"

@@ -181,6 +181,41 @@ def test_non_cpu_tensors_go_to_the_launcher(monkeypatch, S, chunk, expect):
     assert y.shape == x.shape and sf.shape == (B, H, P, N)
 
 
+@pytest.mark.parametrize("needs_grad", ["x", "a", "b", "c", "initial_state"])
+def test_non_cpu_inputs_that_need_grad_raise(monkeypatch, needs_grad):
+    """The kernel has no backward: off the CPU, an input that requires grad
+    raises before the launcher is reached (``meta`` stands in for CUDA); under
+    ``no_grad`` the same inputs launch, and on the CPU the plain version
+    keeps its autograd."""
+    launched = []
+
+    def launcher(x, a, b, c, s0, *, chunk):
+        launched.append(1)
+        return torch.empty_like(x), torch.empty_like(s0)
+
+    monkeypatch.setattr(ssd_ops, "ssd_scan_fwd", launcher)
+    B, S, H, P, N = 1, 16, 2, 16, 8
+    shapes = {"x": (B, S, H, P), "a": (B, S, H), "b": (B, S, H, N), "c": (B, S, H, N),
+              "initial_state": (B, H, P, N)}
+    meta = {n: torch.empty(s, device="meta") for n, s in shapes.items()}
+    meta[needs_grad].requires_grad_()
+    ssd_ops.launch_count = 0
+    with pytest.raises(RuntimeError, match="no backward"):
+        ssd_ops.ssd_scan(**meta, chunk=8)
+    assert launched == [] and ssd_ops.launch_count == 0
+    with torch.no_grad():
+        ssd_ops.ssd_scan(**meta, chunk=8)
+    assert launched == [1] and ssd_ops.launch_count == 1
+
+    g = torch.Generator().manual_seed(0)
+    cpu = {n: torch.randn(s, generator=g) * 0.3 for n, s in shapes.items()}
+    cpu["a"] = -cpu["a"].abs()
+    cpu[needs_grad].requires_grad_()
+    y, state = ssd_ops.ssd_scan(**cpu, chunk=8)
+    (grad,) = torch.autograd.grad(y.sum() + state.sum(), cpu[needs_grad])
+    assert grad.shape == cpu[needs_grad].shape and bool(grad.abs().sum() > 0)
+
+
 def test_kernel_launcher_refuses_non_cuda_tensors():
     x = torch.zeros(1, 8, 2, 16)
     a = torch.zeros(1, 8, 2)
