@@ -11,18 +11,21 @@ Phases, each of which must pass (any failure exits non-zero):
    * flash attention over the kernel test shapes x {float32, bfloat16}
      (tolerance 2e-4 / 2e-2, plus a per-row relative L2 limit), over bf16
      shapes at the wgmma + TMA kernel's edges (ragged 128-row tiles, one q
-     row, the 32 B and 64 B swizzles, an input off TMA's 16-byte alignment,
-     and V = identity so that O reads back P), and at qwen2.5-3b's serving
-     prefill geometry, where two planted faults must be rejected; the f32
-     scalar kernel is timed there too;
+     row, the 32 B and 64 B swizzles, hymba-1.5b's prefill with its odd
+     group of 5, an input off TMA's 16-byte alignment, and V = identity so
+     that O reads back P), and at qwen2.5-3b's serving prefill geometry,
+     where two planted faults must be rejected; the f32 scalar kernel is
+     timed there too, and hymba's prefill is timed beside SDPA;
    * the SSD scan over the kernel test shapes x {float32, bfloat16}
      (tolerance 5e-4 / 3e-2 on y and the final state, plus a per-step
      relative L2 limit on y), over bf16 shapes at the tensor-core kernel's
-     edges (ragged S, S below one chunk, B/C per head, x off a 16-byte
-     boundary, so that both of its load modes run), and at mamba2-130m's
-     serving prefill geometry with head-broadcast B and C, where three
+     edges (ragged S, S below one chunk, B/C per head, hymba-1.5b's prefill
+     at N = 16, x off a 16-byte boundary, so that both of its load modes
+     run; head-broadcast B and C are the model's views of one conv
+     output), and at mamba2-130m's serving prefill geometry, where three
      planted faults must be rejected; timed there by both methods, with
-     the wrapper's host cost, the f32 kernel and batch 8 beside it;
+     the wrapper's host cost, the f32 kernel and batch 8 beside it, and
+     timed at hymba's prefill;
    * the tensor fingerprint, where tokens must be equal, not close: the
      kernel gives every pinned JAX token of ``FP_GOLDEN``, equals the plain
      version over byte lengths that straddle word and block edges and the
@@ -33,22 +36,27 @@ Phases, each of which must pass (any failure exits non-zero):
    Times the flash and SSD kernels, their plain versions and, where one
    exists, one PyTorch library call at the serving geometry for the
    ``kernels`` line.
-2. Model checks, for qwen2.5-3b and then mamba2-130m: the smoke config on
-   the card against the same weights on the CPU (prefill and decode
-   logits); the full-width bf16 model through the kernel, block by block no
-   further from an f32-compute run than the reference path is (the planted
-   faults must fail this check too); then a breakdown of the serving decode
-   step (host time, device kernel time, bound).  The fingerprint's path
+2. Model checks, for qwen2.5-3b, mamba2-130m and then hymba-1.5b: the
+   smoke config on the card against the same weights on the CPU (prefill
+   and decode logits); the full-width bf16 model through the kernels, block
+   by block no further from an f32-compute run than the reference path is
+   (the planted faults must fail this check too); then a breakdown of the
+   serving decode step (host time, device kernel time, bound).  hymba's
+   run is a 2048-token prefill (3 flash and 32 SSD launches, exactly) and
+   decode steps that write past the end of its local layers' 1024-slot
+   rings, checked also at every decode step's logits and in every ring,
+   where a planted ring write that stops at the last slot must fail.  The fingerprint's path
    runs on qwen2.5-3b's full-width f32 parameters: every leaf fingerprinted
    twice by the kernel (the tokens must agree), each leaf no larger than
    the embedding and one (36, 2048, 11008) MLP stack held to the plain
    version, and the kernel timed at the largest leaf and the embedding
    (with the measured cycles a chain step).
-3. Serve: ``repro_torch.launch.serve`` at full qwen2.5-3b width, then at
-   full mamba2-130m width, behind ``Session``/``ModelServer``.  Launch
-   counts are set to 0 just before each serve and read just after; every
-   kernel of the path must have launched, and no other (the fingerprint
-   runs on neither serve path).
+3. Serve: ``repro_torch.launch.serve`` at full qwen2.5-3b, mamba2-130m and
+   hymba-1.5b width (hymba with prompts of 2048 tokens), behind
+   ``Session``/``ModelServer``.  Launch counts are set to 0 just before
+   each serve and read just after; each kernel of the path must have
+   launched exactly ``SERVE_LAUNCHES`` times a prefill, and no other (the
+   fingerprint runs on no serve path).
 4. Train (no kernel: the training path runs the plain attention and SSD
    under autograd, as the JAX package does):
    a. ``repro_torch.launch.train`` at full mamba2-130m width (batch 8, seq
@@ -73,8 +81,9 @@ Phases, each of which must pass (any failure exits non-zero):
       the run's final params bit for bit, every request is served, and
       ``ssd_scan`` launches as often as in the fresh serve.
 
-The last lines are the ``kernels`` JSON object, the card's name and power
-limit, and ``{"ok": true, "device": {...}}``.  Needs the repository's
+Each part prints its own seconds and the run's so far.  The last lines
+are the ``kernels`` JSON object (launches summed over the serve paths), the
+card's name and power limit, and ``{"ok": true, "device": {...}}``.  Needs the repository's
 ``src/`` beside this file and a CUDA device.
 """
 
@@ -112,14 +121,19 @@ FA_SHAPES = [
 # few late rows, whose outputs are small, cannot hide under the first limit.
 TOL = {"float32": 2e-4, "bfloat16": 2e-2}
 ROW_REL_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
+# hymba-1.5b's serving prefill in its three global layers: 25 q heads in 5
+# groups of 5 (an odd group), hd 64, built as the model's strided views
+FA_HYMBA = (4, 25, 5, 2048, 2048, 64, True)
 # bf16 shapes at the wgmma + TMA kernel's edges, beside the sweep above:
-# Sq and Skv off its 128-row tiles (built as the model's strided views),
-# one q row against many keys, and the 32 B and 64 B swizzles (hd 16, 32)
+# Sq and Skv off its 128-row tiles, one q row against many keys, the 32 B
+# and 64 B swizzles (hd 16, 32), and hymba's prefill; the first and the
+# last are built as the model's strided views
 FA_BF16_EDGES = [
     (2, 16, 2, 1000, 1000, 128, True),
     (1, 8, 1, 1, 1024, 128, False),
     (1, 4, 4, 300, 300, 16, True),
     (1, 4, 2, 300, 300, 32, True),
+    FA_HYMBA,
 ]
 FAULT_TILE = 128  # keys per K/V tile of the bf16 kernel (kRows in flash_attention.cu)
 # Full-width bf16 forward: over every block of FORWARD_BLOCK tokens, the
@@ -132,6 +146,12 @@ FORWARD_NOISE = 1.25
 FAULTS = ("non-causal", "last kv tile skipped")
 SERVE_ARGS = ["--arch", "qwen2.5-3b", "--batch", "4", "--prompt-len", "1024",
               "--gen", "32", "--requests", "8", "--device", "cuda"]
+# Serve paths: each kernel's launches a prefill, exactly; any other kernel 0
+SERVE_LAUNCHES = {
+    "qwen2.5-3b": {"flash_attention": 36},                # every layer's prompt attention
+    "mamba2-130m": {"ssd_scan": 24},                      # every layer's SSD scan
+    "hymba-1.5b": {"flash_attention": 3, "ssd_scan": 32},  # 3 global layers; every layer
+}
 
 # (B, S, H, P, N, chunk): the SSD kernel test shapes of the JAX package
 SSD_SHAPES = [
@@ -148,19 +168,33 @@ SSD_SHAPES = [
 SSD_TOL = {"float32": 5e-4, "bfloat16": 3e-2}
 SSD_STEP_REL_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
 SSD_CHUNK = 128  # mamba2-130m's chunk: the model check's block of tokens
+# hymba-1.5b's serving prefill: 25 heads, N = 16 (the kernel stages 128 state
+# columns, so seven eighths of them are zero padding), B and C broadcast
+SSD_HYMBA = (4, 2048, 25, 64, 16, True)
 # bf16 shapes at the tensor-core kernel's edges, at mamba2-130m's width
 # (B, S, H, P, N, B/C head-broadcast): ragged S, S below one chunk, and B/C
-# not broadcast
+# not broadcast; then hymba's prefill
 SSD_BF16_EDGES = [
     (2, 1000, 24, 64, 128, True),
     (4, 37, 24, 64, 128, True),
     (2, 256, 24, 64, 128, False),
+    SSD_HYMBA,
 ]
 # Planted faults the SSD checks must reject (each built from wrapper calls)
 SSD_FAULTS = ("state not carried across chunks", "initial state ignored",
               "final state dropped")
 MAMBA_SERVE_ARGS = ["--arch", "mamba2-130m", "--batch", "4", "--prompt-len", "1024",
                     "--gen", "32", "--requests", "8", "--device", "cuda"]
+# hymba-1.5b: a prompt of twice its window (1024), so the window changes the
+# prefill and the local layers' rings keep only the prompt's tail; the
+# decode writes past the rings' end
+HYMBA_PROMPT = 2048
+HYMBA_SERVE_ARGS = ["--arch", "hymba-1.5b", "--batch", "4", "--prompt-len", str(HYMBA_PROMPT),
+                    "--gen", "32", "--requests", "8", "--device", "cuda"]
+HYMBA_STEPS = 8  # decode steps of the full-width model check, after a 2048-token prefill
+# Planted in the full-width hymba run, each with the check that must see it
+HYMBA_FAULTS = {"non-causal": "forward", "state not carried across chunks": "forward",
+                "ring write stops at the last slot": "ring"}
 # Phase 4: the train driver at full mamba2-130m width (the JAX driver's own
 # default arch, batch and seq), then a restart to RESTART_STEPS
 TRAIN_ARGS = ["--arch", "mamba2-130m", "--batch", "8", "--seq", "256", "--steps", "30",
@@ -347,7 +381,8 @@ def check_flash(gen) -> dict:
                 randn(B, KV, Skv, hd, dtype=dtype))
 
     def held(label, dname, q, k, v, causal):
-        """The kernel against the plain version, within TOL and ROW_REL_TOL."""
+        """The kernel against the plain version, within TOL and ROW_REL_TOL;
+        returns the max abs error."""
         out = flash_attention_gqa(q, k, v, causal=causal)
         torch.cuda.synchronize()
         ref = attention_ref(q, k, v, causal=causal)
@@ -359,6 +394,7 @@ def check_flash(gen) -> dict:
               f"row rel_l2 {row_rel:.3e} (tol {ROW_REL_TOL[dname]})")
         if not all(oks):
             fail(f"flash {label} {dname}: kernel disagrees with the plain version")
+        return err
 
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[-1]
@@ -366,8 +402,19 @@ def check_flash(gen) -> dict:
             held(shape, dname, *contiguous(*shape[:6], dtype), shape[6])
     bf16 = torch.bfloat16
     for i, shape in enumerate(FA_BF16_EDGES):
-        make = model_views if i == 0 else contiguous
-        held(shape, "bfloat16", *make(*shape[:6], bf16), shape[6])
+        make = model_views if i == 0 or shape == FA_HYMBA else contiguous
+        qkv = make(*shape[:6], bf16)
+        err = held(shape, "bfloat16", *qkv, shape[6])
+        if shape == FA_HYMBA:
+            if not all(tma_ready(t) for t in qkv):
+                fail("hymba's strided views would be copied before the kernel")
+            hymba = {"shape": shape, "max_abs_err": err, **flash_times(*qkv)}
+            print(f"[flash] hymba prefill {shape}: kernel {hymba['ms']:.4f} ms | card only "
+                  f"{hymba['card_ms']:.4f} ms | plain {hymba['plain_ms']:.4f} ms | sdpa "
+                  f"{hymba['library_ms']:.4f} ms (card only {hymba['card_library_ms']:.4f} ms) | "
+                  f"bound {hymba['bound_ms']:.4f} ms ({hymba['flops']:.4e} FLOP, "
+                  f"{hymba['bytes']} B)")
+            del qkv
     # a base 2 bytes off a 16-byte boundary: TMA cannot read it, so the
     # wrapper copies it to a contiguous tensor first
     B, H, KV, S, hd = 1, 4, 2, 256, 64
@@ -409,22 +456,13 @@ def check_flash(gen) -> dict:
         if b_within and b_row_ok:
             fail(f"the kernel check does not see the planted fault '{fault}'")
 
-    ms = time_ms(lambda: flash_attention_gqa(q, k, v, causal=True))
-    plain_ms = time_ms(lambda: attention_ref(q, k, v, causal=True))
+    times = flash_times(q, k, v)
     k_rep = k.repeat_interleave(G, dim=1)
     v_rep = v.repeat_interleave(G, dim=1)
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    library_ms = time_ms(lambda: sdpa(q, k_rep, v_rep, is_causal=True))
-    card_ms = time_ms(lambda: flash_attention_gqa(q, k, v, causal=True), card_only=True)
-    card_library_ms = time_ms(lambda: sdpa(q, k_rep, v_rep, is_causal=True), card_only=True)
     lib_err = (sdpa(q, k_rep, v_rep, is_causal=True).float() - ref.float()).abs().max().item()
     print(f"[flash] sdpa yardstick max_abs_err vs plain {lib_err:.3e}")
-
-    pairs = S * (S + 1) // 2  # (q, k) pairs with k <= q, per (b, h)
-    flops = 4 * hd * pairs * B * H  # Q K^T and P V, 2 FLOPs per multiply-add
-    nbytes = (q.numel() + k.numel() + v.numel() + out.numel()) * q.element_size()
-    t_ops = flops / PEAK_FLOPS["bfloat16"] * 1e3
-    t_bytes = nbytes / PEAK_BYTES * 1e3
+    del k_rep, v_rep
     q32, k32, v32 = (t.float() for t in (q, k, v))
     f32_ms = time_ms(lambda: flash_attention_gqa(q32, k32, v32, causal=True))
     torch.cuda.synchronize()
@@ -433,10 +471,11 @@ def check_flash(gen) -> dict:
         flash_attention_gqa(q, k, v, causal=True)
     host_us = (time.perf_counter() - t0) * 1e4
     torch.cuda.synchronize()
-    print(f"[flash] prefill: kernel {ms:.4f} ms | plain {plain_ms:.4f} ms | sdpa {library_ms:.4f} ms"
-          f" | bound {max(t_ops, t_bytes):.4f} ms ({flops:.4e} FLOP, {nbytes} B)"
-          f" | f32 scalar kernel {f32_ms:.4f} ms | wrapper host time {host_us:.1f} us a call"
-          f" | card only (card slept first): kernel {card_ms:.4f} ms, sdpa {card_library_ms:.4f} ms")
+    print(f"[flash] prefill: kernel {times['ms']:.4f} ms | plain {times['plain_ms']:.4f} ms | "
+          f"sdpa {times['library_ms']:.4f} ms | bound {times['bound_ms']:.4f} ms "
+          f"({times['flops']:.4e} FLOP, {times['bytes']} B) | f32 scalar kernel {f32_ms:.4f} ms"
+          f" | wrapper host time {host_us:.1f} us a call | card only (card slept first): kernel "
+          f"{times['card_ms']:.4f} ms, sdpa {times['card_library_ms']:.4f} ms")
     return {
         "name": "flash_attention",
         "route": "cuda",
@@ -444,11 +483,41 @@ def check_flash(gen) -> dict:
         "replaces": "src/repro/kernels/flash_attention/kernel.py:105",
         "launches": 0,
         "max_abs_err": err,
-        "ms": ms,
-        "plain_ms": plain_ms,
+        **{key: times[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        "hymba": hymba,
+    }
+
+
+def flash_times(q, k, v) -> dict:
+    """A causal prefill's times: the kernel, the plain version and SDPA on
+    K/V repeated over the group (the yardstick), the kernel and SDPA again
+    with the card slept first (card only), and the bound with its FLOP and
+    bytes."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention_gqa
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    B, H, S, hd = q.shape
+    G = H // k.shape[1]
+    kernel = lambda: flash_attention_gqa(q, k, v, causal=True)  # noqa: E731
+    k_rep = k.repeat_interleave(G, dim=1)
+    v_rep = v.repeat_interleave(G, dim=1)
+    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+        q, k_rep, v_rep, is_causal=True)
+    pairs = S * (S + 1) // 2  # (q, k) pairs with k <= q, per (b, h)
+    flops = 4 * hd * pairs * B * H  # Q K^T and P V, 2 FLOPs per multiply-add
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()  # q, k, v, out
+    t_ops = flops / PEAK_FLOPS[str(q.dtype).split(".")[-1]] * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return {
+        "ms": time_ms(kernel),
+        "plain_ms": time_ms(lambda: attention_ref(q, k, v, causal=True)),
+        "library_ms": time_ms(sdpa),
+        "card_ms": time_ms(kernel, card_only=True),
+        "card_library_ms": time_ms(sdpa, card_only=True),
         "bound_ms": max(t_ops, t_bytes),
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-        "library_ms": library_ms,
+        "flops": flops,
+        "bytes": nbytes,
     }
 
 
@@ -507,13 +576,15 @@ def check_ssd(gen) -> dict:
 
     def inputs(B, S, H, P, N, dtype, shared_bc=False):
         """Scaled as the JAX sweep scales them; with ``shared_bc`` B and C
-        are one group broadcast over heads, as the model passes them."""
+        are one group broadcast over heads, as the model passes them: column
+        slices of one (B, S, H*P + 2N) conv output, behind its x columns."""
         randn = lambda *s: torch.randn(s, generator=gen, device="cuda")  # noqa: E731
         x = (randn(B, S, H, P) * 0.5).to(dtype)
         a = (-randn(B, S, H).abs() * 0.3).to(dtype)
         if shared_bc:
-            b = (randn(B, S, 1, N) * 0.5).to(dtype).expand(B, S, H, N)
-            c = (randn(B, S, 1, N) * 0.5).to(dtype).expand(B, S, H, N)
+            conv = (randn(B, S, H * P + 2 * N) * 0.5).to(dtype)
+            b, c = (conv[:, :, None, H * P + i * N:H * P + (i + 1) * N].expand(B, S, H, N)
+                    for i in (0, 1))
         else:
             b = (randn(B, S, H, N) * 0.5).to(dtype)
             c = (randn(B, S, H, N) * 0.5).to(dtype)
@@ -528,7 +599,8 @@ def check_ssd(gen) -> dict:
     routes = {}
 
     def held(label, dname, x, a, b, c, s0, chunk):
-        """The kernel against the plain version, within SSD_TOL and SSD_STEP_REL_TOL."""
+        """The kernel against the plain version, within SSD_TOL and
+        SSD_STEP_REL_TOL; returns the max abs error."""
         route = kernel_route(x, b, c)
         routes[route] = routes.get(route, 0) + 1
         y, sf = ssd_scan(x, a, b, c, s0, chunk=chunk)
@@ -540,15 +612,29 @@ def check_ssd(gen) -> dict:
         report(label, dname, res, f" | {route[0]} kernel, {route[1]} loads")
         if not all(res[2:]):
             fail(f"ssd {label} {dname}: kernel disagrees with the plain version")
+        return res[0]
 
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[-1]
         for shape in SSD_SHAPES:
             B, S, H, P, N, chunk = shape
             held(shape, dname, *inputs(B, S, H, P, N, dtype), chunk)
-    for B, S, H, P, N, shared in SSD_BF16_EDGES:
-        held((B, S, H, P, N, SSD_CHUNK, "shared B/C" if shared else "B/C per head"), "bfloat16",
-             *inputs(B, S, H, P, N, torch.bfloat16, shared_bc=shared), SSD_CHUNK)
+    for shape in SSD_BF16_EDGES:
+        B, S, H, P, N, shared = shape
+        args = inputs(B, S, H, P, N, torch.bfloat16, shared_bc=shared)
+        err = held((B, S, H, P, N, SSD_CHUNK, "shared B/C" if shared else "B/C per head"),
+                   "bfloat16", *args, SSD_CHUNK)
+        if shape == SSD_HYMBA:
+            route = kernel_route(args[0], args[2], args[3])
+            if route != ("tensor-core", "cp.async16"):
+                fail(f"hymba's prefill views take the {route} route")
+            hymba = {"shape": shape, "max_abs_err": err, "route": list(route),
+                     **ssd_times(*args)}
+            print(f"[ssd] hymba prefill {shape} ({route[0]} kernel, {route[1]} loads): kernel "
+                  f"{hymba['ms']:.4f} ms | card only {hymba['card_ms']:.4f} ms | plain "
+                  f"{hymba['plain_ms']:.4f} ms | library none | bound {hymba['bound_ms']:.4f} ms "
+                  f"({hymba['flops']:.4e} FLOP, {hymba['bytes']} B)")
+        del args
     # x 2 bytes off a 16-byte boundary: the tensor-core kernel loads it element
     # by element, in place
     x, a, b, c, s0 = inputs(2, 300, 4, 64, 64, torch.bfloat16)
@@ -587,34 +673,24 @@ def check_ssd(gen) -> dict:
             fail(f"the kernel check does not see the planted fault '{fault}'")
 
     scan = lambda: ssd_scan(x, a, b, c, s0, chunk=SSD_CHUNK)  # noqa: E731
-    ms = time_ms(scan)
-    card_ms = time_ms(scan, card_only=True)
+    times = ssd_times(x, a, b, c, s0)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(100):  # the host's cost of a call: checks, routing, launch
         scan()
     host_us = (time.perf_counter() - t0) * 1e4
     torch.cuda.synchronize()
-    plain_ms = time_ms(lambda: ssd_plain(x, a, b, c, s0), iters=3, warmup=1)
     x32, b32, c32 = x.float(), b.float(), c.float()
     f32_ms = time_ms(lambda: ssd_scan(x32, a, b32, c32, s0, chunk=SSD_CHUNK))
     # batch 8: 192 streams, more than the 132 SMs at one CTA an SM (a second wave)
     x8, a8, b8, c8, s08 = inputs(2 * B, S, H, P, N, dtype, shared_bc=True)
     card8_ms = time_ms(lambda: ssd_scan(x8, a8, b8, c8, s08, chunk=SSD_CHUNK), card_only=True)
     del x8, a8, b8, c8, s08, x32, b32, c32
-    Q, n_chunks = SSD_CHUNK, S // SSD_CHUNK
-    # per chunk: C B^T, its product with X, C S^T and the state update
-    flops = (2 * Q * Q * N + 2 * Q * Q * P + 2 * Q * N * P + 2 * P * Q * N) * n_chunks * B * H
-    el = x.element_size()
-    # x and y, a (f32), B and C once per batch row (head stride 0), s0 and
-    # the final state (f32)
-    nbytes = 2 * B * S * H * P * el + B * S * H * 4 + 2 * B * S * N * el + 2 * B * H * P * N * 4
-    t_ops = flops / PEAK_FLOPS["bfloat16"] * 1e3
-    t_bytes = nbytes / PEAK_BYTES * 1e3
-    print(f"[ssd] prefill: kernel {ms:.4f} ms | plain {plain_ms:.4f} ms | library none"
-          f" | bound {max(t_ops, t_bytes):.4f} ms ({flops:.4e} FLOP, {nbytes} B)"
-          f" | card only (card slept first) {card_ms:.4f} ms | wrapper host time "
-          f"{host_us:.1f} us a call | f32 scalar kernel {f32_ms:.4f} ms | batch {2 * B} "
+    card_ms = times["card_ms"]
+    print(f"[ssd] prefill: kernel {times['ms']:.4f} ms | plain {times['plain_ms']:.4f} ms | "
+          f"library none | bound {times['bound_ms']:.4f} ms ({times['flops']:.4e} FLOP, "
+          f"{times['bytes']} B) | card only (card slept first) {card_ms:.4f} ms | wrapper host "
+          f"time {host_us:.1f} us a call | f32 scalar kernel {f32_ms:.4f} ms | batch {2 * B} "
           f"card only {card8_ms:.4f} ms ({card8_ms / card_ms:.2f}x batch {B})")
     return {
         "name": "ssd_scan",
@@ -623,11 +699,38 @@ def check_ssd(gen) -> dict:
         "replaces": "src/repro/kernels/ssd_scan/kernel.py:96",
         "launches": 0,
         "max_abs_err": err,
-        "ms": ms,
-        "plain_ms": plain_ms,
+        **{key: times[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by")},
+        "library_ms": None,
+        "hymba": hymba,
+    }
+
+
+def ssd_times(x, a, b, c, s0) -> dict:
+    """A prefill scan's times at chunk SSD_CHUNK: the kernel, with the card
+    slept first (card only), and the plain version; the bound with its FLOP
+    and bytes."""
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan
+
+    B, S, H, P = x.shape
+    N = b.shape[-1]
+    scan = lambda: ssd_scan(x, a, b, c, s0, chunk=SSD_CHUNK)  # noqa: E731
+    Q, n_chunks = SSD_CHUNK, -(-S // SSD_CHUNK)
+    # per chunk: C B^T, its product with X, C S^T and the state update
+    flops = (2 * Q * Q * N + 2 * Q * Q * P + 2 * Q * N * P + 2 * P * Q * N) * n_chunks * B * H
+    el = x.element_size()
+    # x and y, a (f32), B and C once per batch row (head stride 0), s0 and
+    # the final state (f32)
+    nbytes = 2 * B * S * H * P * el + B * S * H * 4 + 2 * B * S * N * el + 2 * B * H * P * N * 4
+    t_ops = flops / PEAK_FLOPS[str(x.dtype).split(".")[-1]] * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return {
+        "ms": time_ms(scan),
+        "card_ms": time_ms(scan, card_only=True),
+        "plain_ms": time_ms(lambda: ssd_plain(x, a, b, c, s0), iters=3, warmup=1),
         "bound_ms": max(t_ops, t_bytes),
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-        "library_ms": None,
+        "flops": flops,
+        "bytes": nbytes,
     }
 
 
@@ -1030,18 +1133,159 @@ def phase_model_mamba() -> dict:
     return decode
 
 
+def plant_ring_fault(update):
+    """``update`` (``attention._update_kv_cache``) with a fault planted in
+    its ring mode: the write slot stops at the ring's last slot instead of
+    wrapping to slot 0, as a write clamped into the buffer would; the
+    length still counts every token."""
+
+    def faulty(cache, k_new, v_new, positions, window, aligned=False):
+        if window == 0:
+            return update(cache, k_new, v_new, positions, window, aligned)
+        size, n = cache["k"].shape[1], k_new.shape[1]
+        length = cache["length"].clone()
+        cache["length"].clamp_(max=size - n)
+        out = update(cache, k_new, v_new, positions, window, aligned)
+        cache["length"].copy_(length + n)
+        return out
+
+    return faulty
+
+
+def phase_model_hymba() -> dict:
+    """hymba-1.5b's model checks: the smoke config on the card against the
+    CPU, then full width in bf16 (a 2048-token prefill, whose local layers
+    keep the prompt's last 1024 keys in their rings, and HYMBA_STEPS decode
+    steps that write past the rings' end) held to the reference path's own
+    distance from an f32-compute run, with three planted faults; then the
+    decode breakdown."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.models import attention, ssm
+    from repro_torch.models import transformer as tx
+
+    smoke_check(tx, "hymba-1.5b")
+    cfg = get_config("hymba-1.5b")
+    t0 = time.perf_counter()
+    params = tx.init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    print(f"[model] hymba-1.5b full width: {n_params:,} params "
+          f"({n_params * 4 / 1e9:.2f} GB f32) made in {time.perf_counter() - t0:.1f}s")
+    S, steps = HYMBA_PROMPT, HYMBA_STEPS
+    local = [g.name for g in tx.layer_groups(cfg) if g.window]
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (1, S), device="cuda", generator=gen)
+    fed = torch.randint(0, cfg.vocab_size, (1, steps), device="cuda", generator=gen)
+
+    def run(c):
+        """Hidden states (1, S, d) of the prefill, the logits (1, steps, V)
+        of the decode steps after it, and the local layers' rings after the
+        decode, (layers, size, KV, 2 hd) with k and v side by side."""
+        cache = tx.init_cache(c, 1, S + steps, device="cuda")
+        hidden, cache, _ = tx.forward(c, params, toks, cache=cache, ctx=tx.RunCtx(prefill=True))
+        logits = []
+        for i in range(steps):
+            pos = torch.full((1, 1), S + i, dtype=torch.int64, device="cuda")
+            lg, cache = tx.decode_step(c, params, cache, fed[:, i:i + 1], pos)
+            logits.append(lg[:, -1])
+        rings = [cache[g]["attn"] for g in local]
+        if not all(bool(r["length"].eq(S + steps).all()) for r in rings):
+            fail("hymba: a ring's length is not the tokens it has seen")
+        rings = torch.cat([torch.cat([r["k"], r["v"]], dim=-1)[:, 0] for r in rings])
+        return hidden, torch.stack(logits, dim=1), rings
+
+    pcfg = cfg.replace(attention_impl="pallas")
+    # (module, function, its faulty stand-in) for each fault of HYMBA_FAULTS
+    faulty = {
+        "non-causal": (attention, "_flash", plant_fault(attention._flash, "non-causal", 1)),
+        "state not carried across chunks": (
+            ssm, "ssd_scan", plant_ssd_fault(ssm.ssd_scan, "state not carried across chunks")),
+        "ring write stops at the last slot": (
+            attention, "_update_kv_cache", plant_ring_fault(attention._update_kv_cache)),
+    }
+    with torch.inference_mode():
+        ref = run(cfg.replace(attention_impl="reference"))
+        exact = run(cfg.replace(compute_dtype=torch.float32))
+        n0 = {"flash_attention": fa_ops.launch_count, "ssd_scan": ssd_ops.launch_count}
+        out = run(pcfg)
+        torch.cuda.synchronize()
+        n = {"flash_attention": fa_ops.launch_count - n0["flash_attention"],
+             "ssd_scan": ssd_ops.launch_count - n0["ssd_scan"]}
+        planted = {}
+        for fault in HYMBA_FAULTS:
+            module, name, stand_in = faulty[fault]
+            real = getattr(module, name)
+            setattr(module, name, stand_in)
+            try:
+                planted[fault] = run(pcfg)
+            finally:
+                setattr(module, name, real)
+
+    def step_rel(a, b):
+        """Relative L2 error of the logits of each decode step."""
+        return ((a.float() - b.float()).norm(dim=-1) / b.float().norm(dim=-1))[0]
+
+    def layer_rel(a, b):
+        """Relative L2 error of each local layer's ring."""
+        return (a.float() - b.float()).flatten(1).norm(dim=1) / b.float().flatten(1).norm(dim=1)
+
+    # Held to the reference path's own distance from the f32-compute run:
+    # over every block of one chunk (prefill hidden states), at every decode
+    # step (logits) and in every local layer's ring after the decode
+    noise = {"forward": block_rel(ref[0], exact[0], SSD_CHUNK),
+             "decode": step_rel(ref[1], exact[1]), "ring": layer_rel(ref[2], exact[2])}
+
+    def ratios(run_out):
+        return {"forward": (block_rel(run_out[0], exact[0], SSD_CHUNK) / noise["forward"]).max().item(),
+                "decode": (step_rel(run_out[1], exact[1]) / noise["decode"]).max().item(),
+                "ring": (layer_rel(run_out[2], exact[2]) / noise["ring"]).max().item()}
+
+    got = ratios(out)
+    span = lambda t: f"{t.min().item():.3e}-{t.max().item():.3e}"  # noqa: E731
+    print(f"[model] hymba full-width prefill (B=1, S={S}) + {steps} decode steps through the "
+          f"rings' wrap, bf16: against the f32-compute run, reference rel_l2 "
+          f"{rel(ref[0], exact[0]):.3e} (blocks {span(noise['forward'])}, decode "
+          f"{span(noise['decode'])}, rings {span(noise['ring'])}), kernel path rel_l2 "
+          f"{rel(out[0], exact[0]):.3e} | worst ratios: block {got['forward']:.3f}, decode "
+          f"{got['decode']:.3f}, ring {got['ring']:.3f} (tol {FORWARD_NOISE}) | launches {n}")
+    if (out[0].shape != (1, S, cfg.d_model) or out[1].shape != (1, steps, cfg.vocab_size)
+            or out[2].shape != (cfg.num_layers - len(cfg.global_layers), cfg.sliding_window,
+                                cfg.num_kv_heads, 2 * cfg.head_dim)):
+        fail(f"full-width hymba run: wrong shapes {[tuple(t.shape) for t in out]}")
+    if not all(bool(torch.isfinite(t).all()) for t in out):
+        fail("full-width hymba run: non-finite values")
+    for fault, check in HYMBA_FAULTS.items():
+        bad = ratios(planted[fault])
+        print(f"[model] planted fault '{fault}': worst ratios block {bad['forward']:.3f}, decode "
+              f"{bad['decode']:.3f}, ring {bad['ring']:.3f} -> {check} check "
+              f"{'PASSED' if bad[check] <= FORWARD_NOISE else 'rejected'}")
+        if bad[check] <= FORWARD_NOISE:
+            fail(f"the {check} check does not see the planted fault '{fault}'")
+    if n != SERVE_LAUNCHES["hymba-1.5b"]:
+        fail(f"full-width hymba run launched {n}, not {SERVE_LAUNCHES['hymba-1.5b']}")
+    if max(got.values()) > FORWARD_NOISE:
+        fail("full-width hymba run: kernel path disagrees with the reference")
+    del ref, exact, out, planted
+    decode = decode_breakdown(tx, cfg, params, PL=S)
+    del params
+    torch.cuda.empty_cache()
+    return decode
+
+
 def _cache_step_bytes(cache) -> int:
     """Bytes a decode step moves in the cache: every buffer read once, and an
     SSM layer's conv tail and state written back whole."""
-    return sum(t.numel() * t.element_size() * (2 if name in ("conv", "state") else 1)
-               for group in cache.values() for name, t in group.items())
+    return sum(t.numel() * t.element_size() * (2 if name.endswith(("/conv", "/state")) else 1)
+               for name, t in _named_leaves(cache))
 
 
-def decode_breakdown(tx, cfg, params) -> dict:
-    """Serving decode step at batch 4 after a 1024-token prefill, outside the
+def decode_breakdown(tx, cfg, params, PL: int = 1024) -> dict:
+    """Serving decode step at batch 4 after a PL-token prefill, outside the
     server: host time per step, device kernel time per step from the
     profiler, and the step's bound from the bytes it must move."""
-    B, PL, steps = 4, 1024, 8
+    B, steps = 4, 8
     pcfg = cfg.replace(attention_impl="pallas")
     toks = torch.randint(0, cfg.vocab_size, (B, PL), device="cuda",
                          generator=torch.Generator(device="cuda").manual_seed(2))
@@ -1112,9 +1356,10 @@ def _to(tree, device):
     return tree.to(device, copy=True)
 
 
-def phase_serve(argv: list[str], kernel: str) -> dict:
-    """Serve 8 requests of ``argv``'s arch; ``kernel`` must launch at least
-    once per layer and prefill, and no other kernel at all."""
+def phase_serve(argv: list[str]) -> dict:
+    """Serve 8 requests of ``argv``'s arch; each kernel of its path must
+    launch exactly ``SERVE_LAUNCHES[arch][kernel]`` times a prefill, and no
+    other kernel at all."""
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import parse_args, serve
 
@@ -1136,12 +1381,10 @@ def phase_serve(argv: list[str], kernel: str) -> dict:
     for o in outs:
         if o.shape != (args.gen,) or o.min() < 0 or o.max() >= cfg.vocab_size:
             fail(f"bad generation {o}")
-    n = launches[kernel]
-    if n < cfg.num_layers * res["prefills"] or n == 0:
-        fail(f"{kernel} kernel launched {n} times for {res['prefills']} prefills")
-    others = {k: v for k, v in launches.items() if k != kernel and v}
-    if others:
-        fail(f"{args.arch} serve launched kernels off its path: {others}")
+    per_prefill = SERVE_LAUNCHES[args.arch]
+    want = {name: per_prefill.get(name, 0) * res["prefills"] for name in launches}
+    if launches != want or res["prefills"] == 0:
+        fail(f"{args.arch} serve launched {launches} in {res['prefills']} prefills, not {want}")
     return {"launches": launches, **{k: res[k] for k in ("prefill_s", "decode_tok_s", "prefills")},
             "latency_p50_ms": sstats["latency_p50_ms"], "latency_p99_ms": sstats["latency_p99_ms"]}
 
@@ -1547,7 +1790,7 @@ def serve_run_dir(run_dir: str, fresh_ssd_launches: int) -> dict:
 
     serve_mod._load_params = spy
     try:
-        res = phase_serve(MAMBA_SERVE_ARGS + ["--run-dir", run_dir], "ssd_scan")
+        res = phase_serve(MAMBA_SERVE_ARGS + ["--run-dir", run_dir])
     finally:
         serve_mod._load_params = real
     got = _host_copy(loaded["params"])
@@ -1597,34 +1840,45 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
+    marks = [t0]
+
+    def done(label: str) -> float:
+        """Print a part's seconds and the run's so far; returns the part's."""
+        torch.cuda.empty_cache()
+        marks.append(time.perf_counter())
+        secs = marks[-1] - marks[-2]
+        print(f"[{label}] ok ({secs:.1f}s; {marks[-1] - t0:.1f}s in all)")
+        return secs
+
     gen = torch.Generator(device="cuda").manual_seed(0)
     fa, ssd, fp = phase_kernels(gen)
-    torch.cuda.empty_cache()
-    print(f"[phase 1] kernels ok ({time.perf_counter() - t0:.1f}s)")
+    done("phase 1 kernels")
+    hymba_kernels = {"flash_attention": fa.pop("hymba"), "ssd_scan": ssd.pop("hymba")}
     qwen_decode, fp_detail = phase_model(fp)
+    done("phase 2 qwen2.5-3b and the fingerprint's path")
     decode = {"qwen2.5-3b": qwen_decode, "mamba2-130m": phase_model_mamba()}
-    torch.cuda.empty_cache()
-    print(f"[phase 2] model ok ({time.perf_counter() - t0:.1f}s)")
-    served = {"qwen2.5-3b": phase_serve(SERVE_ARGS, "flash_attention"),
-              "mamba2-130m": phase_serve(MAMBA_SERVE_ARGS, "ssd_scan")}
-    fa["launches"] = served["qwen2.5-3b"]["launches"]["flash_attention"]
-    ssd["launches"] = served["mamba2-130m"]["launches"]["ssd_scan"]
-    print(f"[phase 3] serve ok ({time.perf_counter() - t0:.1f}s)")
-    torch.cuda.empty_cache()
+    done("phase 2 mamba2-130m")
+    decode["hymba-1.5b"] = phase_model_hymba()
+    done("phase 2 hymba-1.5b")
+    served = {}
+    for argv in (SERVE_ARGS, MAMBA_SERVE_ARGS, HYMBA_SERVE_ARGS):
+        arch = argv[argv.index("--arch") + 1]
+        served[arch] = phase_serve(argv)
+        done(f"phase 3 {arch} serve")
+    # every serve path's launches: qwen's and hymba's flash, mamba's and hymba's ssd_scan
+    for entry in (fa, ssd):
+        entry["launches"] = sum(res["launches"][entry["name"]] for res in served.values())
 
     gpu = gpu_name_and_limit()
-    t4 = time.perf_counter()
-    trained = phase_train(gpu, ssd["launches"])
-    trained["seconds"] = time.perf_counter() - t4
-    print(f"[phase 4] train ok ({trained['seconds']:.1f}s of phase 4; "
-          f"{time.perf_counter() - t0:.1f}s in all)")
+    trained = phase_train(gpu, served["mamba2-130m"]["launches"]["ssd_scan"])
+    trained["seconds"] = done("phase 4 train")
 
     result = {"kernels": [fa, ssd, fp]}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {**result, "serve": served, "decode": decode, "fingerprint": fp_detail,
-         "train": trained, "gpu": gpu}, indent=1))
+         "hymba_kernels": hymba_kernels, "train": trained, "gpu": gpu}, indent=1))
     print(json.dumps(result))
     print(gpu)
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,12 +7,18 @@ to ``--batch`` within ``--max-wait-ms``, and ``generate`` pads each batch to
 the serving width, prefills and decodes greedily.  With
 ``attention_impl="pallas"`` every prefill goes through the hand-written
 kernels: prompt attention through ``flash_attention`` (dense archs), the
-prompt's SSD scan through ``ssd_scan`` (mamba2-130m).
+prompt's SSD scan through ``ssd_scan`` (mamba2-130m), and both for
+hymba-1.5b: the prompt attention of its three global layers through
+``flash_attention`` and every layer's SSD scan through ``ssd_scan``.  Its
+sliding-window layers attend over the prompt in plain PyTorch and keep their
+keys in ring caches of ``window`` slots.
 
     python -m repro_torch.launch.serve --arch qwen2.5-3b --batch 4 \
         --prompt-len 1024 --gen 32
     python -m repro_torch.launch.serve --arch mamba2-130m --batch 4 \
         --prompt-len 1024 --gen 32
+    python -m repro_torch.launch.serve --arch hymba-1.5b --batch 4 \
+        --prompt-len 2048 --gen 32 --requests 8
 
 Runs on ``cuda`` unless ``--device cpu`` is given; it never falls back to the
 CPU on its own.  ``--run-dir`` serves a training run's latest checkpoint

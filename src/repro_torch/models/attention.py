@@ -13,10 +13,17 @@ JAX package computes it with ``kv_len = S`` over the zero tail of the cache,
 where every masked slot adds ``exp(-1e30 - m) = 0``: the same function.  The
 port sends it to the kernel when the kernel is configured.
 
+A sliding-window layer (``window > 0``, hymba's local layers) keeps a ring
+cache of ``min(window, max_len)`` slots.  Its prefill attends over the prompt
+itself with the window's mask and keeps the prompt's last ``window`` keys
+(``_fill_ring_cache``); a decode step writes slot ``length % size`` and
+attends over every valid slot, as the JAX package does.  Windowed layers
+never take the flash kernel, which has no window.
+
 Caches are updated **in place**: the k/v slots and the length of the
 (stacked) cache buffers passed in are written, and the same buffers are
-returned.  Ring (windowed) caches, cross attention and MLA wait for later
-slices and raise ``NotImplementedError``.
+returned.  Cross attention and MLA wait for later slices and raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -198,8 +205,6 @@ def apply_attention(
     """``ctx.prefill`` marks a prefill into an empty cache at positions 0..S-1."""
     if cross_kv is not None:
         raise NotImplementedError("cross attention is not ported yet")
-    if cache is not None and window > 0:
-        raise NotImplementedError("ring (windowed) KV caches are not ported yet")
     ct = cfg.compute_dtype
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     G = H // KV
@@ -220,7 +225,16 @@ def apply_attention(
     q = q.reshape(B, S, KV, G, hd)
 
     prefill = bool(getattr(ctx, "prefill", False))
-    if cache is not None and prefill and cfg.attention_impl == "pallas":
+    if cache is not None and window > 0 and S > 1:
+        # Windowed prefill: ring slots are not position-addressable for
+        # S > window, so attend over the prompt with the window's mask and
+        # keep its last `window` keys in the ring.  Before the kernel's
+        # branch: the kernel has no window.
+        out = chunked_attention(
+            q, k, v, causal=True, window=window, chunk=cfg.attention_chunk
+        )
+        new_cache = _fill_ring_cache(cache, k, v)
+    elif cache is not None and prefill and cfg.attention_impl == "pallas":
         # Prompt attention of a prefill: the kernel's causal case over the S
         # new keys (see the module docstring); they land in slots [0, S).
         _, _, new_cache, _, _, _ = _update_kv_cache(
@@ -261,18 +275,16 @@ def init_kv_cache(cfg, batch: int, max_len: int, window: int = 0, *, device) -> 
 
 
 def _update_kv_cache(cache, k_new, v_new, positions, window, aligned=False):
-    """Write new keys into the linear cache buffer, in place.
+    """Write new keys into the linear or ring cache buffer, in place.
 
     Returns ``(k, v, cache, kv_len, q_offset, causal)`` like the JAX
     function; ``cache`` is the dict passed in, with its buffers updated.
     """
-    if window > 0:
-        raise NotImplementedError("ring (windowed) KV caches are not ported yet")
     B, S_new = k_new.shape[0], k_new.shape[1]
     size = cache["k"].shape[1]
     length = cache["length"].clone()  # (B,) before this write
     steps = torch.arange(S_new, device=k_new.device)
-    if aligned:
+    if aligned and window == 0:
         # aligned continuous batching: one write slot for the whole batch,
         # clamped into the buffer as a dynamic-update-slice is
         start = length[0].to(torch.int64).clamp(0, size - S_new)
@@ -280,12 +292,32 @@ def _update_kv_cache(cache, k_new, v_new, positions, window, aligned=False):
         cache["k"].index_copy_(1, idx, k_new)
         cache["v"].index_copy_(1, idx, v_new)
     else:
-        # for a linear cache length < size, so the modulo never wraps
+        # ring slots; for a linear cache length < size, so the modulo never wraps
         write_pos = (length[:, None].to(torch.int64) + steps) % size  # (B, S_new)
         bidx = torch.arange(B, device=k_new.device)[:, None]
         cache["k"][bidx, write_pos] = k_new
         cache["v"][bidx, write_pos] = v_new
     cache["length"].add_(S_new)
+    new_len = length + S_new
+    if window > 0:
+        # ring (decode only): the buffer holds the last `size` tokens, every
+        # valid slot is attendable, and softmax(QK)V ignores their order
+        kv_len = torch.clamp(new_len, max=size)
+        return cache["k"], cache["v"], cache, kv_len, torch.zeros_like(new_len), False
     # slot index == absolute position, so causal masking with q at absolute
     # offset `length` is exact for both prefill and decode
-    return cache["k"], cache["v"], cache, length + S_new, length, True
+    return cache["k"], cache["v"], cache, new_len, length, True
+
+
+def _fill_ring_cache(cache, k, v):
+    """Fill a ring cache, in place, with the last ``min(size, S)`` keys and
+    values of an S-token prefill: absolute position ``pos`` lands in slot
+    ``pos % size``, and the length becomes S."""
+    size = cache["k"].shape[1]
+    S = k.shape[1]
+    W = min(size, S)
+    slots = torch.arange(S - W, S, device=k.device) % size
+    cache["k"].index_copy_(1, slots, k[:, S - W:])
+    cache["v"].index_copy_(1, slots, v[:, S - W:])
+    cache["length"].fill_(S)
+    return cache

@@ -1,6 +1,7 @@
 """Model assembly: layer blocks, the loop over stacked layers, train/prefill/decode.
 
-The dense decoder and SSM (Mamba-2) paths of ``repro/models/transformer.py``
+The dense decoder, SSM (Mamba-2) and hybrid (hymba: attention and a Mamba-2
+mixer side by side in every layer) paths of ``repro/models/transformer.py``
 on tensors.  The parameter tree keeps the JAX layout: ``{"embedding",
 <group>: stacked layer params with a leading layer dim, "final_norm"}``, so
 weights bridge leaf by leaf.  Where the JAX package scans over the stacked
@@ -8,8 +9,7 @@ dim, the port loops; each stacked leaf is split once per group with
 ``unbind(0)``, whose backward stacks the layers' gradients once (indexing
 layer by layer would give every layer's backward a zero buffer the size of
 the whole stack).  ``remat`` maps to ``torch.utils.checkpoint`` around each
-layer.  MoE and hybrid layer kinds wait for later slices and raise
-``NotImplementedError``.
+layer.  MoE layers wait for a later slice and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -88,7 +88,7 @@ def _check_ported(cfg: ModelConfig) -> None:
     if cfg.mla is not None:
         raise NotImplementedError(f"{cfg.name}: MLA is not ported yet")
     for group in layer_groups(cfg):
-        if group.kind not in ("dense", "ssm"):
+        if group.kind not in ("dense", "ssm", "hybrid"):
             raise NotImplementedError(
                 f"{cfg.name}: {group.kind} layers are not ported yet"
             )
@@ -116,12 +116,17 @@ def _init_layer(cfg: ModelConfig, group: LayerGroup, gen: torch.Generator) -> Pa
             "ln1": init_norm(cfg, cfg.d_model, gen.device),
             "mamba": ssm_mod.init_mamba(cfg, gen),
         }
-    return {
+    p = {
         "ln1": init_norm(cfg, cfg.d_model, gen.device),
         "attn": attn_mod.init_attention(cfg, gen),
         "ln2": init_norm(cfg, cfg.d_model, gen.device),
-        "mlp": init_mlp(cfg, gen, cfg.d_model, cfg.d_ff),
     }
+    if group.kind == "hybrid":
+        p["mamba"] = ssm_mod.init_mamba(cfg, gen)
+        p["beta_attn"] = torch.ones((cfg.d_model,), dtype=cfg.param_dtype, device=gen.device)
+        p["beta_ssm"] = torch.ones((cfg.d_model,), dtype=cfg.param_dtype, device=gen.device)
+    p["mlp"] = init_mlp(cfg, gen, cfg.d_model, cfg.d_ff)
+    return p
 
 
 def init_params(cfg: ModelConfig, gen: torch.Generator) -> Params:
@@ -171,15 +176,28 @@ def _apply_layer(
     cache: Params | None,
     ctx: RunCtx,
 ) -> torch.Tensor:
-    """One dense or SSM layer; a cache is updated in place."""
+    """One dense, SSM or hybrid layer; a cache is updated in place."""
     h = apply_norm(cfg, p["ln1"], x)
     if group.kind == "ssm":
         y, _ = ssm_mod.apply_mamba(cfg, p["mamba"], h, cache=cache, ctx=ctx)
         return x + y
-    y, _ = attn_mod.apply_attention(
-        cfg, p["attn"], h, positions=positions, causal=True,
-        window=group.window, cache=cache, ctx=ctx,
-    )
+    if group.kind == "hybrid":
+        # attention (with the group's window) and the SSM mixer read the
+        # same h; each updates its half of the layer's cache
+        y_attn, _ = attn_mod.apply_attention(
+            cfg, p["attn"], h, positions=positions, causal=True,
+            window=group.window, cache=None if cache is None else cache["attn"], ctx=ctx,
+        )
+        y_ssm, _ = ssm_mod.apply_mamba(
+            cfg, p["mamba"], h, cache=None if cache is None else cache["ssm"], ctx=ctx
+        )
+        ct = cfg.compute_dtype
+        y = 0.5 * (y_attn * p["beta_attn"].to(ct) + y_ssm * p["beta_ssm"].to(ct))
+    else:
+        y, _ = attn_mod.apply_attention(
+            cfg, p["attn"], h, positions=positions, causal=True,
+            window=group.window, cache=cache, ctx=ctx,
+        )
     x = x + y
     h2 = apply_norm(cfg, p["ln2"], x)
     return x + apply_mlp(cfg, p["mlp"], h2)
@@ -321,6 +339,13 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device) -> Params:
     for group in layer_groups(cfg):
         if group.kind == "ssm":
             one = ssm_mod.init_mamba_cache(cfg, batch, device=device)
+        elif group.kind == "hybrid":
+            # the group's own window sets its ring size (0: a linear cache)
+            one = {
+                "attn": attn_mod.init_kv_cache(cfg, batch, max_len, group.window,
+                                               device=device),
+                "ssm": ssm_mod.init_mamba_cache(cfg, batch, device=device),
+            }
         else:
             one = attn_mod.init_kv_cache(cfg, batch, max_len, device=device)
         cache[group.name] = _tree_map(

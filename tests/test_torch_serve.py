@@ -3,10 +3,13 @@
 ``repro_torch.launch.serve`` answers every request through the port's own
 ``Session``/``ModelServer``; its greedy tokens must equal those of a JAX
 ``prefill``/``decode_step`` loop on the same weights (carried across with
-``repro_torch.bridge``) and the same prompts.  Smoke configs of qwen2.5-3b
-and mamba2-130m, float32.  For mamba2 the port's prefill takes the SSD
-kernel's plain version (the sequential recurrence) and the JAX loop its
-reference (the chunked form): the same function, so the tokens are equal.
+``repro_torch.bridge``) and the same prompts.  Smoke configs of qwen2.5-3b,
+mamba2-130m and hymba-1.5b, float32.  For mamba2 and hymba the port's
+prefill takes the SSD kernel's plain version (the sequential recurrence) and
+the JAX loop its reference (the chunked form): the same function, so the
+tokens are equal.  hymba's prompts (28 tokens) are longer than its window
+(16), and its decode's write slot runs past the end of the local layers'
+rings and back to slot 0.
 """
 
 from __future__ import annotations
@@ -60,6 +63,12 @@ def served_mamba():
     return args, serve(args)
 
 
+@pytest.fixture(scope="module")
+def served_hymba():
+    args = parse_args(ARGS + ["--arch", "hymba-1.5b", "--prompt-len", "28"])
+    return args, serve(args)
+
+
 def test_serve_answers_every_request(served):
     args, res = served
     assert res["requests"] == 5 and len(res["outputs"]) == 5
@@ -97,6 +106,26 @@ def test_serve_mamba_answers_every_request(served_mamba):
 
 def test_serve_mamba_tokens_equal_a_jax_greedy_loop(served_mamba):
     args, res = served_mamba
+    expect = _jax_greedy(args.arch, res["prompts"], args.gen)
+    np.testing.assert_array_equal(np.stack(res["outputs"]), expect)
+
+
+def test_serve_hymba_answers_every_request(served_hymba):
+    args, res = served_hymba
+    cfg = get_smoke_config(args.arch)
+    assert args.arch == "hymba-1.5b" and len(res["outputs"]) == 5
+    assert args.prompt_len > cfg.sliding_window
+    # the decode steps write positions PL .. PL + gen - 2, across a multiple of the ring's size
+    assert (args.prompt_len + args.gen - 2) // cfg.sliding_window > \
+        args.prompt_len // cfg.sliding_window
+    assert res["prefills"] == res["server"]["batches"] >= 3
+    assert res["kernel_launches"] == {"flash_attention": 0, "ssd_scan": 0}  # CPU
+    for out in res["outputs"]:
+        assert out.shape == (args.gen,) and 0 <= out.min() and out.max() < cfg.vocab_size
+
+
+def test_serve_hymba_tokens_equal_a_jax_greedy_loop(served_hymba):
+    args, res = served_hymba
     expect = _jax_greedy(args.arch, res["prompts"], args.gen)
     np.testing.assert_array_equal(np.stack(res["outputs"]), expect)
 

@@ -53,6 +53,7 @@ torch.set_num_threads(1)
 
 DENSE = ["qwen2.5-3b", "phi4-mini-3.8b", "granite-20b", "starcoder2-15b", "internvl2-2b"]
 SSM = ["mamba2-130m"]
+HYBRID = ["hymba-1.5b"]
 B, S = 2, 32
 LOSS_RTOL, GNORM_RTOL, LR_RTOL = 1e-5, 1e-4, 1e-7
 MOMENT_REL_L2, UPDATE_REL_L2 = 1e-5, 1e-2
@@ -82,6 +83,7 @@ def _jax_state(arch: str):
 CASES = [
     ("qwen2.5-3b", {}),
     ("mamba2-130m", {}),
+    ("hymba-1.5b", {}),
     ("qwen2.5-3b", {"num_microbatches": 2}),
     ("mamba2-130m", {"num_microbatches": 2}),
     ("qwen2.5-3b", {"remat": "full"}),
@@ -147,7 +149,7 @@ def test_encoder_decoder_train_step_raises():
 # -- the reference's model smoke tests, against the port --------------------------------
 
 
-@pytest.mark.parametrize("arch", DENSE + SSM)
+@pytest.mark.parametrize("arch", DENSE + SSM + HYBRID)
 def test_train_step_runs(arch):
     cfg = get_smoke_config(arch)
     state = init_train_state(cfg, torch.Generator().manual_seed(0))
@@ -192,7 +194,7 @@ def test_microbatched_train_step_matches_single(arch):
     np.testing.assert_allclose(w1.numpy(), w2.numpy(), rtol=1e-4, atol=1e-5)
 
 
-@pytest.mark.parametrize("arch", DENSE + SSM)
+@pytest.mark.parametrize("arch", DENSE + SSM + HYBRID)
 @pytest.mark.parametrize("remat", ["full", "dots"])
 def test_remat_matches_no_remat(arch, remat):
     cfg = get_smoke_config(arch)
