@@ -12,10 +12,11 @@ Phases, each of which must pass (any failure exits non-zero):
      (tolerance 2e-4 / 2e-2, plus a per-row relative L2 limit), over bf16
      shapes at the wgmma + TMA kernel's edges (ragged 128-row tiles, one q
      row, the 32 B and 64 B swizzles, hymba-1.5b's prefill with its odd
-     group of 5, an input off TMA's 16-byte alignment, and V = identity so
-     that O reads back P), and at qwen2.5-3b's serving prefill geometry,
-     where two planted faults must be rejected; the f32 scalar kernel is
-     timed there too, and hymba's prefill is timed beside SDPA;
+     group of 5, kimi-k2's with 64 heads in groups of 8, an input off TMA's
+     16-byte alignment, and V = identity so that O reads back P), and at
+     qwen2.5-3b's serving prefill geometry, where two planted faults must
+     be rejected; the f32 scalar kernel is timed there too, and hymba's and
+     kimi's prefills are timed beside SDPA;
    * the SSD scan over the kernel test shapes x {float32, bfloat16}
      (tolerance 5e-4 / 3e-2 on y and the final state, plus a per-step
      relative L2 limit on y), over bf16 shapes at the tensor-core kernel's
@@ -36,27 +37,43 @@ Phases, each of which must pass (any failure exits non-zero):
    Times the flash and SSD kernels, their plain versions and, where one
    exists, one PyTorch library call at the serving geometry for the
    ``kernels`` line.
-2. Model checks, for qwen2.5-3b, mamba2-130m and then hymba-1.5b: the
-   smoke config on the card against the same weights on the CPU (prefill
-   and decode logits); the full-width bf16 model through the kernels, block
-   by block no further from an f32-compute run than the reference path is
-   (the planted faults must fail this check too); then a breakdown of the
-   serving decode step (host time, device kernel time, bound).  hymba's
-   run is a 2048-token prefill (3 flash and 32 SSD launches, exactly) and
-   decode steps that write past the end of its local layers' 1024-slot
-   rings, checked also at every decode step's logits and in every ring,
-   where a planted ring write that stops at the last slot must fail.  The fingerprint's path
-   runs on qwen2.5-3b's full-width f32 parameters: every leaf fingerprinted
-   twice by the kernel (the tokens must agree), each leaf no larger than
-   the embedding and one (36, 2048, 11008) MLP stack held to the plain
-   version, and the kernel timed at the largest leaf and the embedding
-   (with the measured cycles a chain step).
-3. Serve: ``repro_torch.launch.serve`` at full qwen2.5-3b, mamba2-130m and
-   hymba-1.5b width (hymba with prompts of 2048 tokens), behind
-   ``Session``/``ModelServer``.  Launch counts are set to 0 just before
-   each serve and read just after; each kernel of the path must have
-   launched exactly ``SERVE_LAUNCHES`` times a prefill, and no other (the
-   fingerprint runs on no serve path).
+2. Model checks, for qwen2.5-3b, mamba2-130m, hymba-1.5b, kimi-k2 and then
+   deepseek-v2-lite: the smoke config on the card against the same weights
+   on the CPU (prefill and decode logits); the full-width bf16 model
+   through the kernels, block by block no further from an f32-compute run
+   than the reference path is (the planted faults must fail this check
+   too); then a breakdown of the serving decode step (host time, device
+   kernel time, bound).  hymba's run is a 2048-token prefill (3 flash and
+   32 SSD launches, exactly) and decode steps that write past the end of
+   its local layers' 1024-slot rings, checked also at every decode step's
+   logits and in every ring, where a planted ring write that stops at the
+   last slot must fail. kimi-k2 runs at full width cut to 2 layers (its
+   dense layer and one MoE layer of 384 experts) with bf16 params
+   (``MOE_CUTS``): its forward's prompt attention takes K1 at G = 8
+   (exactly 2 launches), both K1 faults must fail the block check, the MoE
+   layers' EP form at ep = 1 with nothing dropped (capacity factor 48) is
+   held to the dense form, and each path prints how many tokens chose other
+   experts than the f32 run; the init's and a serving prefill's peak memory
+   are printed.  deepseek-v2-lite runs at full width and depth with bf16
+   params: a 1024-token prefill in MLA's absorbed form against the latent
+   cache, then decode steps, held to the expanded cache-free forward (block
+   by block, then every decode step's logits), where a latent cache written
+   one slot late must fail, and no kernel may launch.  The MoE checks pin
+   every run's routing to the f32 run's (``RouterPin``) and print the
+   free-routing ratios beside.  The fingerprint's path runs on qwen2.5-3b's
+   full-width f32 parameters: every leaf fingerprinted twice by the kernel
+   (the tokens must agree), each leaf no larger than the embedding and one
+   (36, 2048, 11008) MLP stack held to the plain version, and the kernel
+   timed at the largest leaf and the embedding (with the measured cycles a
+   chain step).
+3. Serve: ``repro_torch.launch.serve`` at full qwen2.5-3b, mamba2-130m,
+   hymba-1.5b, kimi-k2 and deepseek-v2-lite width (hymba with prompts of
+   2048 tokens; the MoE archs with ``MOE_CUTS``, applied through a spy on
+   the serve module's ``get_config``), behind ``Session``/``ModelServer``.
+   Launch counts are set to 0 just before each serve and read just after;
+   each kernel of the path must have launched exactly ``SERVE_LAUNCHES``
+   times a prefill, and no other (the fingerprint runs on no serve path;
+   deepseek-v2-lite's runs none).
 4. Train (no kernel: the training path runs the plain attention and SSD
    under autograd, as the JAX package does):
    a. ``repro_torch.launch.train`` at full mamba2-130m width (batch 8, seq
@@ -89,7 +106,9 @@ card's name and power limit, and ``{"ok": true, "device": {...}}``.  Needs the r
 
 from __future__ import annotations
 
+import dataclasses
 import json
+import math
 import subprocess
 import sys
 import time
@@ -124,17 +143,22 @@ ROW_REL_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
 # hymba-1.5b's serving prefill in its three global layers: 25 q heads in 5
 # groups of 5 (an odd group), hd 64, built as the model's strided views
 FA_HYMBA = (4, 25, 5, 2048, 2048, 64, True)
+# kimi-k2's serving prefill: 64 q heads in 8 groups of 8, hd 128
+FA_KIMI = (4, 64, 8, 1024, 1024, 128, True)
 # bf16 shapes at the wgmma + TMA kernel's edges, beside the sweep above:
 # Sq and Skv off its 128-row tiles, one q row against many keys, the 32 B
-# and 64 B swizzles (hd 16, 32), and hymba's prefill; the first and the
-# last are built as the model's strided views
+# and 64 B swizzles (hd 16, 32), and hymba's and kimi's prefills; the first
+# and the prefills are built as the model's strided views
 FA_BF16_EDGES = [
     (2, 16, 2, 1000, 1000, 128, True),
     (1, 8, 1, 1, 1024, 128, False),
     (1, 4, 4, 300, 300, 16, True),
     (1, 4, 2, 300, 300, 32, True),
     FA_HYMBA,
+    FA_KIMI,
 ]
+# prefills of FA_BF16_EDGES timed beside SDPA, by the name of their model
+FA_PREFILLS = {FA_HYMBA: "hymba", FA_KIMI: "kimi"}
 FAULT_TILE = 128  # keys per K/V tile of the bf16 kernel (kRows in flash_attention.cu)
 # Full-width bf16 forward: over every block of FORWARD_BLOCK tokens, the
 # flash path's relative L2 distance from an f32-compute forward is at most
@@ -151,6 +175,8 @@ SERVE_LAUNCHES = {
     "qwen2.5-3b": {"flash_attention": 36},                # every layer's prompt attention
     "mamba2-130m": {"ssd_scan": 24},                      # every layer's SSD scan
     "hymba-1.5b": {"flash_attention": 3, "ssd_scan": 32},  # 3 global layers; every layer
+    "kimi-k2-1t-a32b": {"flash_attention": 2},            # both layers' prompt attention
+    "deepseek-v2-lite-16b": {},                           # MLA and MoE reach no kernel
 }
 
 # (B, S, H, P, N, chunk): the SSD kernel test shapes of the JAX package
@@ -195,6 +221,25 @@ HYMBA_STEPS = 8  # decode steps of the full-width model check, after a 2048-toke
 # Planted in the full-width hymba run, each with the check that must see it
 HYMBA_FAULTS = {"non-causal": "forward", "state not carried across chunks": "forward",
                 "ring write stops at the last slot": "ring"}
+# The MoE configurations' cuts, at full width.  kimi-k2: 61 layers cut to 2
+# (the leading dense layer and one MoE layer, whose 384 experts alone are
+# 16.9e9 parameters) and bf16 params: 19,967,675,392 params with the norms'
+# scales, 39.9 GB, where an f32 tree would be 79.9 GB.  deepseek-v2-lite: all 27 layers, bf16
+# params (31.4 GB), since its 62.8 GB f32 tree leaves no room for the
+# checks' second forward
+MOE_CUTS = {"kimi-k2-1t-a32b": {"num_layers": 2, "param_dtype": torch.bfloat16},
+            "deepseek-v2-lite-16b": {"param_dtype": torch.bfloat16}}
+KIMI_SERVE_ARGS = ["--arch", "kimi-k2-1t-a32b", "--batch", "4", "--prompt-len", "1024",
+                   "--gen", "32", "--requests", "8", "--device", "cuda"]
+DEEPSEEK_SERVE_ARGS = ["--arch", "deepseek-v2-lite-16b", "--batch", "4", "--prompt-len",
+                       "1024", "--gen", "32", "--requests", "8", "--device", "cuda"]
+# the EP form at ep = 1 against the dense form at kimi's width: at S = 1024
+# this factor makes the capacity ceil(1024 * 8 / 384 * 48) = 1024 = N, so
+# no token is dropped
+EP_CAPACITY_FACTOR = 48
+DEEPSEEK_STEPS = 4  # decode steps of the full-width check, after a 1024-token prefill
+# planted in deepseek's absorbed run; the prefill check must see it
+LATENT_FAULT = "latent cache written one slot late"
 # Phase 4: the train driver at full mamba2-130m width (the JAX driver's own
 # default arch, batch and seq), then a restart to RESTART_STEPS
 TRAIN_ARGS = ["--arch", "mamba2-130m", "--batch", "8", "--seq", "256", "--steps", "30",
@@ -401,20 +446,21 @@ def check_flash(gen) -> dict:
         for shape in FA_SHAPES:
             held(shape, dname, *contiguous(*shape[:6], dtype), shape[6])
     bf16 = torch.bfloat16
+    prefills = {}
     for i, shape in enumerate(FA_BF16_EDGES):
-        make = model_views if i == 0 or shape == FA_HYMBA else contiguous
+        make = model_views if i == 0 or shape in FA_PREFILLS else contiguous
         qkv = make(*shape[:6], bf16)
         err = held(shape, "bfloat16", *qkv, shape[6])
-        if shape == FA_HYMBA:
+        if shape in FA_PREFILLS:
+            name = FA_PREFILLS[shape]
             if not all(tma_ready(t) for t in qkv):
-                fail("hymba's strided views would be copied before the kernel")
-            hymba = {"shape": shape, "max_abs_err": err, **flash_times(*qkv)}
-            print(f"[flash] hymba prefill {shape}: kernel {hymba['ms']:.4f} ms | card only "
-                  f"{hymba['card_ms']:.4f} ms | plain {hymba['plain_ms']:.4f} ms | sdpa "
-                  f"{hymba['library_ms']:.4f} ms (card only {hymba['card_library_ms']:.4f} ms) | "
-                  f"bound {hymba['bound_ms']:.4f} ms ({hymba['flops']:.4e} FLOP, "
-                  f"{hymba['bytes']} B)")
-            del qkv
+                fail(f"{name}'s strided views would be copied before the kernel")
+            t = prefills[name] = {"shape": shape, "max_abs_err": err, **flash_times(*qkv)}
+            print(f"[flash] {name} prefill {shape}: kernel {t['ms']:.4f} ms | card only "
+                  f"{t['card_ms']:.4f} ms | plain {t['plain_ms']:.4f} ms | sdpa "
+                  f"{t['library_ms']:.4f} ms (card only {t['card_library_ms']:.4f} ms) | "
+                  f"bound {t['bound_ms']:.4f} ms ({t['flops']:.4e} FLOP, {t['bytes']} B)")
+        del qkv
     # a base 2 bytes off a 16-byte boundary: TMA cannot read it, so the
     # wrapper copies it to a contiguous tensor first
     B, H, KV, S, hd = 1, 4, 2, 256, 64
@@ -484,7 +530,7 @@ def check_flash(gen) -> dict:
         "launches": 0,
         "max_abs_err": err,
         **{key: times[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
-        "hymba": hymba,
+        **prefills,
     }
 
 
@@ -1274,6 +1320,312 @@ def phase_model_hymba() -> dict:
     return decode
 
 
+def moe_config(arch: str):
+    """The full config of an MoE arch with ``MOE_CUTS`` applied."""
+    from repro_torch.configs import get_config
+
+    return get_config(arch).replace(**MOE_CUTS[arch])
+
+
+def init_moe_params(tx, cfg, label: str):
+    """Random full-width params on the card; prints their size and the
+    init's peak memory."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = tx.init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    n = sum(t.numel() for t in _leaves(params))
+    nbytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    print(f"[model] {label}: {n:,} params ({nbytes / 1e9:.2f} GB, {cfg.num_layers} layers) made "
+          f"in {time.perf_counter() - t0:.1f}s, init peak memory {peak:,} B")
+    return params, {"params": n, "param_bytes": nbytes, "init_peak_bytes": peak}
+
+
+class RouterPin:
+    """A stand-in for ``moe._router`` in the MoE model checks.
+
+    Each call's own top-k ids are recorded under ``label``.  With ``pin``
+    set, every token is routed to the experts the f32-compute run (label
+    "f32", recorded first) chose at the same layer (its rows ``rows``),
+    weighted by this run's own router probabilities renormalised over them.
+    Top-k routing is discontinuous: bf16 noise moves a token whose k-th and
+    (k+1)-th logits nearly tie to another expert set (some 11 % of kimi's
+    tokens), and such a token's hidden state then differs by a whole
+    expert's output.  Pinned, two runs differ only by their rounding, so a
+    block ratio measures the attention path and not where ties fell; the
+    free-routing ratio and the moved tokens are printed beside it.
+    """
+
+    def __init__(self, moe, n_layers: int):
+        self.real, self.n_layers = moe._router, n_layers
+        self.picks: dict[str, list] = {}
+        self.label, self.pin, self.rows = "f32", False, slice(None)
+
+    def __call__(self, cfg, p, x2):
+        probs, top_i, top_w = self.real(cfg, p, x2)
+        calls = self.picks.setdefault(self.label, [])
+        layer = len(calls) % self.n_layers
+        calls.append(top_i)
+        if self.pin:
+            top_i = self.picks["f32"][layer][self.rows]
+            top_w = probs.gather(-1, top_i)
+            top_w = top_w / torch.clamp(top_w.sum(-1, keepdim=True), min=1e-9)
+        return probs, top_i, top_w
+
+    def moved(self, label: str) -> int:
+        """Token-layer pairs of ``label``'s first calls (one forward over the
+        f32 run's tokens) whose own expert set differs from the f32 run's."""
+        sort = lambda t: t.sort(dim=-1).values  # noqa: E731
+        return sum(int((sort(a) != sort(b[:a.shape[0]])).any(dim=-1).sum())
+                   for a, b in zip(self.picks[label][:self.n_layers], self.picks["f32"]))
+
+
+def phase_model_kimi() -> dict:
+    """kimi-k2 at full width (MOE_CUTS): the smoke config on the card
+    against the CPU, then a bf16 forward (B=1, S=1024) whose prompt
+    attention runs K1 at G = 8, held to the reference path's distance from
+    an f32-compute forward block by block with routing pinned to the f32
+    run's (``RouterPin``), with both planted K1 faults; the EP form at
+    ep = 1 (nothing dropped) against the dense form; the ratio with free
+    routing and how many tokens each path routes to other experts than the
+    f32 run; then the decode breakdown."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.models import attention, moe
+    from repro_torch.models import transformer as tx
+
+    arch = "kimi-k2-1t-a32b"
+    real_flash = attention._flash
+    smoke_check(tx, arch)
+    cfg = moe_config(arch)
+    params, sizes = init_moe_params(tx, cfg, "kimi-k2 full width")
+    S = 1024
+    capacity = math.ceil(S * cfg.moe.top_k / cfg.moe.num_experts * EP_CAPACITY_FACTOR)
+    if capacity != S:
+        fail(f"EP capacity {capacity} at factor {EP_CAPACITY_FACTOR} is not N = {S}")
+    toks = torch.randint(0, cfg.vocab_size, (1, S), device="cuda",
+                         generator=torch.Generator(device="cuda").manual_seed(1))
+    router = RouterPin(moe, cfg.num_layers - cfg.moe.first_dense)
+
+    def run(label, c, ctx=tx.RunCtx(), pin=True):
+        router.label, router.pin = label, pin
+        hidden, _, _ = tx.forward(c, params, toks, ctx=ctx)
+        return hidden
+
+    pcfg = cfg.replace(attention_impl="pallas")
+    rcfg = cfg.replace(attention_impl="reference")
+    ep_cfg = cfg.replace(moe_impl="ep", moe=dataclasses.replace(
+        cfg.moe, capacity_factor=EP_CAPACITY_FACTOR))
+    taken = []
+    real_ep = moe.apply_moe_ep
+    moe._router = router
+    moe.apply_moe_ep = lambda *a, **kw: taken.append("ep") or real_ep(*a, **kw)
+    try:
+        with torch.inference_mode():
+            exact = run("f32", cfg.replace(compute_dtype=torch.float32), pin=False)
+            free = {"reference": run("reference", rcfg, pin=False),
+                    "flash": run("flash", pcfg, pin=False)}
+            ref = run("reference pinned", rcfg)
+            n0 = fa_ops.launch_count
+            out = run("flash pinned", pcfg)
+            torch.cuda.synchronize()
+            n = fa_ops.launch_count - n0
+            planted = {}
+            for fault in FAULTS:
+                attention._flash = plant_fault(real_flash, fault, 1)
+                try:
+                    planted[fault] = run(fault, pcfg)
+                finally:
+                    attention._flash = real_flash
+            ep = run("ep", ep_cfg, tx.RunCtx(mesh=moe.ExpertWorld()))
+    finally:
+        moe._router, moe.apply_moe_ep = router.real, real_ep
+
+    noise = block_rel(ref, exact, FORWARD_BLOCK)
+    ratio = lambda t, nz=noise: (block_rel(t, exact, FORWARD_BLOCK) / nz).max().item()  # noqa: E731
+    free_ratio = ratio(free["flash"], block_rel(free["reference"], exact, FORWARD_BLOCK))
+    moved = {k: router.moved(k) for k in ("reference", "flash")}
+    res = {**sizes, "flash_launches": n, "worst_block_ratio": ratio(out),
+           "free_routing_worst_block_ratio": free_ratio, "ep_worst_block_ratio": ratio(ep),
+           "ep_vs_dense_rel_l2": rel(ep, ref), "tokens_routed_otherwise": moved}
+    print(f"[model] kimi full-width forward (B=1, S={S}), bf16, routing pinned to the f32 run's: "
+          f"against the f32-compute forward, reference rel_l2 {rel(ref, exact):.3e} (blocks "
+          f"{noise.min().item():.3e}-{noise.max().item():.3e}), flash rel_l2 "
+          f"{rel(out, exact):.3e}, worst block ratio {res['worst_block_ratio']:.3f} (tol "
+          f"{FORWARD_NOISE}) | flash launches {n}")
+    print(f"[model] kimi with free routing: reference rel_l2 {rel(free['reference'], exact):.3e}, "
+          f"flash rel_l2 {rel(free['flash'], exact):.3e}, worst block ratio {free_ratio:.3f} "
+          f"(reported, not held) | tokens (of {S}) whose {cfg.moe.top_k} experts differ from "
+          f"the f32 run's: {moved}")
+    print(f"[model] kimi EP form at ep = 1 (capacity factor {EP_CAPACITY_FACTOR}, capacity "
+          f"{capacity} = N) against the dense form: rel_l2 {res['ep_vs_dense_rel_l2']:.3e}, "
+          f"worst block ratio against the f32 forward {res['ep_worst_block_ratio']:.3f} "
+          f"(tol {FORWARD_NOISE})")
+    if out.shape != (1, S, cfg.d_model) or not all(
+            bool(torch.isfinite(t).all()) for t in (out, ep, free["flash"])):
+        fail("full-width kimi forward: wrong shape or non-finite values")
+    for fault, bad in planted.items():
+        b_ratio = ratio(bad)
+        print(f"[model] planted fault '{fault}': worst block ratio {b_ratio:.3f} -> "
+              f"{'PASSED' if b_ratio <= FORWARD_NOISE else 'rejected'}")
+        if b_ratio <= FORWARD_NOISE:
+            fail(f"the kimi forward check does not see the planted fault '{fault}'")
+    if n != SERVE_LAUNCHES[arch]["flash_attention"]:
+        fail(f"full-width kimi forward launched flash {n} times, not "
+             f"{SERVE_LAUNCHES[arch]['flash_attention']}")
+    if res["worst_block_ratio"] > FORWARD_NOISE:
+        fail("full-width kimi forward: flash path disagrees with the reference")
+    if taken != ["ep"] or res["ep_worst_block_ratio"] > FORWARD_NOISE:
+        fail("full-width kimi: the EP form disagrees with the dense form")
+    del ref, exact, out, planted, ep, free
+    res["decode"] = decode_breakdown(tx, cfg, params)
+    del params
+    torch.cuda.empty_cache()
+    return res
+
+
+def plant_latent_fault(update):
+    """``update`` (``attention._update_latent_cache``) with a fault planted:
+    every token's latent written one slot late; the length counts as before."""
+
+    def faulty(cache, c, k_rope):
+        cache["length"].add_(1)
+        out = update(cache, c, k_rope)
+        cache["length"].sub_(1)
+        return out[0], out[1], out[2], out[3] - 1, out[4] - 1
+
+    return faulty
+
+
+def phase_model_deepseek() -> dict:
+    """deepseek-v2-lite at full width and depth (MOE_CUTS): the smoke config
+    on the card against the CPU; then in bf16 a 1024-token prefill in the
+    absorbed form (against the latent cache) and DEEPSEEK_STEPS decode
+    steps, held to the expanded cache-free forward over the same tokens,
+    each measured from the f32-compute expanded forward: block by block
+    (prefill hidden states) and step by step (logits), with routing pinned
+    to the f32 run's (``RouterPin``; the free-routing ratios are printed),
+    and with a planted fault; no kernel launches; then the decode breakdown."""
+    from repro_torch.models import attention, moe
+    from repro_torch.models import transformer as tx
+    from repro_torch.models.layers import logits_matmul
+
+    arch = "deepseek-v2-lite-16b"
+    smoke_check(tx, arch)
+    cfg = moe_config(arch)
+    params, sizes = init_moe_params(tx, cfg, "deepseek-v2-lite full width and depth")
+    S, steps = 1024, DEEPSEEK_STEPS
+    toks = torch.randint(0, cfg.vocab_size, (1, S + steps), device="cuda",
+                         generator=torch.Generator(device="cuda").manual_seed(1))
+    n_moe = cfg.num_layers - cfg.moe.first_dense
+    router = RouterPin(moe, n_moe)
+
+    def expanded(c, label, pin=True):
+        """The cache-free forward over S + steps tokens: hidden states of the
+        first S, logits at the positions the decode steps predict from."""
+        router.label, router.pin, router.rows = label, pin, slice(None)
+        hidden, _, _ = tx.forward(c, params, toks)
+        return hidden[:, :S], logits_matmul(c, params["embedding"], hidden[:, S:]).float()
+
+    def absorbed(c, label, pin=True):
+        """Prefill S tokens into the latent cache, then decode the rest."""
+        router.label, router.pin, router.rows = label, pin, slice(0, S)
+        cache = tx.init_cache(c, 1, S + steps, device="cuda")
+        hidden, cache, _ = tx.forward(c, params, toks[:, :S], cache=cache,
+                                      ctx=tx.RunCtx(prefill=True))
+        logits = []
+        for i in range(steps):
+            router.rows = slice(S + i, S + i + 1)
+            pos = torch.full((1, 1), S + i, dtype=torch.int64, device="cuda")
+            lg, cache = tx.decode_step(c, params, cache, toks[:, S + i:S + i + 1], pos)
+            logits.append(lg[:, -1].float())
+        if not bool(cache["moe"]["length"].eq(S + steps).all()):
+            fail("deepseek: the latent cache's length is not the tokens it has seen")
+        return hidden, torch.stack(logits, dim=1)
+
+    counters = _kernel_counters()
+    pcfg = cfg.replace(attention_impl="pallas")
+    real_update = attention._update_latent_cache
+    moe._router = router
+    try:
+        with torch.inference_mode():
+            exact = expanded(cfg.replace(compute_dtype=torch.float32), "f32", pin=False)
+            free = (expanded(cfg, "expanded", pin=False), absorbed(pcfg, "absorbed", pin=False))
+            ref = expanded(cfg, "expanded pinned")
+            n0 = {k: ops.launch_count for k, ops in counters.items()}
+            out = absorbed(pcfg, "absorbed pinned")
+            torch.cuda.synchronize()
+            n = {k: ops.launch_count - n0[k] for k, ops in counters.items()}
+            attention._update_latent_cache = plant_latent_fault(real_update)
+            try:
+                bad = absorbed(pcfg, LATENT_FAULT)
+            finally:
+                attention._update_latent_cache = real_update
+    finally:
+        moe._router = router.real
+
+    def step_rel(a, b):
+        return ((a - b).norm(dim=-1) / b.norm(dim=-1))[0]
+
+    def noise_of(run_out):
+        return {"forward": block_rel(run_out[0], exact[0], FORWARD_BLOCK),
+                "decode": step_rel(run_out[1], exact[1])}
+
+    def ratios(run_out, noise):
+        mine = noise_of(run_out)
+        return {k: (mine[k] / noise[k]).max().item() for k in mine}
+
+    noise = noise_of(ref)
+    got, worse = ratios(out, noise), ratios(bad, noise)
+    free_got = ratios(free[1], noise_of(free[0]))
+    moved = {k: router.moved(k) for k in ("expanded", "absorbed")}
+    span = lambda t: f"{t.min().item():.3e}-{t.max().item():.3e}"  # noqa: E731
+    print(f"[model] deepseek full-width prefill (B=1, S={S}, absorbed MLA) + {steps} decode steps, "
+          f"bf16, routing pinned to the f32 run's: against the f32-compute expanded forward, "
+          f"expanded rel_l2 {rel(ref[0], exact[0]):.3e} (blocks {span(noise['forward'])}, decode "
+          f"{span(noise['decode'])}), absorbed rel_l2 {rel(out[0], exact[0]):.3e} | worst "
+          f"ratios: block {got['forward']:.3f}, decode {got['decode']:.3f} (tol "
+          f"{FORWARD_NOISE}) | launches {n}")
+    print(f"[model] deepseek with free routing: expanded rel_l2 {rel(free[0][0], exact[0]):.3e}, "
+          f"absorbed rel_l2 {rel(free[1][0], exact[0]):.3e}, worst ratios block "
+          f"{free_got['forward']:.3f}, decode {free_got['decode']:.3f} (reported, not held) | "
+          f"prefill token-layer routings (of {n_moe} x {S}) unlike the f32 run's: {moved}")
+    print(f"[model] planted fault '{LATENT_FAULT}': worst ratios block {worse['forward']:.3f}, "
+          f"decode {worse['decode']:.3f} -> forward check "
+          f"{'PASSED' if worse['forward'] <= FORWARD_NOISE else 'rejected'}")
+    if out[0].shape != (1, S, cfg.d_model) or out[1].shape != (1, steps, cfg.vocab_size):
+        fail(f"full-width deepseek run: wrong shapes {[tuple(t.shape) for t in out]}")
+    if not all(bool(torch.isfinite(t).all()) for t in out):
+        fail("full-width deepseek run: non-finite values")
+    if worse["forward"] <= FORWARD_NOISE:
+        fail(f"the deepseek check does not see the planted fault '{LATENT_FAULT}'")
+    if any(n.values()):
+        fail(f"deepseek's path launched kernels: {n}")
+    if max(got.values()) > FORWARD_NOISE:
+        fail("full-width deepseek run: the absorbed form disagrees with the expanded form")
+    del ref, exact, out, bad, free
+    res = {**sizes, "worst_block_ratio": got["forward"], "worst_decode_ratio": got["decode"],
+           "free_routing_ratios": free_got, "routings_moved": moved, "fault_ratios": worse,
+           "launches": n, "decode": decode_breakdown(tx, cfg, params)}
+    del params
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_serve_cut(argv: list[str]) -> dict:
+    """``phase_serve`` of an MoE arch with ``MOE_CUTS`` applied through a spy
+    on the serve module's ``get_config``."""
+    from repro_torch.launch import serve as serve_mod
+
+    real = serve_mod.get_config
+    serve_mod.get_config = lambda arch, **kw: real(arch, **kw).replace(**MOE_CUTS[arch])
+    try:
+        return phase_serve(argv)
+    finally:
+        serve_mod.get_config = real
+
+
 def _cache_step_bytes(cache) -> int:
     """Bytes a decode step moves in the cache: every buffer read once, and an
     SSM layer's conv tail and state written back whole."""
@@ -1284,7 +1636,8 @@ def _cache_step_bytes(cache) -> int:
 def decode_breakdown(tx, cfg, params, PL: int = 1024) -> dict:
     """Serving decode step at batch 4 after a PL-token prefill, outside the
     server: host time per step, device kernel time per step from the
-    profiler, and the step's bound from the bytes it must move."""
+    profiler, and the step's bound from the bytes it must move; and the
+    peak memory of the prefill."""
     B, steps = 4, 8
     pcfg = cfg.replace(attention_impl="pallas")
     toks = torch.randint(0, cfg.vocab_size, (B, PL), device="cuda",
@@ -1292,7 +1645,11 @@ def decode_breakdown(tx, cfg, params, PL: int = 1024) -> dict:
     with torch.inference_mode():
         cache = tx.init_cache(cfg, B, PL + 2 * steps + 8, device="cuda")
         cache_bytes = _cache_step_bytes(cache)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         logits, cache = tx.prefill(pcfg, params, toks, cache)
+        torch.cuda.synchronize()
+        prefill_peak = torch.cuda.max_memory_allocated()
         tok = logits[:, -1:].argmax(-1)
         pos = [PL]
 
@@ -1321,14 +1678,21 @@ def decode_breakdown(tx, cfg, params, PL: int = 1024) -> dict:
                if getattr(e, "device_type", None) is not None and "CUDA" in str(e.device_type)]
     dev_us = sum(e.self_device_time_total for e in kernels) / steps
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
-    # bytes a step must move as the port runs it: every f32 matrix is read,
-    # cast to bf16 (written) and read again; f32 vectors read once; the cache
-    n_mat = sum(t.numel() for t in _leaves(params) if t.dim() >= 2)
-    n_vec = sum(t.numel() for t in _leaves(params) if t.dim() < 2)
-    step_bytes = n_mat * (4 + 2 + 2) + n_vec * 4 + cache_bytes
+    # bytes a step must move as the port runs it: every matrix is read and,
+    # unless it is kept in the compute dtype (bf16), cast (written) and read
+    # again; vectors read once; the cache.  An untied embedding table is only
+    # gathered (B rows, left out); a tied one is read whole by the logits.
+    weights = [t for path, t in _named_leaves(params)
+               if path != "/embedding/embed" or "unembed" not in params["embedding"]]
+    n_mat = sum(t.numel() for t in weights if t.dim() >= 2)
+    step_bytes = cache_bytes + sum(
+        t.numel() * (t.element_size() + (4 if t.dim() >= 2 and t.dtype != cfg.compute_dtype
+                                          else 0)) for t in weights)
     # bf16 weights kept on the card, read once
-    bf16_bytes = n_mat * 2 + n_vec * 4 + cache_bytes
+    bf16_bytes = cache_bytes + n_mat * 2 + sum(
+        t.numel() * t.element_size() for t in weights if t.dim() < 2)
     res = {
+        "prefill_peak_bytes": prefill_peak,
         "host_ms_per_step": host_ms,
         "device_ms_per_step": dev_us / 1e3 if dev_us else None,
         "bound_ms_as_run": step_bytes / PEAK_BYTES * 1e3,
@@ -1339,7 +1703,8 @@ def decode_breakdown(tx, cfg, params, PL: int = 1024) -> dict:
     print(f"[decode] B={B} after S={PL}: {host_ms:.3f} ms/step on the host clock | device "
           f"kernels {busy}/step | bound as run {res['bound_ms_as_run']:.3f} ms "
           f"({step_bytes / 1e9:.2f} GB, of it cache {cache_bytes / 1e9:.3f} GB), with bf16 weights "
-          f"{res['bound_ms_bf16_weights']:.3f} ms")
+          f"{res['bound_ms_bf16_weights']:.3f} ms | the B={B} prefill's peak memory "
+          f"{prefill_peak:,} B")
     for name, ms in res["top_kernels"]:
         print(f"[decode]   {ms:.4f} ms/step  {name}")
     return res
@@ -1682,8 +2047,8 @@ def _sliced_run_group(cfg, group, gparams, x, positions, gcache, ctx):
     apply = tx._remat_wrap(cfg, tx._apply_layer) if torch.is_grad_enabled() else tx._apply_layer
     for i in range(group.count):
         lp = tx._tree_map(lambda t: t[i], gparams)
-        x = apply(cfg, group, lp, x, positions, None, ctx)
-    return x
+        x, _ = apply(cfg, group, lp, x, positions, None, ctx)  # dense layers: no aux
+    return x, None
 
 
 def train_dense() -> dict:
@@ -1853,19 +2218,26 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     fa, ssd, fp = phase_kernels(gen)
     done("phase 1 kernels")
-    hymba_kernels = {"flash_attention": fa.pop("hymba"), "ssd_scan": ssd.pop("hymba")}
+    prefill_kernels = {"hymba": {"flash_attention": fa.pop("hymba"), "ssd_scan": ssd.pop("hymba")},
+                       "kimi": {"flash_attention": fa.pop("kimi")}}
     qwen_decode, fp_detail = phase_model(fp)
     done("phase 2 qwen2.5-3b and the fingerprint's path")
     decode = {"qwen2.5-3b": qwen_decode, "mamba2-130m": phase_model_mamba()}
     done("phase 2 mamba2-130m")
     decode["hymba-1.5b"] = phase_model_hymba()
     done("phase 2 hymba-1.5b")
+    moe_models = {"kimi-k2-1t-a32b": phase_model_kimi()}
+    done("phase 2 kimi-k2")
+    moe_models["deepseek-v2-lite-16b"] = phase_model_deepseek()
+    done("phase 2 deepseek-v2-lite")
     served = {}
-    for argv in (SERVE_ARGS, MAMBA_SERVE_ARGS, HYMBA_SERVE_ARGS):
+    for argv in (SERVE_ARGS, MAMBA_SERVE_ARGS, HYMBA_SERVE_ARGS, KIMI_SERVE_ARGS,
+                 DEEPSEEK_SERVE_ARGS):
         arch = argv[argv.index("--arch") + 1]
-        served[arch] = phase_serve(argv)
+        served[arch] = (phase_serve_cut if arch in MOE_CUTS else phase_serve)(argv)
         done(f"phase 3 {arch} serve")
-    # every serve path's launches: qwen's and hymba's flash, mamba's and hymba's ssd_scan
+    # every serve path's launches: qwen's, hymba's and kimi's flash, mamba's
+    # and hymba's ssd_scan
     for entry in (fa, ssd):
         entry["launches"] = sum(res["launches"][entry["name"]] for res in served.values())
 
@@ -1877,8 +2249,9 @@ def main() -> int:
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
-        {**result, "serve": served, "decode": decode, "fingerprint": fp_detail,
-         "hymba_kernels": hymba_kernels, "train": trained, "gpu": gpu}, indent=1))
+        {**result, "serve": served, "decode": decode, "moe_models": moe_models,
+         "fingerprint": fp_detail, "prefill_kernels": prefill_kernels, "train": trained,
+         "gpu": gpu}, indent=1))
     print(json.dumps(result))
     print(gpu)
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

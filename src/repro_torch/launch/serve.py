@@ -11,7 +11,11 @@ prompt's SSD scan through ``ssd_scan`` (mamba2-130m), and both for
 hymba-1.5b: the prompt attention of its three global layers through
 ``flash_attention`` and every layer's SSD scan through ``ssd_scan``.  Its
 sliding-window layers attend over the prompt in plain PyTorch and keep their
-keys in ring caches of ``window`` slots.
+keys in ring caches of ``window`` slots.  The MoE archs serve through the
+experts' dense form, since the context says ``decode=True`` in prefill too,
+as the JAX driver's does: kimi-k2's prompt attention goes through
+``flash_attention``; deepseek-v2-lite's MLA attends against its latent
+cache in plain PyTorch and reaches no kernel.
 
     python -m repro_torch.launch.serve --arch qwen2.5-3b --batch 4 \
         --prompt-len 1024 --gen 32
@@ -19,6 +23,10 @@ keys in ring caches of ``window`` slots.
         --prompt-len 1024 --gen 32
     python -m repro_torch.launch.serve --arch hymba-1.5b --batch 4 \
         --prompt-len 2048 --gen 32 --requests 8
+
+kimi-k2's config does not fit one card (4.1 TB of f32 params), and
+deepseek-v2-lite's f32 params are 62.8 GB; ``chip_smoke.py`` serves both
+through this module with bf16 params, kimi cut to 2 layers.
 
 Runs on ``cuda`` unless ``--device cpu`` is given; it never falls back to the
 CPU on its own.  ``--run-dir`` serves a training run's latest checkpoint

@@ -3,8 +3,10 @@
 Composes the train step (AdamW, gradients through autograd), the proxy-fed
 data pipeline (batches reach the step as proxies and resolve just-in-time),
 async proxy-backed checkpointing through the Store's connectors, and restart
-from the latest checkpoint.  One device, no mesh: the mesh flags raise until
-the sharding port.
+from the latest checkpoint.  One device: the mesh flags raise until the
+sharding port.  As the JAX driver passes its (n, 1) mesh, the step's
+context names an expert-parallel world of one, so an MoE config with
+``moe_impl="ep"`` trains through the EP form, capacity drops included.
 
     python -m repro_torch.launch.train --arch mamba2-130m \
         --steps 200 --batch 8 --seq 256
@@ -31,6 +33,7 @@ from repro_torch.api import ConnectorSpec, StoreConfig
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.launch.serve import resolve_device
 from repro_torch.models import transformer as tx
+from repro_torch.models.moe import ExpertWorld
 from repro_torch.train.checkpoint import CheckpointManager
 from repro_torch.train.data import ProxyPrefetcher, synthetic_batch
 from repro_torch.train.optimizer import AdamWConfig
@@ -78,7 +81,7 @@ def train(args) -> dict[str, Any]:
         print(f"[restore] resumed from step {start_step}", flush=True)
     else:
         state = init_train_state(cfg, torch.Generator(device=device).manual_seed(args.seed))
-    step_fn = make_train_step(cfg, opt_cfg, tx.RunCtx())
+    step_fn = make_train_step(cfg, opt_cfg, tx.RunCtx(mesh=ExpertWorld()))
 
     def make_batch(i):
         return synthetic_batch(

@@ -20,9 +20,17 @@ itself with the window's mask and keeps the prompt's last ``window`` keys
 attends over every valid slot, as the JAX package does.  Windowed layers
 never take the flash kernel, which has no window.
 
-Caches are updated **in place**: the k/v slots and the length of the
-(stacked) cache buffers passed in are written, and the same buffers are
-returned.  Cross attention and MLA wait for later slices and raise
+MLA (DeepSeek's multi-head latent attention, ``apply_mla``) follows the
+JAX package's dispatch exactly: without a cache it expands keys and values
+per head; with one (prefill and decode) it writes the latent ``c`` and the
+rotated ``k_rope`` at slots ``(length + i) % size`` and attends in the
+latent space (the *absorbed* form).  Both go through ``chunked_attention``
+and never a kernel, as in the JAX package; ``attention_impl`` changes
+nothing for MLA.
+
+Caches are updated **in place**: the k/v (or latent) slots and the length
+of the (stacked) cache buffers passed in are written, and the same buffers
+are returned.  Cross attention waits for a later slice and raises
 ``NotImplementedError``.
 """
 
@@ -44,11 +52,19 @@ NEG_INF = -1e30
 # -- parameter init -----------------------------------------------------------
 
 def init_attention(cfg, gen: torch.Generator) -> Params:
-    if cfg.mla is not None:
-        raise NotImplementedError("MLA attention is not ported yet")
     d, H, KV, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     std = d**-0.5
     dt = cfg.param_dtype
+    if cfg.mla is not None:
+        m = cfg.mla
+        r = m.kv_lora_rank
+        return {
+            "w_q": normal_init(gen, (d, H, m.qk_nope_dim + m.qk_rope_dim), std, dt),
+            "w_dkv": normal_init(gen, (d, r + m.qk_rope_dim), std, dt),
+            "w_uk": normal_init(gen, (r, H, m.qk_nope_dim), r**-0.5, dt),
+            "w_uv": normal_init(gen, (r, H, m.v_head_dim), r**-0.5, dt),
+            "w_o": normal_init(gen, (H, m.v_head_dim, d), (H * m.v_head_dim) ** -0.5, dt),
+        }
     p = {
         "w_q": normal_init(gen, (d, H, hd), std, dt),
         "w_k": normal_init(gen, (d, KV, hd), std, dt),
@@ -321,3 +337,92 @@ def _fill_ring_cache(cache, k, v):
     cache["v"].index_copy_(1, slots, v[:, S - W:])
     cache["length"].fill_(S)
     return cache
+
+
+# -- MLA (multi-head latent attention) ------------------------------------------------
+
+def apply_mla(
+    cfg,
+    p: Params,
+    x: torch.Tensor,                # (B, S, d)
+    *,
+    positions: torch.Tensor,        # (B, S) absolute positions
+    cache: Params | None = None,    # latent cache, updated in place
+    ctx: Any = None,
+) -> tuple[torch.Tensor, Params | None]:
+    """DeepSeek-V2 MLA: low-rank compressed KV with decoupled RoPE keys.
+
+    With a cache the scores are computed in the latent space (the absorbed
+    form), so the cache is only ``kv_lora_rank + qk_rope_dim`` wide.
+    """
+    m = cfg.mla
+    ct = cfg.compute_dtype
+    H = cfg.num_heads
+    B, S, _ = x.shape
+    x = x.to(ct)
+    scale = (m.qk_nope_dim + m.qk_rope_dim) ** -0.5
+
+    q = torch.einsum("bsd,dhk->bshk", x, p["w_q"].to(ct))
+    q = shard_hint(q, ctx, ("dp", None, "tp", None))
+    q_nope, q_rope = q.split([m.qk_nope_dim, m.qk_rope_dim], dim=-1)
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+
+    ckr = x @ p["w_dkv"].to(ct)  # (B, S, r + rope)
+    c, k_rope = ckr.split([m.kv_lora_rank, m.qk_rope_dim], dim=-1)
+    k_rope = apply_rope(k_rope[:, :, None, :], positions, cfg.rope_theta)[:, :, 0]
+
+    if cache is None:
+        # train / cache-free forward: keys and values expanded per head
+        k_nope = torch.einsum("bsr,rhk->bshk", c, p["w_uk"].to(ct))
+        vfull = torch.einsum("bsr,rhk->bshk", c, p["w_uv"].to(ct))
+        k = torch.cat([k_nope, k_rope[:, :, None, :].expand(B, S, H, m.qk_rope_dim)], dim=-1)
+        qf = torch.cat([q_nope, q_rope], dim=-1)
+        out = chunked_attention(
+            qf.reshape(B, S, H, 1, -1), k, vfull,
+            causal=True, chunk=cfg.attention_chunk, scale=scale,
+        ).reshape(B, S, H, m.v_head_dim)
+        new_cache = None
+    else:
+        # absorbed form against the latent cache
+        c_all, kr_all, new_cache, length, new_len = _update_latent_cache(cache, c, k_rope)
+        q_abs = torch.einsum("bshk,rhk->bshr", q_nope, p["w_uk"].to(ct))
+        # latent "keys" = [c, k_rope]; latent "queries" = [q_abs, q_rope]
+        k_lat = torch.cat([c_all, kr_all], dim=-1)   # (B, T, r + rope)
+        q_lat = torch.cat([q_abs, q_rope], dim=-1)   # (B, S, H, r + rope)
+        out_lat = chunked_attention(
+            q_lat[:, :, None],           # (B, S, 1 kv head, H groups, dim)
+            k_lat[:, :, None],           # one shared "kv head"
+            c_all[:, :, None],           # attend into the latent values
+            causal=True, kv_len=new_len, q_offset=length,
+            chunk=cfg.attention_chunk, scale=scale,
+        ).reshape(B, S, H, m.kv_lora_rank)
+        out = torch.einsum("bshr,rhk->bshk", out_lat, p["w_uv"].to(ct))
+
+    y = torch.einsum("bshk,hkd->bsd", out, p["w_o"].to(ct))
+    return shard_hint(y, ctx, ("dp", None, None)), new_cache
+
+
+def _update_latent_cache(cache, c, k_rope):
+    """Write the latent ``c`` and ``k_rope`` of S new tokens at slots
+    ``(length + i) % size``, in place.  Returns the whole buffers, the
+    cache, and the lengths before and after the write."""
+    B, S = c.shape[0], c.shape[1]
+    size = cache["c"].shape[1]
+    length = cache["length"].clone()
+    write_pos = (length[:, None].to(torch.int64) + torch.arange(S, device=c.device)) % size
+    bidx = torch.arange(B, device=c.device)[:, None]
+    cache["c"][bidx, write_pos] = c
+    cache["k_rope"][bidx, write_pos] = k_rope
+    cache["length"].add_(S)
+    return cache["c"], cache["k_rope"], cache, length, length + S
+
+
+def init_mla_cache(cfg, batch: int, max_len: int, *, device) -> Params:
+    m = cfg.mla
+    return {
+        "c": torch.zeros((batch, max_len, m.kv_lora_rank), dtype=cfg.compute_dtype,
+                         device=device),
+        "k_rope": torch.zeros((batch, max_len, m.qk_rope_dim), dtype=cfg.compute_dtype,
+                              device=device),
+        "length": torch.zeros((batch,), dtype=torch.int32, device=device),
+    }

@@ -1,15 +1,19 @@
 """Model assembly: layer blocks, the loop over stacked layers, train/prefill/decode.
 
-The dense decoder, SSM (Mamba-2) and hybrid (hymba: attention and a Mamba-2
-mixer side by side in every layer) paths of ``repro/models/transformer.py``
-on tensors.  The parameter tree keeps the JAX layout: ``{"embedding",
-<group>: stacked layer params with a leading layer dim, "final_norm"}``, so
-weights bridge leaf by leaf.  Where the JAX package scans over the stacked
-dim, the port loops; each stacked leaf is split once per group with
-``unbind(0)``, whose backward stacks the layers' gradients once (indexing
-layer by layer would give every layer's backward a zero buffer the size of
-the whole stack).  ``remat`` maps to ``torch.utils.checkpoint`` around each
-layer.  MoE layers wait for a later slice and raise ``NotImplementedError``.
+The dense decoder, SSM (Mamba-2), hybrid (hymba: attention and a Mamba-2
+mixer side by side in every layer) and MoE (a leading dense layer, then
+layers whose MLP is a mixture of experts; attention GQA or MLA) paths of
+``repro/models/transformer.py`` on tensors.  The parameter tree keeps the
+JAX layout: ``{"embedding", <group>: stacked layer params with a leading
+layer dim, "final_norm"}``, so weights bridge leaf by leaf.  Where the JAX
+package scans over the stacked dim, the port loops; each stacked leaf is
+split once per group with ``unbind(0)``, whose backward stacks the layers'
+gradients once (indexing layer by layer would give every layer's backward a
+zero buffer the size of the whole stack).  ``remat`` maps to
+``torch.utils.checkpoint`` around each layer.  The router's aux loss
+accumulates over the layers, as the JAX package's scan carries it.  The
+encoder-decoder path (whisper) waits for a later slice and raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ from torch.utils.checkpoint import (
 )
 
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import ModelConfig, shard_hint
 from repro_torch.models.layers import (
@@ -85,13 +90,6 @@ def layer_groups(cfg: ModelConfig) -> list[LayerGroup]:
 def _check_ported(cfg: ModelConfig) -> None:
     if cfg.is_encdec:
         raise NotImplementedError(f"{cfg.name}: the encoder-decoder path is not ported yet")
-    if cfg.mla is not None:
-        raise NotImplementedError(f"{cfg.name}: MLA is not ported yet")
-    for group in layer_groups(cfg):
-        if group.kind not in ("dense", "ssm", "hybrid"):
-            raise NotImplementedError(
-                f"{cfg.name}: {group.kind} layers are not ported yet"
-            )
 
 
 def _tree_map(fn, tree):
@@ -125,25 +123,41 @@ def _init_layer(cfg: ModelConfig, group: LayerGroup, gen: torch.Generator) -> Pa
         p["mamba"] = ssm_mod.init_mamba(cfg, gen)
         p["beta_attn"] = torch.ones((cfg.d_model,), dtype=cfg.param_dtype, device=gen.device)
         p["beta_ssm"] = torch.ones((cfg.d_model,), dtype=cfg.param_dtype, device=gen.device)
-    p["mlp"] = init_mlp(cfg, gen, cfg.d_model, cfg.d_ff)
+    if group.kind == "moe":
+        p["moe"] = moe_mod.init_moe(cfg, gen)
+    else:
+        f = _dense_ff_for_moe(cfg) if cfg.family == "moe" else cfg.d_ff
+        p["mlp"] = init_mlp(cfg, gen, cfg.d_model, f)
     return p
+
+
+def _dense_ff_for_moe(cfg: ModelConfig) -> int:
+    # Active-FLOP-matched hidden of an MoE arch's leading dense layer(s):
+    # (top_k + shared) * expert_d_ff, as the JAX package sets it.
+    mo = cfg.moe
+    return (mo.top_k + mo.num_shared) * mo.expert_d_ff
 
 
 def init_params(cfg: ModelConfig, gen: torch.Generator) -> Params:
     """Random weights on ``gen.device``; layer params stacked per group.
 
-    Each group's stacked tensors are allocated once and filled layer by
-    layer, so the peak is one layer above the model's size.
+    Each layer is made once and lands in its group's stack: a group of one
+    layer is that layer with a stacked dim of 1 (a view), and a longer
+    group's stack is allocated once and each layer moved into it as it is
+    made.  So the peak is the model's size, plus one layer of a group of
+    several, plus the f32 draw of one leaf (one slab of an expert leaf).
     """
     _check_ported(cfg)
     params: Params = {"embedding": init_embedding(cfg, gen)}
     for group in layer_groups(cfg):
-        first = _init_layer(cfg, group, gen)
-        stacked = _tree_map(
-            lambda t: t.new_empty((group.count, *t.shape)), first
-        )
+        if group.count == 1:
+            params[group.name] = _tree_map(lambda t: t[None], _init_layer(cfg, group, gen))
+            continue
+        stacked = None
         for i in range(group.count):
-            layer = first if i == 0 else _init_layer(cfg, group, gen)
+            layer = _init_layer(cfg, group, gen)
+            if stacked is None:
+                stacked = _tree_map(lambda t: t.new_empty((group.count, *t.shape)), layer)
             for dst, src in zip(_leaves(stacked), _leaves(layer)):
                 dst[i].copy_(src)
             del layer
@@ -156,8 +170,9 @@ def init_params(cfg: ModelConfig, gen: torch.Generator) -> Params:
 
 @dataclasses.dataclass(frozen=True)
 class RunCtx:
-    """Per-call context.  ``mesh``/``dp_axes``/``ep_axis`` keep the JAX
-    fields (one device: unused); ``prefill`` marks a prefill into an empty
+    """Per-call context.  ``mesh`` names the expert-parallel world of MoE
+    layers (a ``moe.ExpertWorld``; None for none); ``dp_axes``/``ep_axis``
+    keep the JAX fields (unused); ``prefill`` marks a prefill into an empty
     cache, which lets attention take the flash kernel."""
 
     mesh: Any = None
@@ -175,12 +190,13 @@ def _apply_layer(
     positions: torch.Tensor,
     cache: Params | None,
     ctx: RunCtx,
-) -> torch.Tensor:
-    """One dense, SSM or hybrid layer; a cache is updated in place."""
+) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """One dense, SSM, hybrid or MoE layer: (x_out, aux loss or None for a
+    layer without a router); a cache is updated in place."""
     h = apply_norm(cfg, p["ln1"], x)
     if group.kind == "ssm":
         y, _ = ssm_mod.apply_mamba(cfg, p["mamba"], h, cache=cache, ctx=ctx)
-        return x + y
+        return x + y, None
     if group.kind == "hybrid":
         # attention (with the group's window) and the SSM mixer read the
         # same h; each updates its half of the layer's cache
@@ -193,6 +209,8 @@ def _apply_layer(
         )
         ct = cfg.compute_dtype
         y = 0.5 * (y_attn * p["beta_attn"].to(ct) + y_ssm * p["beta_ssm"].to(ct))
+    elif cfg.mla is not None:
+        y, _ = attn_mod.apply_mla(cfg, p["attn"], h, positions=positions, cache=cache, ctx=ctx)
     else:
         y, _ = attn_mod.apply_attention(
             cfg, p["attn"], h, positions=positions, causal=True,
@@ -200,7 +218,10 @@ def _apply_layer(
         )
     x = x + y
     h2 = apply_norm(cfg, p["ln2"], x)
-    return x + apply_mlp(cfg, p["mlp"], h2)
+    if group.kind == "moe":
+        y2, aux = moe_mod.apply_moe(cfg, p["moe"], h2, world=ctx.mesh, decode=ctx.decode)
+        return x + y2, aux
+    return x + apply_mlp(cfg, p["mlp"], h2), None
 
 
 # the matrix products "dots" keeps (JAX's ``dots_with_no_batch_dims_saveable``
@@ -238,18 +259,22 @@ def _run_group(
     positions: torch.Tensor,
     gcache: Params | None,
     ctx: RunCtx,
-) -> torch.Tensor:
-    """Run a homogeneous stack of layers; a stacked cache is updated in place."""
+) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """Run a homogeneous stack of layers: (x, the layers' summed aux loss or
+    None); a stacked cache is updated in place."""
     layers = _tree_map(lambda t: t.unbind(0), gparams)
     if gcache is None and torch.is_grad_enabled():
         apply = _remat_wrap(cfg, _apply_layer)
     else:
         apply = _apply_layer
+    aux = None
     for i in range(group.count):
         lp = _tree_map(lambda ts: ts[i], layers)
         lcache = None if gcache is None else _tree_map(lambda t: t[i], gcache)
-        x = apply(cfg, group, lp, x, positions, lcache, ctx)
-    return x
+        x, aux_i = apply(cfg, group, lp, x, positions, lcache, ctx)
+        if aux_i is not None:
+            aux = aux_i if aux is None else aux + aux_i
+    return x, aux
 
 
 def forward(
@@ -265,7 +290,7 @@ def forward(
     """Returns (hidden_states, cache, aux_loss).
 
     A cache is updated in place and returned (the JAX function returns a new
-    one); the aux loss is 0 for dense and SSM layers.  ``patch_embeds``
+    one); the aux loss sums the MoE layers' (0 without them).  ``patch_embeds``
     replace the embeddings of the leading positions when they fit in S.
     """
     _check_ported(cfg)
@@ -278,11 +303,13 @@ def forward(
     if positions is None:
         positions = torch.arange(S, device=tokens.device)[None, :].expand(B, S)
 
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for group in layer_groups(cfg):
         gcache = cache.get(group.name) if cache is not None else None
-        x = _run_group(cfg, group, params[group.name], x, positions, gcache, ctx)
+        x, g_aux = _run_group(cfg, group, params[group.name], x, positions, gcache, ctx)
+        if g_aux is not None:
+            aux = aux + g_aux
     x = apply_norm(cfg, params["final_norm"], x)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return x, cache, aux
 
 
@@ -346,6 +373,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device) -> Params:
                                                device=device),
                 "ssm": ssm_mod.init_mamba_cache(cfg, batch, device=device),
             }
+        elif cfg.mla is not None:
+            one = attn_mod.init_mla_cache(cfg, batch, max_len, device=device)
         else:
             one = attn_mod.init_kv_cache(cfg, batch, max_len, device=device)
         cache[group.name] = _tree_map(

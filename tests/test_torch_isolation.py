@@ -41,6 +41,7 @@ def test_scan_covers_the_package():
     rel = {p.relative_to(ROOT).as_posix() for p in FILES}
     assert "src/repro_torch/launch/serve.py" in rel
     assert "src/repro_torch/core/serialize.py" in rel
+    assert "src/repro_torch/models/moe.py" in rel
     assert len(FILES) > 40
 
 

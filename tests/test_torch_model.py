@@ -1,8 +1,10 @@
-"""The port's dense decoder, Mamba-2 and hybrid (hymba) models against the
-JAX package on bridged weights.
+"""The port's dense decoder, Mamba-2, hybrid (hymba) and MoE (kimi-k2,
+deepseek-v2-lite) models against the JAX package on bridged weights.
 
-Smoke configs of the dense archs, of mamba2-130m and of hymba-1.5b (4 layers,
-window 16, global layers 0 and 3), float32 on the CPU.
+Smoke configs of the dense archs, of mamba2-130m, of hymba-1.5b (4 layers,
+window 16, global layers 0 and 3) and of the two MoE archs (a dense layer
+of width (top_k + shared) * expert_d_ff, then two MoE layers; kimi's
+attention is GQA, deepseek's MLA), float32 on the CPU.
 The JAX package makes the weights (``jax.random``), ``repro_torch.bridge``
 carries them leaf by leaf, and both frameworks run the same tokens.
 Tolerance 1e-4: float32 reductions taken in another order through two
@@ -11,7 +13,9 @@ prefill of mamba2 (the SSD kernel's plain version, the sequential
 recurrence) meets the JAX reference prefill (the chunked form), the
 tolerance is the JAX in-model kernel test's 3e-3.  Greedy tokens must be
 identical.  hymba's prompts (24 tokens) are longer than its window, and its
-decode runs long enough that every local layer's ring cache wraps.
+decode runs long enough that every local layer's ring cache wraps.  The
+MoE archs' aux loss, ``loss_fn`` with it, and the gradients are held to
+the JAX package's too.
 """
 
 from __future__ import annotations
@@ -39,7 +43,8 @@ torch.set_num_threads(1)
 DENSE = ["qwen2.5-3b", "phi4-mini-3.8b", "granite-20b", "starcoder2-15b", "internvl2-2b"]
 SSM = ["mamba2-130m"]
 HYBRID = ["hymba-1.5b"]
-NOT_PORTED = ["deepseek-v2-lite-16b", "kimi-k2-1t-a32b", "whisper-tiny"]
+MOE = ["kimi-k2-1t-a32b", "deepseek-v2-lite-16b"]
+NOT_PORTED = ["whisper-tiny"]
 TOL = dict(rtol=1e-4, atol=1e-4)
 KERNEL_TOL = dict(rtol=3e-3, atol=3e-3)
 B, S, GEN = 2, 24, 4
@@ -89,17 +94,19 @@ def test_init_params_has_the_jax_layout(arch):
     )
 
 
-@pytest.mark.parametrize("arch", DENSE + SSM + HYBRID)
+@pytest.mark.parametrize("arch", DENSE + SSM + HYBRID + MOE)
 @pytest.mark.parametrize("impl", ["reference", "pallas"])
 def test_forward_matches_jax(arch, impl):
     jcfg, tcfg, jp, tp = _setup(arch, impl)
     toks = _tokens(jcfg)
-    jout, _, _ = jtx.forward(jcfg.replace(attention_impl=impl), jp, jnp.asarray(toks))
+    jout, _, jaux = jtx.forward(jcfg.replace(attention_impl=impl), jp, jnp.asarray(toks))
     fa_ops.launch_count = ssd_ops.launch_count = 0
     tout, cache, aux = tx.forward(tcfg, tp, torch.from_numpy(toks).long())
-    assert cache is None and float(aux) == 0.0
+    assert cache is None and aux.shape == () and aux.dtype == torch.float32
+    assert (float(aux) == 0.0) == (tcfg.moe is None)  # the MoE layers' router loss
     assert fa_ops.launch_count == ssd_ops.launch_count == 0  # CPU: the plain versions
     _close(tout, jout)
+    _close(aux, jaux)
 
 
 @pytest.mark.parametrize("arch", DENSE)
@@ -457,6 +464,138 @@ def test_ring_update_matches_jax_across_the_wrap(aligned):
         np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     np.testing.assert_array_equal(tlen.numpy(), [size, size])
     np.testing.assert_array_equal(tk[0, [14, 15, 0]].numpy(), k[0])
+
+
+# -- MoE: kimi-k2 (GQA attention) and deepseek-v2-lite (MLA) ---------------------------
+
+def _close_groups(tcache, jcache, **tol):
+    """Every group's cache: buffers within ``tol``, lengths equal."""
+    assert set(tcache) == set(jcache)
+    for g in tcache:
+        assert set(tcache[g]) == set(jcache[g]), g
+        for name, t in tcache[g].items():
+            j = jcache[g][name]
+            assert tuple(t.shape) == tuple(j.shape), (g, name)
+            if name == "length":
+                np.testing.assert_array_equal(t.numpy(), np.asarray(j))
+            else:
+                _close(t, j, **tol)
+
+
+@pytest.mark.parametrize("arch", MOE)
+def test_moe_init_params_has_the_jax_layout(arch):
+    """Key paths, shapes and dtypes of the JAX tree, leaf for leaf; the
+    leading dense layer is (top_k + shared) * expert_d_ff wide."""
+    cfg = get_smoke_config(arch)
+    tp = tx.init_params(cfg, torch.Generator().manual_seed(0))
+    jpairs = bridge.flatten(jax.tree.map(np.asarray, _jax_params(arch)))
+    tpairs = bridge.flatten(tp)
+    assert [p for p, _ in tpairs] == [p for p, _ in jpairs]
+    for (path, t), (_, j) in zip(tpairs, jpairs):
+        assert tuple(t.shape) == j.shape and str(t.dtype) == f"torch.{j.dtype}", path
+    assert list(tp) == ["embedding", "dense0", "moe", "final_norm"]
+    f = (cfg.moe.top_k + cfg.moe.num_shared) * cfg.moe.expert_d_ff
+    assert tx._dense_ff_for_moe(cfg) == f != cfg.d_ff
+    assert tp["dense0"]["mlp"]["w_gate"].shape == (1, cfg.d_model, f)
+    assert tp["moe"]["moe"]["w_gate"].shape == (cfg.num_layers - 1, cfg.moe.num_experts,
+                                                cfg.d_model, cfg.moe.expert_d_ff)
+
+
+def test_init_params_of_a_one_layer_group_is_the_layer_itself():
+    """A group of one layer is its layer with a stacked dim of 1, not a copy."""
+    cfg = get_smoke_config("kimi-k2-1t-a32b")
+    tp = tx.init_params(cfg, torch.Generator().manual_seed(0))
+    w = tp["dense0"]["mlp"]["w_gate"]
+    assert w._base is not None and w._base.shape == w.shape[1:]
+    assert tp["moe"]["moe"]["w_gate"]._base is None  # two layers: one stack
+
+
+@pytest.mark.parametrize("arch", MOE)
+def test_moe_loss_and_grads_match_jax(arch):
+    """``loss_fn`` with the router aux term, and every leaf's gradient."""
+    jcfg, tcfg, jp, tp = _setup(arch)
+    batch = {"tokens": _tokens(jcfg, seed=4)}
+    jloss, jgrads = jax.value_and_grad(lambda p: jtx.loss_fn(jcfg, p, batch))(jp)
+    pairs = [(path, t.requires_grad_()) for path, t in bridge.flatten(tp)]
+    loss = tx.loss_fn(tcfg, bridge.unflatten(pairs), {"tokens": torch.from_numpy(batch["tokens"])})
+    loss.backward()
+    _close(loss, jloss)
+    _, _, aux = jtx.forward(jcfg, jp, jnp.asarray(batch["tokens"]))
+    assert float(aux) > 0.0  # the aux term is in the loss
+    for (path, t), (_, g) in zip(pairs, bridge.flatten(jax.tree.map(np.asarray, jgrads))):
+        _close(t.grad, g, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("arch", MOE)
+@pytest.mark.parametrize("impl", ["reference", "pallas"])
+def test_moe_prefill_logits_and_cache_match_jax_reference(arch, impl):
+    """kimi's prompt attention takes the flash path with ``pallas`` (its plain
+    version here); deepseek's MLA writes the latent cache either way."""
+    jcfg, tcfg, jp, tp = _setup(arch, impl)
+    toks = _tokens(jcfg, seed=1)
+    jl, jcache = jtx.prefill(jcfg, jp, jnp.asarray(toks), jtx.init_cache(jcfg, B, S + 8))
+    tcache = tx.init_cache(tcfg, B, S + 8, device="cpu")
+    fa_ops.launch_count = 0
+    tl, tcache2 = tx.prefill(tcfg, tp, torch.from_numpy(toks).long(), tcache)
+    assert tcache2 is tcache and fa_ops.launch_count == 0
+    _close(tl, jl)
+    _close_groups(tcache, jcache)
+    assert tcache["moe"]["length"].eq(S).all()
+
+
+@pytest.mark.parametrize("arch", MOE)
+def test_moe_multi_step_decode_matches_jax(arch):
+    """The serve path: ``pallas`` prefill, then greedy decode steps, each
+    MoE layer in its dense form, against the JAX package."""
+    jcfg, tcfg, jp, tp = _setup(arch, "pallas")
+    toks = _tokens(jcfg, seed=2)
+    jl, jcache = jtx.prefill(jcfg, jp, jnp.asarray(toks), jtx.init_cache(jcfg, B, S + GEN + 1))
+    tcache = tx.init_cache(tcfg, B, S + GEN + 1, device="cpu")
+    tl, tcache = tx.prefill(tcfg, tp, torch.from_numpy(toks).long(), tcache)
+    for i in range(GEN):
+        jt = jnp.argmax(jl[:, -1:], axis=-1).astype(jnp.int32)
+        tt = tl[:, -1:].argmax(-1)
+        np.testing.assert_array_equal(tt.numpy(), np.asarray(jt))
+        pos = np.full((B, 1), S + i, np.int32)
+        jl, jcache = jtx.decode_step(jcfg, jp, jcache, jt, jnp.asarray(pos))
+        tl, tcache = tx.decode_step(tcfg, tp, tcache, tt, torch.from_numpy(pos).long())
+        _close(tl, jl)
+    _close_groups(tcache, jcache)
+    assert tcache["moe"]["length"].eq(S + GEN).all()
+
+
+@pytest.mark.parametrize("arch", MOE)
+def test_moe_prefill_then_decode_matches_forward(arch):
+    """Decoding token by token (deepseek: the absorbed form against the
+    latent cache) reproduces the cache-free forward's (expanded) logits."""
+    _, tcfg, _, tp = _setup(arch, "pallas")
+    toks = torch.from_numpy(_tokens(tcfg, seed=3, shape=(B, S + 3))).long()
+    hidden, _, _ = tx.forward(tcfg, tp, toks)
+    from repro_torch.models.layers import logits_matmul
+
+    full = logits_matmul(tcfg, tp["embedding"], hidden)
+    cache = tx.init_cache(tcfg, B, S + 8, device="cpu")
+    logits, cache = tx.prefill(tcfg, tp, toks[:, :S], cache)
+    torch.testing.assert_close(logits[:, 0], full[:, S - 1], **TOL)
+    for i in range(3):
+        pos = torch.full((B, 1), S + i, dtype=torch.long)
+        logits, cache = tx.decode_step(tcfg, tp, cache, toks[:, S + i:S + i + 1], pos)
+        torch.testing.assert_close(logits[:, 0], full[:, S + i], **TOL)
+
+
+@pytest.mark.parametrize("arch", MOE)
+def test_moe_init_cache_matches_jax_layout(arch):
+    """kimi: a KV cache per group; deepseek: the latent cache (c, k_rope)."""
+    jcfg, tcfg = jax_smoke(arch), get_smoke_config(arch)
+    jc = jtx.init_cache(jcfg, 3, 40)
+    tc = tx.init_cache(tcfg, 3, 40, device="cpu")
+    assert set(tc) == set(jc) == {"dense0", "moe"}
+    for g in tc:
+        assert set(tc[g]) == set(jc[g])
+        for name, t in tc[g].items():
+            assert tuple(t.shape) == tuple(jc[g][name].shape) and not t.any()
+            assert str(t.dtype) == f"torch.{np.dtype(jc[g][name].dtype).name}"
+    assert set(tc["moe"]) == ({"c", "k_rope", "length"} if tcfg.mla else {"k", "v", "length"})
 
 
 @pytest.mark.parametrize("arch", NOT_PORTED)

@@ -9,7 +9,9 @@ prefill takes the SSD kernel's plain version (the sequential recurrence) and
 the JAX loop its reference (the chunked form): the same function, so the
 tokens are equal.  hymba's prompts (28 tokens) are longer than its window
 (16), and its decode's write slot runs past the end of the local layers'
-rings and back to slot 0.
+rings and back to slot 0.  kimi-k2 and deepseek-v2-lite serve through the
+MoE layers' dense form, as the JAX serve driver's ``decode=True`` context
+makes it take, and deepseek's MLA through its latent cache.
 """
 
 from __future__ import annotations
@@ -60,6 +62,12 @@ def served():
 @pytest.fixture(scope="module")
 def served_mamba():
     args = parse_args(ARGS + ["--arch", "mamba2-130m"])
+    return args, serve(args)
+
+
+@pytest.fixture(scope="module", params=["kimi-k2-1t-a32b", "deepseek-v2-lite-16b"])
+def served_moe(request):
+    args = parse_args(ARGS + ["--arch", request.param])
     return args, serve(args)
 
 
@@ -133,3 +141,19 @@ def test_serve_hymba_tokens_equal_a_jax_greedy_loop(served_hymba):
 def test_serve_defaults_to_cuda():
     assert parse_args([]).device == "cuda"
     assert parse_args([]).arch == "qwen2.5-3b"
+
+
+def test_serve_moe_answers_every_request(served_moe):
+    args, res = served_moe
+    cfg = get_smoke_config(args.arch)
+    assert cfg.family == "moe" and len(res["outputs"]) == 5
+    assert res["prefills"] == res["server"]["batches"] >= 3
+    assert res["kernel_launches"] == {"flash_attention": 0, "ssd_scan": 0}  # CPU
+    for out in res["outputs"]:
+        assert out.shape == (args.gen,) and 0 <= out.min() and out.max() < cfg.vocab_size
+
+
+def test_serve_moe_tokens_equal_a_jax_greedy_loop(served_moe):
+    args, res = served_moe
+    expect = _jax_greedy(args.arch, res["prompts"], args.gen)
+    np.testing.assert_array_equal(np.stack(res["outputs"]), expect)

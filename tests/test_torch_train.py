@@ -2,8 +2,13 @@
 
 One step from the same state (``init_train_state`` of the JAX package,
 carried across with ``repro_torch.bridge``) on the same numpy batch, for
-smoke configs of qwen2.5-3b and mamba2-130m in float32, then for the
-microbatch, remat and chunked-logits variants.  Tolerances, each with the
+smoke configs of qwen2.5-3b, mamba2-130m, hymba-1.5b, kimi-k2 and
+deepseek-v2-lite in float32, then for the microbatch, remat and
+chunked-logits variants.  Then one step of each training driver
+(``repro_torch.launch.train`` and ``repro.launch.train``) on kimi-k2's
+smoke config with ``moe_impl="ep"``: both drivers pass a one-device mesh
+(the port a world of one), so both take the EP form and drop the same
+tokens; their losses must agree within rtol 1e-4.  Tolerances, each with the
 gap observed on the CPU:
 
 * ``loss`` rtol 1e-5 (observed <= 2e-7), ``grad_norm`` rtol 1e-4 (<= 3e-7):
@@ -54,6 +59,7 @@ torch.set_num_threads(1)
 DENSE = ["qwen2.5-3b", "phi4-mini-3.8b", "granite-20b", "starcoder2-15b", "internvl2-2b"]
 SSM = ["mamba2-130m"]
 HYBRID = ["hymba-1.5b"]
+MOE = ["kimi-k2-1t-a32b", "deepseek-v2-lite-16b"]
 B, S = 2, 32
 LOSS_RTOL, GNORM_RTOL, LR_RTOL = 1e-5, 1e-4, 1e-7
 MOMENT_REL_L2, UPDATE_REL_L2 = 1e-5, 1e-2
@@ -84,6 +90,8 @@ CASES = [
     ("qwen2.5-3b", {}),
     ("mamba2-130m", {}),
     ("hymba-1.5b", {}),
+    ("kimi-k2-1t-a32b", {}),
+    ("deepseek-v2-lite-16b", {}),
     ("qwen2.5-3b", {"num_microbatches": 2}),
     ("mamba2-130m", {"num_microbatches": 2}),
     ("qwen2.5-3b", {"remat": "full"}),
@@ -149,7 +157,7 @@ def test_encoder_decoder_train_step_raises():
 # -- the reference's model smoke tests, against the port --------------------------------
 
 
-@pytest.mark.parametrize("arch", DENSE + SSM + HYBRID)
+@pytest.mark.parametrize("arch", DENSE + SSM + HYBRID + MOE)
 def test_train_step_runs(arch):
     cfg = get_smoke_config(arch)
     state = init_train_state(cfg, torch.Generator().manual_seed(0))
@@ -162,7 +170,7 @@ def test_train_step_runs(arch):
     assert all(bool(torch.isfinite(x).all()) for _, x in bridge.flatten(state["params"]))
 
 
-@pytest.mark.parametrize("arch", DENSE + SSM)
+@pytest.mark.parametrize("arch", DENSE + SSM + MOE)
 def test_loss_decreases(arch):
     """Five steps on the same batch must reduce the loss (optimizer sanity)."""
     cfg = get_smoke_config(arch)
@@ -194,7 +202,7 @@ def test_microbatched_train_step_matches_single(arch):
     np.testing.assert_allclose(w1.numpy(), w2.numpy(), rtol=1e-4, atol=1e-5)
 
 
-@pytest.mark.parametrize("arch", DENSE + SSM + HYBRID)
+@pytest.mark.parametrize("arch", DENSE + SSM + HYBRID + MOE)
 @pytest.mark.parametrize("remat", ["full", "dots"])
 def test_remat_matches_no_remat(arch, remat):
     cfg = get_smoke_config(arch)
@@ -333,3 +341,50 @@ def test_stacked_leaves_are_split_once(arch):
             todo.append(nxt)
     for path, t in stacked.items():
         assert consumers[id(t)] == ["UnbindBackward0"], (path, consumers.get(id(t)))
+
+
+# -- the EP form through both training drivers -------------------------------------------
+
+
+def test_ep_driver_step_matches_the_jax_driver(tmp_path, monkeypatch):
+    """kimi-k2's smoke config with ``moe_impl="ep"`` (capacity factor 1.25),
+    two steps of batch 8 x seq 256 through each driver from the port's
+    initial state; the JAX driver runs on an ``Auto``-axis (1, 1) mesh (see
+    ``tests/test_torch_launch_train.py``).  The port's EP form must run,
+    and drop tokens."""
+    from jax.sharding import AxisType
+
+    from repro.launch import train as jax_train
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models import moe
+
+    arch = "kimi-k2-1t-a32b"
+    state0 = bridge.params_to_numpy(init_train_state(
+        get_smoke_config(arch), torch.Generator().manual_seed(0)))
+    monkeypatch.setattr(jax_train, "init_train_state",
+                        lambda cfg, rng: jax.tree.map(jnp.asarray, state0))
+    monkeypatch.setattr(jax_train, "build_mesh", lambda args: jax.make_mesh(
+        (1, 1), ("data", "model"), axis_types=(AxisType.Auto,) * 2))
+    monkeypatch.setattr(jax_train, "get_smoke_config",
+                        lambda a: jax_smoke(a).replace(moe_impl="ep"))
+    monkeypatch.setattr(train_mod, "get_smoke_config",
+                        lambda a: get_smoke_config(a).replace(moe_impl="ep"))
+    dropped = []
+    real_pack = moe._dispatch_pack
+
+    def pack(cfg, x2, top_i, top_w, capacity):
+        send, book = real_pack(cfg, x2, top_i, top_w, capacity)
+        dropped.append(int((book[1] == capacity).sum()))
+        return send, book
+
+    monkeypatch.setattr(moe, "_dispatch_pack", pack)
+    argv = ["--smoke", "--arch", arch, "--steps", "2", "--log-every", "1", "--ckpt-every", "0"]
+    port = train_mod.train(train_mod.parse_args(
+        argv + ["--device", "cpu", "--run-dir", str(tmp_path / "port")]))
+    ref = jax_train.train(jax_train.parse_args(argv + ["--run-dir", str(tmp_path / "jax")]))
+    got = [(e["step"], e["loss"]) for e in port["log"]]
+    want = [(e["step"], e["loss"]) for e in ref["log"]]
+    assert [s for s, _ in got] == [s for s, _ in want] == [0, 1]
+    np.testing.assert_allclose([v for _, v in got], [v for _, v in want], rtol=1e-4)
+    n_moe = get_smoke_config(arch).num_layers - 1
+    assert len(dropped) == 2 * n_moe and sum(dropped) > 0
