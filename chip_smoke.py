@@ -12,11 +12,15 @@ Phases, each of which must pass (any failure exits non-zero):
      (tolerance 2e-4 / 2e-2, plus a per-row relative L2 limit), over bf16
      shapes at the wgmma + TMA kernel's edges (ragged 128-row tiles, one q
      row, the 32 B and 64 B swizzles, hymba-1.5b's prefill with its odd
-     group of 5, kimi-k2's with 64 heads in groups of 8, an input off TMA's
-     16-byte alignment, and V = identity so that O reads back P), and at
+     group of 5, kimi-k2's with 64 heads in groups of 8, whisper-tiny's
+     non-causal encoder over 1500 frames (a ragged last kv tile in every q
+     tile) and its decoder's 224-token prompt, an input off TMA's 16-byte
+     alignment, and V = identity so that O reads back P), and at
      qwen2.5-3b's serving prefill geometry, where two planted faults must
-     be rejected; the f32 scalar kernel is timed there too, and hymba's and
-     kimi's prefills are timed beside SDPA;
+     be rejected (at whisper's encoder too, with "causal mask applied" for
+     "non-causal"); the f32 scalar kernel is timed there too, and hymba's,
+     kimi's and whisper's prefills are timed beside SDPA (non-causal for
+     the encoder);
    * the SSD scan over the kernel test shapes x {float32, bfloat16}
      (tolerance 5e-4 / 3e-2 on y and the final state, plus a per-step
      relative L2 limit on y), over bf16 shapes at the tensor-core kernel's
@@ -37,8 +41,8 @@ Phases, each of which must pass (any failure exits non-zero):
    Times the flash and SSD kernels, their plain versions and, where one
    exists, one PyTorch library call at the serving geometry for the
    ``kernels`` line.
-2. Model checks, for qwen2.5-3b, mamba2-130m, hymba-1.5b, kimi-k2 and then
-   deepseek-v2-lite: the smoke config on the card against the same weights
+2. Model checks, for qwen2.5-3b, mamba2-130m, hymba-1.5b, kimi-k2,
+   deepseek-v2-lite and then whisper-tiny: the smoke config on the card against the same weights
    on the CPU (prefill and decode logits); the full-width bf16 model
    through the kernels, block by block no further from an f32-compute run
    than the reference path is (the planted faults must fail this check
@@ -60,7 +64,14 @@ Phases, each of which must pass (any failure exits non-zero):
    by block, then every decode step's logits), where a latent cache written
    one slot late must fail, and no kernel may launch.  The MoE checks pin
    every run's routing to the f32 run's (``RouterPin``) and print the
-   free-routing ratios beside.  The fingerprint's path runs on qwen2.5-3b's
+   free-routing ratios beside.  whisper-tiny runs at full width, nothing
+   cut, through ``whisper.prefill``/``decode_step``: 4 requests of 1500
+   frames and a 224-token prompt (K1 exactly 8 launches: 4 encoder layers
+   non-causal, 4 decoder layers' prompts causal), then decode steps, held
+   block by block over the encoder output and the prefill's hidden states
+   and at every decode step's logits; the encoder's attention run causal,
+   the last kv tile skipped and a prefill that leaves the cross K/V
+   buffers zero must fail.  The fingerprint's path runs on qwen2.5-3b's
    full-width f32 parameters: every leaf fingerprinted twice by the kernel
    (the tokens must agree), each leaf no larger than the embedding and one
    (36, 2048, 11008) MLP stack held to the plain version, and the kernel
@@ -69,11 +80,14 @@ Phases, each of which must pass (any failure exits non-zero):
 3. Serve: ``repro_torch.launch.serve`` at full qwen2.5-3b, mamba2-130m,
    hymba-1.5b, kimi-k2 and deepseek-v2-lite width (hymba with prompts of
    2048 tokens; the MoE archs with ``MOE_CUTS``, applied through a spy on
-   the serve module's ``get_config``), behind ``Session``/``ModelServer``.
-   Launch counts are set to 0 just before each serve and read just after;
-   each kernel of the path must have launched exactly ``SERVE_LAUNCHES``
-   times a prefill, and no other (the fingerprint runs on no serve path;
-   deepseek-v2-lite's runs none).
+   the serve module's ``get_config``), behind ``Session``/``ModelServer``;
+   then whisper-tiny, which the serve driver refuses as the JAX one serves
+   none of its requests, in a loop over ``whisper.prefill``/``decode_step``
+   (8 requests of 1500 frames and a 224-token prompt, batches of 4, 32
+   tokens each).  Launch counts are set to 0 just before each serve and
+   read just after; each kernel of the path must have launched exactly
+   ``SERVE_LAUNCHES`` times a prefill, and no other (the fingerprint runs on
+   no serve path; deepseek-v2-lite's runs none).
 4. Train (no kernel: the training path runs the plain attention and SSD
    under autograd, as the JAX package does):
    a. ``repro_torch.launch.train`` at full mamba2-130m width (batch 8, seq
@@ -96,7 +110,12 @@ Phases, each of which must pass (any failure exits non-zero):
       ``attention_impl="pallas"`` must raise and leave the state alone;
    f. ``serve --run-dir`` on run b's checkpoint: the params it loads equal
       the run's final params bit for bit, every request is served, and
-      ``ssd_scan`` launches as often as in the fresh serve.
+      ``ssd_scan`` launches as often as in the fresh serve;
+   g. whisper-tiny's train step (``make_train_step``; the JAX train driver
+      makes no frame embeddings): the smoke config on the card against the
+      CPU within 1e-4, then full width (f32 params, batch 8 x 448 target
+      tokens x 1500 frames, reference attention) for three steps, and five
+      steps on one batch whose loss must fall (not with lr forced to 0).
 
 Each part prints its own seconds and the run's so far.  The last lines
 are the ``kernels`` JSON object (launches summed over the serve paths), the
@@ -145,10 +164,15 @@ ROW_REL_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
 FA_HYMBA = (4, 25, 5, 2048, 2048, 64, True)
 # kimi-k2's serving prefill: 64 q heads in 8 groups of 8, hd 128
 FA_KIMI = (4, 64, 8, 1024, 1024, 128, True)
+# whisper-tiny's serving prefill: the encoder's 1500 frames, non-causal, so
+# every q tile meets a ragged last kv tile of 92 keys (1500 = 11 * 128 + 92);
+# the decoder's 224-token prompt, causal; 6 heads of 64, G = 1
+FA_WHISPER_ENC = (4, 6, 6, 1500, 1500, 64, False)
+FA_WHISPER_DEC = (4, 6, 6, 224, 224, 64, True)
 # bf16 shapes at the wgmma + TMA kernel's edges, beside the sweep above:
 # Sq and Skv off its 128-row tiles, one q row against many keys, the 32 B
-# and 64 B swizzles (hd 16, 32), and hymba's and kimi's prefills; the first
-# and the prefills are built as the model's strided views
+# and 64 B swizzles (hd 16, 32), and hymba's, kimi's and whisper's prefills;
+# the first and the prefills are built as the model's strided views
 FA_BF16_EDGES = [
     (2, 16, 2, 1000, 1000, 128, True),
     (1, 8, 1, 1, 1024, 128, False),
@@ -156,9 +180,12 @@ FA_BF16_EDGES = [
     (1, 4, 2, 300, 300, 32, True),
     FA_HYMBA,
     FA_KIMI,
+    FA_WHISPER_ENC,
+    FA_WHISPER_DEC,
 ]
 # prefills of FA_BF16_EDGES timed beside SDPA, by the name of their model
-FA_PREFILLS = {FA_HYMBA: "hymba", FA_KIMI: "kimi"}
+FA_PREFILLS = {FA_HYMBA: "hymba", FA_KIMI: "kimi", FA_WHISPER_ENC: "whisper_encoder",
+               FA_WHISPER_DEC: "whisper_decoder"}
 FAULT_TILE = 128  # keys per K/V tile of the bf16 kernel (kRows in flash_attention.cu)
 # Full-width bf16 forward: over every block of FORWARD_BLOCK tokens, the
 # flash path's relative L2 distance from an f32-compute forward is at most
@@ -166,8 +193,10 @@ FAULT_TILE = 128  # keys per K/V tile of the bf16 kernel (kRows in flash_attenti
 FORWARD_BLOCK = 32
 FORWARD_NOISE = 1.25
 # Planted faults each check must reject: a kernel that ignores the causal
-# mask, and one that skips the last kv tile of the sequence
+# mask, and one that skips the last kv tile of the sequence; at a non-causal
+# call, one that applies the causal mask in place of the first
 FAULTS = ("non-causal", "last kv tile skipped")
+NON_CAUSAL_FAULTS = ("causal mask applied", "last kv tile skipped")
 SERVE_ARGS = ["--arch", "qwen2.5-3b", "--batch", "4", "--prompt-len", "1024",
               "--gen", "32", "--requests", "8", "--device", "cuda"]
 # Serve paths: each kernel's launches a prefill, exactly; any other kernel 0
@@ -177,6 +206,7 @@ SERVE_LAUNCHES = {
     "hymba-1.5b": {"flash_attention": 3, "ssd_scan": 32},  # 3 global layers; every layer
     "kimi-k2-1t-a32b": {"flash_attention": 2},            # both layers' prompt attention
     "deepseek-v2-lite-16b": {},                           # MLA and MoE reach no kernel
+    "whisper-tiny": {"flash_attention": 8},               # 4 encoder + 4 decoder layers
 }
 
 # (B, S, H, P, N, chunk): the SSD kernel test shapes of the JAX package
@@ -240,6 +270,20 @@ EP_CAPACITY_FACTOR = 48
 DEEPSEEK_STEPS = 4  # decode steps of the full-width check, after a 1024-token prefill
 # planted in deepseek's absorbed run; the prefill check must see it
 LATENT_FAULT = "latent cache written one slot late"
+# whisper-tiny at full width, nothing cut: B requests of the encoder's 1500
+# frames and a 224-token prompt (whisper conditions on at most half its
+# 448-token context of previous text), WHISPER_STEPS decode steps in the
+# model check, WHISPER_GEN greedy tokens a request in the serve loop
+WHISPER_BATCH = 4
+WHISPER_PROMPT = 224
+WHISPER_STEPS = 8
+WHISPER_GEN = 32
+# Planted in the full-width whisper run, each with the check that must see it
+WHISPER_FAULTS = {"encoder attention run causal": "encoder",
+                  "last kv tile skipped": "encoder",
+                  "prefill leaves init_cache's zeros in the cross K/V": "decode"}
+# its train step at full width: batch, target tokens, steps
+WHISPER_TRAIN = (8, 448, 3)
 # Phase 4: the train driver at full mamba2-130m width (the JAX driver's own
 # default arch, batch and seq), then a restart to RESTART_STEPS
 TRAIN_ARGS = ["--arch", "mamba2-130m", "--batch", "8", "--seq", "256", "--steps", "30",
@@ -363,12 +407,15 @@ def compare(out, ref, dname: str) -> tuple[float, float, bool, bool]:
 
 def plant_fault(flash, fault: str, q_axis: int):
     """``flash(q, k, v, causal=...)`` with a fault planted: the causal mask
-    ignored, or the last kv tile skipped (its rows then see only the keys
-    before it).  ``q_axis`` is the sequence axis of q, k and v."""
+    ignored, the causal mask applied to every call, or the last kv tile
+    skipped (its rows then see only the keys before it).  ``q_axis`` is the
+    sequence axis of q, k and v."""
 
     def faulty(q, k, v, *, causal):
         if fault == "non-causal":
             return flash(q, k, v, causal=False)
+        if fault == "causal mask applied":
+            return flash(q, k, v, causal=True)
         t = q.shape[q_axis] - FAULT_TILE
         head = lambda x, a, b: x.narrow(q_axis, a, b - a)  # noqa: E731
         out = flash(q, k, v, causal=causal).clone()
@@ -427,7 +474,7 @@ def check_flash(gen) -> dict:
 
     def held(label, dname, q, k, v, causal):
         """The kernel against the plain version, within TOL and ROW_REL_TOL;
-        returns the max abs error."""
+        returns the max abs error and the plain version's output."""
         out = flash_attention_gqa(q, k, v, causal=causal)
         torch.cuda.synchronize()
         ref = attention_ref(q, k, v, causal=causal)
@@ -439,7 +486,19 @@ def check_flash(gen) -> dict:
               f"row rel_l2 {row_rel:.3e} (tol {ROW_REL_TOL[dname]})")
         if not all(oks):
             fail(f"flash {label} {dname}: kernel disagrees with the plain version")
-        return err
+        return err, ref
+
+    def faults_rejected(q, k, v, causal, ref):
+        """Each planted fault of a causal (FAULTS) or non-causal
+        (NON_CAUSAL_FAULTS) call must fail ``compare``."""
+        for fault in FAULTS if causal else NON_CAUSAL_FAULTS:
+            bad = plant_fault(flash_attention_gqa, fault, 2)(q, k, v, causal=causal)
+            b_err, b_row, b_within, b_row_ok = compare(bad, ref, "bfloat16")
+            verdict = lambda ok: "passed" if ok else "rejected"  # noqa: E731
+            print(f"[flash] planted fault '{fault}': max_abs_err {b_err:.3e} "
+                  f"({verdict(b_within)}) row rel_l2 {b_row:.3e} ({verdict(b_row_ok)})")
+            if b_within and b_row_ok:
+                fail(f"the kernel check does not see the planted fault '{fault}'")
 
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[-1]
@@ -450,17 +509,20 @@ def check_flash(gen) -> dict:
     for i, shape in enumerate(FA_BF16_EDGES):
         make = model_views if i == 0 or shape in FA_PREFILLS else contiguous
         qkv = make(*shape[:6], bf16)
-        err = held(shape, "bfloat16", *qkv, shape[6])
+        err, ref = held(shape, "bfloat16", *qkv, shape[6])
         if shape in FA_PREFILLS:
             name = FA_PREFILLS[shape]
             if not all(tma_ready(t) for t in qkv):
                 fail(f"{name}'s strided views would be copied before the kernel")
-            t = prefills[name] = {"shape": shape, "max_abs_err": err, **flash_times(*qkv)}
+            if not shape[6]:
+                faults_rejected(*qkv, False, ref)
+            t = prefills[name] = {"shape": shape, "max_abs_err": err,
+                                  **flash_times(*qkv, causal=shape[6])}
             print(f"[flash] {name} prefill {shape}: kernel {t['ms']:.4f} ms | card only "
                   f"{t['card_ms']:.4f} ms | plain {t['plain_ms']:.4f} ms | sdpa "
                   f"{t['library_ms']:.4f} ms (card only {t['card_library_ms']:.4f} ms) | "
                   f"bound {t['bound_ms']:.4f} ms ({t['flops']:.4e} FLOP, {t['bytes']} B)")
-        del qkv
+        del qkv, ref
     # a base 2 bytes off a 16-byte boundary: TMA cannot read it, so the
     # wrapper copies it to a contiguous tensor first
     B, H, KV, S, hd = 1, 4, 2, 256, 64
@@ -493,14 +555,7 @@ def check_flash(gen) -> dict:
           f"row rel_l2 {row_rel:.3e} (tol {ROW_REL_TOL['bfloat16']})")
     if not all(oks):
         fail("flash prefill geometry: kernel disagrees with the plain version")
-    for fault in FAULTS:
-        bad = plant_fault(flash_attention_gqa, fault, 2)(q, k, v, causal=True)
-        b_err, b_row, b_within, b_row_ok = compare(bad, ref, "bfloat16")
-        verdict = lambda ok: "passed" if ok else "rejected"  # noqa: E731
-        print(f"[flash] planted fault '{fault}': max_abs_err {b_err:.3e} "
-              f"({verdict(b_within)}) row rel_l2 {b_row:.3e} ({verdict(b_row_ok)})")
-        if b_within and b_row_ok:
-            fail(f"the kernel check does not see the planted fault '{fault}'")
+    faults_rejected(q, k, v, True, ref)
 
     times = flash_times(q, k, v)
     k_rep = k.repeat_interleave(G, dim=1)
@@ -534,29 +589,31 @@ def check_flash(gen) -> dict:
     }
 
 
-def flash_times(q, k, v) -> dict:
-    """A causal prefill's times: the kernel, the plain version and SDPA on
-    K/V repeated over the group (the yardstick), the kernel and SDPA again
-    with the card slept first (card only), and the bound with its FLOP and
-    bytes."""
+def flash_times(q, k, v, causal: bool = True) -> dict:
+    """A prefill's times: the kernel, the plain version and SDPA on K/V
+    repeated over the group (the yardstick), the kernel and SDPA again with
+    the card slept first (card only), and the bound with its FLOP and
+    bytes.  A causal call (Sq = Skv) counts the pairs k <= q, a non-causal
+    one all Sq * Skv."""
     from repro_torch.kernels.flash_attention.ops import flash_attention_gqa
     from repro_torch.kernels.flash_attention.ref import attention_ref
 
-    B, H, S, hd = q.shape
+    B, H, Sq, hd = q.shape
+    Skv = k.shape[2]
     G = H // k.shape[1]
-    kernel = lambda: flash_attention_gqa(q, k, v, causal=True)  # noqa: E731
+    kernel = lambda: flash_attention_gqa(q, k, v, causal=causal)  # noqa: E731
     k_rep = k.repeat_interleave(G, dim=1)
     v_rep = v.repeat_interleave(G, dim=1)
     sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
-        q, k_rep, v_rep, is_causal=True)
-    pairs = S * (S + 1) // 2  # (q, k) pairs with k <= q, per (b, h)
+        q, k_rep, v_rep, is_causal=causal)
+    pairs = Sq * (Sq + 1) // 2 if causal else Sq * Skv  # (q, k) pairs per (b, h)
     flops = 4 * hd * pairs * B * H  # Q K^T and P V, 2 FLOPs per multiply-add
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()  # q, k, v, out
     t_ops = flops / PEAK_FLOPS[str(q.dtype).split(".")[-1]] * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
     return {
         "ms": time_ms(kernel),
-        "plain_ms": time_ms(lambda: attention_ref(q, k, v, causal=True)),
+        "plain_ms": time_ms(lambda: attention_ref(q, k, v, causal=causal)),
         "library_ms": time_ms(sdpa),
         "card_ms": time_ms(kernel, card_only=True),
         "card_library_ms": time_ms(sdpa, card_only=True),
@@ -986,23 +1043,30 @@ def fingerprint_leaves(params, fp: dict) -> dict:
 
 def smoke_check(tx, arch: str) -> None:
     """The smoke config in f32: the card (kernels) against the CPU reference,
-    prefill and 4 decode steps, logits within 1e-3."""
+    prefill and 4 decode steps, logits within 1e-3.  An encoder-decoder arch
+    (``tx`` is ``models.whisper``) also takes frame embeddings, and its
+    prompt leaves room in the decoder's position table."""
     from repro_torch.configs import get_smoke_config
 
     cfg = get_smoke_config(arch)
     pcfg = cfg.replace(attention_impl="pallas")
     params_cpu = tx.init_params(cfg, torch.Generator().manual_seed(0))
     params_gpu = _to(params_cpu, "cuda")
-    toks = torch.randint(0, cfg.vocab_size, (2, 40), generator=torch.Generator().manual_seed(1))
+    S = cfg.max_target_len - 8 if cfg.is_encdec else 40
+    toks = torch.randint(0, cfg.vocab_size, (2, S), generator=torch.Generator().manual_seed(1))
+    enc = ((torch.randn((2, cfg.encoder_seq, cfg.d_model),
+                        generator=torch.Generator().manual_seed(2)),) if cfg.is_encdec else ())
     worst = 0.0
     with torch.inference_mode():
-        caches = {d: tx.init_cache(cfg, 2, 48, device=d) for d in ("cpu", "cuda")}
-        lc, caches["cpu"] = tx.prefill(cfg, params_cpu, toks, caches["cpu"])
-        lg, caches["cuda"] = tx.prefill(pcfg, params_gpu, toks.cuda(), caches["cuda"])
+        caches = {d: tx.init_cache(cfg, 2, S + 8, *(f.shape[1] for f in enc), device=d)
+                  for d in ("cpu", "cuda")}
+        lc, caches["cpu"] = tx.prefill(cfg, params_cpu, toks, *enc, caches["cpu"])
+        lg, caches["cuda"] = tx.prefill(pcfg, params_gpu, toks.cuda(), *(f.cuda() for f in enc),
+                                        caches["cuda"])
         for i in range(4):
             worst = max(worst, (lg.cpu() - lc).abs().max().item())
             tok = lc[:, -1:].argmax(-1)
-            pos = torch.full((2, 1), 40 + i, dtype=torch.int64)
+            pos = torch.full((2, 1), S + i, dtype=torch.int64)
             lc, caches["cpu"] = tx.decode_step(cfg, params_cpu, caches["cpu"], tok, pos)
             lg, caches["cuda"] = tx.decode_step(pcfg, params_gpu, caches["cuda"], tok.cuda(),
                                                 pos.cuda())
@@ -1018,9 +1082,10 @@ def rel(a, b) -> float:
 
 
 def block_rel(a, b, block: int) -> torch.Tensor:
-    """Relative L2 error over each block of ``block`` tokens of (B, S, d)."""
-    blocks = lambda t: t.float().unflatten(1, (-1, block)).transpose(0, 1).flatten(1)  # noqa: E731
-    return (blocks(a) - blocks(b)).norm(dim=1) / blocks(b).norm(dim=1)
+    """Relative L2 error over each block of ``block`` tokens of (B, S, d);
+    the last block holds what is left when ``block`` does not divide S."""
+    pairs = zip(a.float().split(block, dim=1), b.float().split(block, dim=1))
+    return torch.stack([(x - y).norm() / y.norm() for x, y in pairs])
 
 
 def phase_model(fp: dict) -> tuple[dict, dict]:
@@ -1613,6 +1678,219 @@ def phase_model_deepseek() -> dict:
     return res
 
 
+def plant_cross_fault(decode_forward):
+    """``decode_forward`` (``whisper.decode_forward``) with a fault planted:
+    a prefill that attends with the encoder output's cross K/V but leaves
+    ``init_cache``'s zeros in the cache's cross buffers."""
+
+    def faulty(cfg, params, tokens, enc_out, **kw):
+        x, cache = decode_forward(cfg, params, tokens, enc_out, **kw)
+        if enc_out is not None and cache is not None:
+            cache["cross_k"].zero_()
+            cache["cross_v"].zero_()
+        return x, cache
+
+    return faulty
+
+
+def phase_model_whisper() -> dict:
+    """whisper-tiny's model checks: the smoke config on the card against the
+    CPU, then full width in bf16 (WHISPER_BATCH requests of 1500 frames and
+    a WHISPER_PROMPT-token prompt through ``whisper.prefill``, then
+    WHISPER_STEPS decode steps), held to the reference path's own distance
+    from an f32-compute run over every block of FORWARD_BLOCK positions of
+    the encoder output and of the prefill's hidden states and at every
+    decode step's logits, with three planted faults; K1 must launch once a
+    layer; then the decode breakdown."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.models import attention
+    from repro_torch.models import whisper as wh
+
+    arch = "whisper-tiny"
+    gpu = gpu_name_and_limit()
+    print(f"[model] whisper-tiny on {gpu}")
+    smoke_check(wh, arch)
+    cfg = get_config(arch)
+    t0 = time.perf_counter()
+    params = wh.init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    print(f"[model] whisper-tiny full width: {n_params:,} params ({n_params * 4 / 1e9:.3f} GB "
+          f"f32) made in {time.perf_counter() - t0:.1f}s")
+    B, S, steps, T = WHISPER_BATCH, WHISPER_PROMPT, WHISPER_STEPS, cfg.encoder_seq
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    frames = torch.randn((B, T, cfg.d_model), device="cuda", generator=gen)
+    toks = torch.randint(0, cfg.vocab_size, (B, S), device="cuda", generator=gen)
+    fed = torch.randint(0, cfg.vocab_size, (B, steps), device="cuda", generator=gen)
+
+    def run(c):
+        """The encoder output (B, T, d) and the decoder's hidden states
+        (B, S, d) of ``whisper.prefill``, caught on their way out, and the
+        logits (B, steps, V) of the decode steps after it; every run is fed
+        the same frames and tokens."""
+        inner = {"encode": wh.encode, "decode_forward": wh.decode_forward}
+        seen = []
+
+        def catching(name):
+            def fn(*args, **kw):
+                out = inner[name](*args, **kw)
+                seen.append(out if name == "encode" else out[0])
+                return out
+            return fn
+
+        wh.encode, wh.decode_forward = catching("encode"), catching("decode_forward")
+        try:
+            cache = wh.init_cache(c, B, S + steps, T, device="cuda")
+            _, cache = wh.prefill(c, params, toks, frames, cache)
+            enc_out, hidden = seen
+            logits = []
+            for i in range(steps):
+                pos = torch.full((B, 1), S + i, dtype=torch.int64, device="cuda")
+                lg, cache = wh.decode_step(c, params, cache, fed[:, i:i + 1], pos)
+                logits.append(lg[:, -1])
+        finally:
+            wh.encode, wh.decode_forward = inner["encode"], inner["decode_forward"]
+        return enc_out, hidden, torch.stack(logits, dim=1)
+
+    pcfg = cfg.replace(attention_impl="pallas")
+    # (module, function, its faulty stand-in) for each fault of WHISPER_FAULTS
+    faulty = {
+        "encoder attention run causal": (
+            attention, "_flash", plant_fault(attention._flash, "causal mask applied", 1)),
+        "last kv tile skipped": (
+            attention, "_flash", plant_fault(attention._flash, "last kv tile skipped", 1)),
+        "prefill leaves init_cache's zeros in the cross K/V": (
+            wh, "decode_forward", plant_cross_fault(wh.decode_forward)),
+    }
+    with torch.inference_mode():
+        ref = run(cfg.replace(attention_impl="reference"))
+        exact = run(cfg.replace(compute_dtype=torch.float32))
+        n0 = fa_ops.launch_count
+        out = run(pcfg)
+        torch.cuda.synchronize()
+        n = fa_ops.launch_count - n0
+        planted = {}
+        for fault in WHISPER_FAULTS:
+            module, name, stand_in = faulty[fault]
+            real = getattr(module, name)
+            setattr(module, name, stand_in)
+            try:
+                planted[fault] = run(pcfg)
+            finally:
+                setattr(module, name, real)
+
+    def step_rel(a, b):
+        """Relative L2 error of each decode step's logits, over the batch."""
+        return (a.float() - b.float()).norm(dim=(0, 2)) / b.float().norm(dim=(0, 2))
+
+    noise = {"encoder": block_rel(ref[0], exact[0], FORWARD_BLOCK),
+             "prefill": block_rel(ref[1], exact[1], FORWARD_BLOCK),
+             "decode": step_rel(ref[2], exact[2])}
+
+    def ratios(run_out):
+        return {"encoder": (block_rel(run_out[0], exact[0], FORWARD_BLOCK)
+                            / noise["encoder"]).max().item(),
+                "prefill": (block_rel(run_out[1], exact[1], FORWARD_BLOCK)
+                            / noise["prefill"]).max().item(),
+                "decode": (step_rel(run_out[2], exact[2]) / noise["decode"]).max().item()}
+
+    got = ratios(out)
+    span = lambda t: f"{t.min().item():.3e}-{t.max().item():.3e}"  # noqa: E731
+    print(f"[model] whisper full width (B={B}, {T} frames, prompt {S}) + {steps} decode steps, "
+          f"bf16: against the f32-compute run, reference rel_l2 encoder "
+          f"{rel(ref[0], exact[0]):.3e} (blocks {span(noise['encoder'])}), prefill "
+          f"{rel(ref[1], exact[1]):.3e} (blocks {span(noise['prefill'])}), decode "
+          f"{span(noise['decode'])}; kernel path rel_l2 encoder {rel(out[0], exact[0]):.3e}, "
+          f"prefill {rel(out[1], exact[1]):.3e} | worst ratios: encoder block "
+          f"{got['encoder']:.3f}, prefill block {got['prefill']:.3f}, decode "
+          f"{got['decode']:.3f} (tol {FORWARD_NOISE}) | flash launches {n}")
+    if (out[0].shape != (B, T, cfg.d_model) or out[1].shape != (B, S, cfg.d_model)
+            or out[2].shape != (B, steps, cfg.vocab_size)):
+        fail(f"full-width whisper run: wrong shapes {[tuple(t.shape) for t in out]}")
+    if not all(bool(torch.isfinite(t).all()) for t in out):
+        fail("full-width whisper run: non-finite values")
+    worse = {}
+    for fault, check in WHISPER_FAULTS.items():
+        bad = worse[fault] = ratios(planted[fault])
+        print(f"[model] planted fault '{fault}': worst ratios encoder block {bad['encoder']:.3f}, "
+              f"prefill block {bad['prefill']:.3f}, decode {bad['decode']:.3f} -> {check} "
+              f"check {'PASSED' if bad[check] <= FORWARD_NOISE else 'rejected'}")
+        if bad[check] <= FORWARD_NOISE:
+            fail(f"the {check} check does not see the planted fault '{fault}'")
+    if n != SERVE_LAUNCHES[arch]["flash_attention"]:
+        fail(f"full-width whisper run launched flash {n} times, not "
+             f"{SERVE_LAUNCHES[arch]['flash_attention']}")
+    if max(got.values()) > FORWARD_NOISE:
+        fail("full-width whisper run: kernel path disagrees with the reference")
+    del ref, exact, out, planted
+    res = {"params": n_params, "ratios": got, "fault_ratios": worse, "flash_launches": n,
+           "decode": decode_breakdown(wh, cfg, params, PL=S, frames=frames), "gpu": gpu}
+    del params
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_serve_whisper() -> dict:
+    """whisper-tiny served through ``whisper.prefill``/``decode_step`` (the
+    serve driver refuses an encoder-decoder arch, as the JAX driver serves
+    none of its requests): 8 requests, each of 1500 frames
+    and a WHISPER_PROMPT-token prompt, all there at the start, in batches of
+    WHISPER_BATCH, WHISPER_GEN greedy tokens each.  Launch counts are set to
+    0 just before and read just after: K1 exactly SERVE_LAUNCHES times a
+    prefill, no other kernel."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import whisper as wh
+
+    arch = "whisper-tiny"
+    cfg = get_config(arch, attention_impl="pallas")
+    params = wh.init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    B, PL, G, n_req = WHISPER_BATCH, WHISPER_PROMPT, WHISPER_GEN, 8
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    frames = torch.randn((n_req, cfg.encoder_seq, cfg.d_model), device="cuda", generator=gen)
+    prompts = torch.randint(0, cfg.vocab_size, (n_req, PL), device="cuda", generator=gen)
+    counters = _kernel_counters()
+    torch.cuda.synchronize()
+    for ops in counters.values():
+        ops.launch_count = 0  # counts of this path only
+    prefill_s = decode_s = 0.0
+    prefills, outs, latency_ms = 0, [], []
+    t_start = time.perf_counter()
+    with torch.inference_mode():
+        for b0 in range(0, n_req, B):
+            cache = wh.init_cache(cfg, B, PL + G + 1, cfg.encoder_seq, device="cuda")
+            t0 = time.perf_counter()
+            logits, cache = wh.prefill(cfg, params, prompts[b0:b0 + B], frames[b0:b0 + B], cache)
+            torch.cuda.synchronize()
+            prefill_s += time.perf_counter() - t0
+            prefills += 1
+            tok = logits[:, -1:].argmax(-1)
+            toks = [tok]
+            t0 = time.perf_counter()
+            for i in range(G - 1):
+                pos = torch.full((B, 1), PL + i, dtype=torch.int64, device="cuda")
+                logits, cache = wh.decode_step(cfg, params, cache, tok, pos)
+                tok = logits[:, -1:].argmax(-1)
+                toks.append(tok)
+            torch.cuda.synchronize()
+            decode_s += time.perf_counter() - t0
+            outs.extend(torch.cat(toks, dim=1).cpu().numpy())
+            latency_ms += [(time.perf_counter() - t_start) * 1e3] * B
+    launches = {name: ops.launch_count for name, ops in counters.items()}
+    res = {"launches": launches, "prefill_s": prefill_s,
+           "decode_tok_s": n_req * (G - 1) / decode_s, "prefills": prefills,
+           "latency_p50_ms": float(np.percentile(latency_ms, 50)),
+           "latency_p99_ms": float(np.percentile(latency_ms, 99))}
+    print(f"[serve] {arch}: {n_req} requests, {prefills} batches of {B} ({cfg.encoder_seq} "
+          f"frames, prompt {PL}, {G} tokens) | prefill {prefill_s:.4f}s | decode "
+          f"{res['decode_tok_s']:.2f} tok/s | latency p50 {res['latency_p50_ms']:.2f} ms p99 "
+          f"{res['latency_p99_ms']:.2f} ms | launches {launches} | {gpu_name_and_limit()}")
+    check_served(arch, outs, G, cfg.vocab_size, launches, prefills)
+    del params
+    torch.cuda.empty_cache()
+    return res
+
+
 def phase_serve_cut(argv: list[str]) -> dict:
     """``phase_serve`` of an MoE arch with ``MOE_CUTS`` applied through a spy
     on the serve module's ``get_config``."""
@@ -1633,21 +1911,27 @@ def _cache_step_bytes(cache) -> int:
                for name, t in _named_leaves(cache))
 
 
-def decode_breakdown(tx, cfg, params, PL: int = 1024) -> dict:
+def decode_breakdown(tx, cfg, params, PL: int = 1024, frames=None) -> dict:
     """Serving decode step at batch 4 after a PL-token prefill, outside the
     server: host time per step, device kernel time per step from the
     profiler, and the step's bound from the bytes it must move; and the
-    peak memory of the prefill."""
+    peak memory of the prefill.  With ``frames`` (4, T, d) the model is the
+    encoder-decoder (``tx`` is ``models.whisper``): its prefill encodes
+    them, the cache holds their cross K/V, and the bound leaves out the
+    encoder, which a decode step does not run, and the position tables,
+    which it only gathers."""
     B, steps = 4, 8
     pcfg = cfg.replace(attention_impl="pallas")
     toks = torch.randint(0, cfg.vocab_size, (B, PL), device="cuda",
                          generator=torch.Generator(device="cuda").manual_seed(2))
+    enc = () if frames is None else (frames,)
     with torch.inference_mode():
-        cache = tx.init_cache(cfg, B, PL + 2 * steps + 8, device="cuda")
+        cache = tx.init_cache(cfg, B, PL + 2 * steps + 8, *(f.shape[1] for f in enc),
+                              device="cuda")
         cache_bytes = _cache_step_bytes(cache)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        logits, cache = tx.prefill(pcfg, params, toks, cache)
+        logits, cache = tx.prefill(pcfg, params, toks, *enc, cache)
         torch.cuda.synchronize()
         prefill_peak = torch.cuda.max_memory_allocated()
         tok = logits[:, -1:].argmax(-1)
@@ -1682,8 +1966,10 @@ def decode_breakdown(tx, cfg, params, PL: int = 1024) -> dict:
     # unless it is kept in the compute dtype (bf16), cast (written) and read
     # again; vectors read once; the cache.  An untied embedding table is only
     # gathered (B rows, left out); a tied one is read whole by the logits.
+    skip = () if frames is None else ("/encoder/", "/enc_pos", "/dec_pos", "/enc_norm/")
     weights = [t for path, t in _named_leaves(params)
-               if path != "/embedding/embed" or "unembed" not in params["embedding"]]
+               if (path != "/embedding/embed" or "unembed" not in params["embedding"])
+               and not path.startswith(skip)]
     n_mat = sum(t.numel() for t in weights if t.dim() >= 2)
     step_bytes = cache_bytes + sum(
         t.numel() * (t.element_size() + (4 if t.dim() >= 2 and t.dtype != cfg.compute_dtype
@@ -1721,6 +2007,20 @@ def _to(tree, device):
     return tree.to(device, copy=True)
 
 
+def check_served(arch: str, outs: list, gen: int, vocab: int, launches: dict,
+                 prefills: int) -> None:
+    """8 generations of ``gen`` tokens within the vocabulary, and each
+    kernel launched exactly ``SERVE_LAUNCHES[arch]`` times a prefill."""
+    if len(outs) != 8:
+        fail(f"served {len(outs)}/8 requests")
+    for o in outs:
+        if o.shape != (gen,) or o.min() < 0 or o.max() >= vocab:
+            fail(f"bad generation {o}")
+    want = {name: SERVE_LAUNCHES[arch].get(name, 0) * prefills for name in launches}
+    if launches != want or prefills == 0:
+        fail(f"{arch} serve launched {launches} in {prefills} prefills, not {want}")
+
+
 def phase_serve(argv: list[str]) -> dict:
     """Serve 8 requests of ``argv``'s arch; each kernel of its path must
     launch exactly ``SERVE_LAUNCHES[arch][kernel]`` times a prefill, and no
@@ -1740,16 +2040,7 @@ def phase_serve(argv: list[str]) -> dict:
           f"{res['prefills']} prefills | prefill {res['prefill_s']:.4f}s | "
           f"decode {res['decode_tok_s']:.2f} tok/s | latency p50 {sstats['latency_p50_ms']:.2f} ms "
           f"p99 {sstats['latency_p99_ms']:.2f} ms | launches {launches}")
-    outs = res["outputs"]
-    if len(outs) != 8:
-        fail(f"served {len(outs)}/8 requests")
-    for o in outs:
-        if o.shape != (args.gen,) or o.min() < 0 or o.max() >= cfg.vocab_size:
-            fail(f"bad generation {o}")
-    per_prefill = SERVE_LAUNCHES[args.arch]
-    want = {name: per_prefill.get(name, 0) * res["prefills"] for name in launches}
-    if launches != want or res["prefills"] == 0:
-        fail(f"{args.arch} serve launched {launches} in {res['prefills']} prefills, not {want}")
+    check_served(args.arch, res["outputs"], args.gen, cfg.vocab_size, launches, res["prefills"])
     return {"launches": launches, **{k: res[k] for k in ("prefill_s", "decode_tok_s", "prefills")},
             "latency_p50_ms": sstats["latency_p50_ms"], "latency_p99_ms": sstats["latency_p99_ms"]}
 
@@ -1850,7 +2141,8 @@ def train_driver(run_dir: str) -> dict:
     state = init_train_state(cfg, torch.Generator(device="cuda").manual_seed(0))
     tokens = _mamba_batch(cfg, args.batch, args.seq, 0).cuda()
     breakdown, _ = step_breakdown(f"{args.arch} batch {args.batch} x seq {args.seq}",
-                                  make_train_step(cfg, AdamWConfig()), state, tokens, 3)
+                                  make_train_step(cfg, AdamWConfig()), state,
+                                  {"tokens": tokens}, 3)
     del state
     return {"seconds": secs, "losses": losses, "median_step_ms": med_ms, "tokens_per_s": tok_s,
             "step_ms": [x * 1e3 for x in step_s], "peak_bytes": peak, "launches": launches,
@@ -1859,13 +2151,12 @@ def train_driver(run_dir: str) -> dict:
             "breakdown": breakdown}
 
 
-def step_breakdown(label: str, step, state, tokens, steps: int) -> tuple[dict, dict]:
+def step_breakdown(label: str, step, state, batch: dict, steps: int) -> tuple[dict, dict]:
     """A train step outside the driver: host time a step, device kernel
     time a step from the profiler, the idle share, and the top kernels;
     returns them and the state after the steps."""
     from torch.profiler import ProfilerActivity, profile
 
-    batch = {"tokens": tokens}
     state, _ = step(state, batch)  # warm-up
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1965,79 +2256,93 @@ def _mamba_batch(cfg, batch: int, seq: int, seed: int) -> torch.Tensor:
     return torch.from_numpy(rng.integers(0, cfg.vocab_size, (batch, seq)).astype(np.int32))
 
 
-def train_card_vs_cpu() -> dict:
-    """4c: one step on the card against the same step on the CPU."""
+def card_against_cpu(label: str, cfg, batch: dict) -> dict:
+    """One train step from the same state (seed 0) and batch on the card and
+    on the CPU: loss and grad norm within TRAIN_RTOL (relative), every
+    leaf's first moment within MOMENT_REL_L2 (relative L2)."""
     from repro_torch import bridge
-    from repro_torch.configs import get_config
     from repro_torch.train import AdamWConfig, init_train_state, make_train_step
 
-    cfg = get_config("mamba2-130m").replace(compute_dtype=torch.float32)
     state_cpu = init_train_state(cfg, torch.Generator().manual_seed(0))
     state_gpu = _to(state_cpu, "cuda")
-    state_bf16 = _to(state_cpu, "cuda")
-    tokens = _mamba_batch(cfg, 2, 256, 4)
     step = make_train_step(cfg, AdamWConfig())
     t0 = time.perf_counter()
-    state_gpu, mg = step(state_gpu, {"tokens": tokens.cuda()})
+    state_gpu, mg = step(state_gpu, _to(batch, "cuda"))
     torch.cuda.synchronize()
     gpu_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    state_cpu, mc = step(state_cpu, {"tokens": tokens})
+    state_cpu, mc = step(state_cpu, batch)
     cpu_s = time.perf_counter() - t0
     loss_g, loss_c = float(mg["loss"]), float(mc["loss"])
     gn_g, gn_c = float(mg["grad_norm"]), float(mc["grad_norm"])
     worst = max(
         rel(a.cpu(), b) for (_, a), (_, b) in zip(bridge.flatten(state_gpu["opt"]["m"]),
                                                   bridge.flatten(state_cpu["opt"]["m"])))
-    _, mb = make_train_step(cfg.replace(compute_dtype=torch.bfloat16), AdamWConfig())(
-        state_bf16, {"tokens": tokens.cuda()})
-    loss_b = float(mb["loss"])
-    ratio = loss_b / loss_g
-    print(f"[train] mamba2-130m one step, batch 2 x seq 256, f32 compute: loss card {loss_g:.7f} "
-          f"CPU {loss_c:.7f} (rel {abs(loss_g / loss_c - 1):.2e}, tol {TRAIN_RTOL}) | grad_norm "
-          f"card {gn_g:.7f} CPU {gn_c:.7f} (rel {abs(gn_g / gn_c - 1):.2e}) | worst leaf's m "
-          f"rel_l2 {worst:.2e} (tol {MOMENT_REL_L2}) | bf16 compute loss {loss_b:.7f}, "
-          f"bf16 / f32 {ratio:.6f} (tol {BF16_LOSS_REL}) | step {gpu_s:.3f}s card (first), "
-          f"{cpu_s:.3f}s CPU")
+    print(f"[train] {label}, f32 compute: loss card {loss_g:.7f} CPU {loss_c:.7f} (rel "
+          f"{abs(loss_g / loss_c - 1):.2e}, tol {TRAIN_RTOL}) | grad_norm card {gn_g:.7f} CPU "
+          f"{gn_c:.7f} (rel {abs(gn_g / gn_c - 1):.2e}) | worst leaf's m rel_l2 {worst:.2e} "
+          f"(tol {MOMENT_REL_L2}) | step {gpu_s:.3f}s card (first), {cpu_s:.3f}s CPU")
     if not (abs(loss_g / loss_c - 1) <= TRAIN_RTOL and abs(gn_g / gn_c - 1) <= TRAIN_RTOL
             and worst <= MOMENT_REL_L2):
-        fail("the train step on the card disagrees with the CPU")
-    if not abs(ratio - 1) <= BF16_LOSS_REL:
-        fail("the bf16-compute train step's loss is too far from the f32 loss")
+        fail(f"{label}: the train step on the card disagrees with the CPU")
     return {"loss_card": loss_g, "loss_cpu": loss_c, "grad_norm_card": gn_g,
-            "grad_norm_cpu": gn_c, "m_rel_l2": worst, "loss_bf16": loss_b,
-            "bf16_over_f32": ratio}
+            "grad_norm_cpu": gn_c, "m_rel_l2": worst}
 
 
-def train_loss_falls() -> dict:
-    """4d: five steps on one repeated batch must cut the loss; the same
-    check must reject a planted fault (the optimizer's lr forced to 0)."""
+def train_card_vs_cpu() -> dict:
+    """4c: one step on the card against the same step on the CPU, then the
+    bf16-compute step's loss against the f32 loss."""
     from repro_torch.configs import get_config
     from repro_torch.train import AdamWConfig, init_train_state, make_train_step
 
-    cfg = get_config("mamba2-130m")
-    tokens = _mamba_batch(cfg, 2, 256, 5).cuda()
+    cfg = get_config("mamba2-130m").replace(compute_dtype=torch.float32)
+    tokens = _mamba_batch(cfg, 2, 256, 4)
+    res = card_against_cpu("mamba2-130m one step, batch 2 x seq 256", cfg, {"tokens": tokens})
+    state_bf16 = _to(init_train_state(cfg, torch.Generator().manual_seed(0)), "cuda")
+    _, mb = make_train_step(cfg.replace(compute_dtype=torch.bfloat16), AdamWConfig())(
+        state_bf16, {"tokens": tokens.cuda()})
+    loss_b = float(mb["loss"])
+    ratio = loss_b / res["loss_card"]
+    print(f"[train] mamba2-130m the same step in bf16 compute: loss {loss_b:.7f}, bf16 / f32 "
+          f"{ratio:.6f} (tol {BF16_LOSS_REL})")
+    if not abs(ratio - 1) <= BF16_LOSS_REL:
+        fail("the bf16-compute train step's loss is too far from the f32 loss")
+    return {**res, "loss_bf16": loss_b, "bf16_over_f32": ratio}
+
+
+def loss_falls(label: str, cfg, batch: dict) -> dict:
+    """Five steps on one repeated batch must cut the loss by LOSS_FALL; the
+    same check must reject a planted fault (the optimizer's lr forced to 0)."""
+    from repro_torch.train import AdamWConfig, init_train_state, make_train_step
 
     def losses_of(lr: float) -> list[float]:
         state = init_train_state(cfg, torch.Generator(device="cuda").manual_seed(1))
         step = make_train_step(cfg, AdamWConfig(lr=lr, warmup_steps=0))
         out = []
         for _ in range(5):
-            state, metrics = step(state, {"tokens": tokens})
+            state, metrics = step(state, batch)
             out.append(float(metrics["loss"]))
         return out
 
     falls = lambda ls: ls[-1] < (1 - LOSS_FALL) * ls[0]  # noqa: E731
     losses, planted = losses_of(3e-3), losses_of(0.0)
-    print(f"[train] mamba2-130m 5 steps on one batch (lr 3e-3): losses "
+    print(f"[train] {label} 5 steps on one batch (lr 3e-3): losses "
           f"{', '.join(f'{x:.4f}' for x in losses)} -> {'falls' if falls(losses) else 'FLAT'} | "
           f"planted fault 'lr forced to 0': {', '.join(f'{x:.4f}' for x in planted)} -> "
           f"{'PASSED' if falls(planted) else 'rejected'}")
     if not falls(losses):
-        fail("the loss does not fall over five steps on one batch")
+        fail(f"{label}: the loss does not fall over five steps on one batch")
     if falls(planted):
-        fail("the loss check does not see the planted fault 'lr forced to 0'")
+        fail(f"{label}: the loss check does not see the planted fault 'lr forced to 0'")
     return {"losses": losses, "planted_lr0": planted}
+
+
+def train_loss_falls() -> dict:
+    """4d: ``loss_falls`` at full mamba2-130m width, batch 2 x seq 256."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config("mamba2-130m")
+    return loss_falls("mamba2-130m", cfg, {"tokens": _mamba_batch(cfg, 2, 256, 5).cuda()})
 
 
 def _sliced_run_group(cfg, group, gparams, x, positions, gcache, ctx):
@@ -2086,14 +2391,14 @@ def train_dense() -> dict:
     peak = torch.cuda.max_memory_allocated()
     launches = {name: ops.launch_count for name, ops in counters.items()}
     breakdown, state = step_breakdown(f"qwen2.5-3b remat full, batch {B} x seq {S}", step,
-                                      state, tokens, 1)
+                                      state, {"tokens": tokens}, 1)
     real = tx._run_group
     torch.cuda.reset_peak_memory_stats()
     tx._run_group = _sliced_run_group
     try:  # the same measurement as the breakdown above, on the old loop
         sliced, state = step_breakdown(
             "the same, each layer indexed out of the stacks (the loop before unbind)", step,
-            state, tokens, 1)
+            state, {"tokens": tokens}, 1)
     finally:
         tx._run_group = real
     sliced_peak = torch.cuda.max_memory_allocated()
@@ -2137,6 +2442,74 @@ def train_dense() -> dict:
             "losses": [r[1] for r in runs], "grad_norms": [r[2] for r in runs],
             "peak_bytes": peak, "sliced": sliced, "sliced_peak_bytes": sliced_peak,
             "launches": launches, "breakdown": breakdown}
+
+
+def _whisper_batch(cfg, batch: int, seq: int, seed: int, device) -> dict:
+    rng = np.random.default_rng(seed)
+    tokens = rng.integers(0, cfg.vocab_size, (batch, seq)).astype(np.int32)
+    frames = rng.normal(size=(batch, cfg.encoder_seq, cfg.d_model)).astype(np.float32)
+    return {"tokens": torch.from_numpy(tokens).to(device),
+            "frame_embeds": torch.from_numpy(frames).to(device)}
+
+
+def train_whisper() -> dict:
+    """4g: whisper-tiny's train step (the JAX train driver makes no frame
+    embeddings, so the step is driven directly).  The smoke config in f32 on
+    the card against the CPU (loss, grad norm, every leaf's first moment,
+    within TRAIN_RTOL / MOMENT_REL_L2); then full width with f32 params,
+    bf16 compute and reference attention (K1 has no backward) at
+    WHISPER_TRAIN: finite losses and grad norms, median step, tokens/s,
+    peak memory, a step breakdown, no kernel launched; five steps on one
+    batch must cut the loss, and must not with the lr forced to 0."""
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.train import AdamWConfig, init_train_state, make_train_step
+
+    arch = "whisper-tiny"
+    cfg = get_smoke_config(arch)
+    res = {"card_vs_cpu": card_against_cpu(
+        "whisper-tiny smoke, one step", cfg,
+        _whisper_batch(cfg, 4, cfg.max_target_len - 8, 6, "cpu"))}
+
+    B, S, steps = WHISPER_TRAIN
+    cfg = get_config(arch)
+    torch.cuda.reset_peak_memory_stats()
+    state = init_train_state(cfg, torch.Generator(device="cuda").manual_seed(0))
+    batch = _whisper_batch(cfg, B, S, 7, "cuda")
+    counters = _kernel_counters()
+    for ops in counters.values():
+        ops.launch_count = 0
+    step = make_train_step(cfg, AdamWConfig())
+    runs = []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        loss, gn = float(metrics["loss"]), float(metrics["grad_norm"])
+        torch.cuda.synchronize()
+        runs.append((time.perf_counter() - t0, loss, gn))
+    peak = torch.cuda.max_memory_allocated()
+    launches = {name: ops.launch_count for name, ops in counters.items()}
+    breakdown, state = step_breakdown(f"whisper-tiny, batch {B} x {S} tokens x "
+                                      f"{cfg.encoder_seq} frames", step, state, batch, 1)
+    med = float(np.median([r[0] for r in runs]))
+    print(f"[train] whisper-tiny full width, batch {B} x {S} tokens x {cfg.encoder_seq} frames: "
+          f"steps {', '.join(f'{r[0] * 1e3:.1f}' for r in runs)} ms, losses "
+          f"{', '.join(f'{r[1]:.4f}' for r in runs)}, grad_norm "
+          f"{', '.join(f'{r[2]:.4f}' for r in runs)} | median {med * 1e3:.1f} ms, "
+          f"{B * S / med:,.0f} target tokens/s | peak memory {peak:,} B | launches {launches} | "
+          f"{gpu_name_and_limit()}")
+    if not all(np.isfinite([r[1] for r in runs] + [r[2] for r in runs])):
+        fail("whisper training: non-finite loss or grad norm")
+    if any(launches.values()):
+        fail(f"whisper training launched kernels: {launches}")
+    del state, batch
+    torch.cuda.empty_cache()
+
+    falls = loss_falls(f"whisper-tiny (batch 2 x {S})", cfg, _whisper_batch(cfg, 2, S, 8, "cuda"))
+    torch.cuda.empty_cache()
+    return {**res, "step_ms": [r[0] * 1e3 for r in runs], "median_step_ms": med * 1e3,
+            "tokens_per_s": B * S / med, "losses": [r[1] for r in runs],
+            "grad_norms": [r[2] for r in runs], "peak_bytes": peak, "launches": launches,
+            "breakdown": breakdown, "loss_falls": falls}
 
 
 def serve_run_dir(run_dir: str, fresh_ssd_launches: int) -> dict:
@@ -2188,6 +2561,7 @@ def phase_train(gpu: str, fresh_ssd_launches: int) -> dict:
         out["dense"] = train_dense()
         out["serve_run_dir"] = serve_run_dir(run_dir, fresh_ssd_launches)
         torch.cuda.empty_cache()
+    out["whisper"] = train_whisper()
     return {**out, "gpu": gpu}
 
 
@@ -2219,7 +2593,9 @@ def main() -> int:
     fa, ssd, fp = phase_kernels(gen)
     done("phase 1 kernels")
     prefill_kernels = {"hymba": {"flash_attention": fa.pop("hymba"), "ssd_scan": ssd.pop("hymba")},
-                       "kimi": {"flash_attention": fa.pop("kimi")}}
+                       "kimi": {"flash_attention": fa.pop("kimi")},
+                       "whisper": {"flash_attention": {"encoder": fa.pop("whisper_encoder"),
+                                                       "decoder": fa.pop("whisper_decoder")}}}
     qwen_decode, fp_detail = phase_model(fp)
     done("phase 2 qwen2.5-3b and the fingerprint's path")
     decode = {"qwen2.5-3b": qwen_decode, "mamba2-130m": phase_model_mamba()}
@@ -2230,14 +2606,18 @@ def main() -> int:
     done("phase 2 kimi-k2")
     moe_models["deepseek-v2-lite-16b"] = phase_model_deepseek()
     done("phase 2 deepseek-v2-lite")
+    whisper = phase_model_whisper()
+    done("phase 2 whisper-tiny")
     served = {}
     for argv in (SERVE_ARGS, MAMBA_SERVE_ARGS, HYMBA_SERVE_ARGS, KIMI_SERVE_ARGS,
                  DEEPSEEK_SERVE_ARGS):
         arch = argv[argv.index("--arch") + 1]
         served[arch] = (phase_serve_cut if arch in MOE_CUTS else phase_serve)(argv)
         done(f"phase 3 {arch} serve")
-    # every serve path's launches: qwen's, hymba's and kimi's flash, mamba's
-    # and hymba's ssd_scan
+    served["whisper-tiny"] = phase_serve_whisper()
+    done("phase 3 whisper-tiny serve")
+    # every serve path's launches: qwen's, hymba's, kimi's and whisper's
+    # flash, mamba's and hymba's ssd_scan
     for entry in (fa, ssd):
         entry["launches"] = sum(res["launches"][entry["name"]] for res in served.values())
 
@@ -2249,7 +2629,7 @@ def main() -> int:
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
-        {**result, "serve": served, "decode": decode, "moe_models": moe_models,
+        {**result, "serve": served, "decode": decode, "moe_models": moe_models, "whisper": whisper,
          "fingerprint": fp_detail, "prefill_kernels": prefill_kernels, "train": trained,
          "gpu": gpu}, indent=1))
     print(json.dumps(result))

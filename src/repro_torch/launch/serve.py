@@ -15,7 +15,10 @@ keys in ring caches of ``window`` slots.  The MoE archs serve through the
 experts' dense form, since the context says ``decode=True`` in prefill too,
 as the JAX driver's does: kimi-k2's prompt attention goes through
 ``flash_attention``; deepseek-v2-lite's MLA attends against its latent
-cache in plain PyTorch and reaches no kernel.
+cache in plain PyTorch and reaches no kernel.  An encoder-decoder arch
+(whisper-tiny) is refused up front, as the JAX driver serves none of its
+requests; ``repro_torch.models.whisper``'s ``prefill``/``decode_step`` serve
+it, and ``chip_smoke.py`` drives them.
 
     python -m repro_torch.launch.serve --arch qwen2.5-3b --batch 4 \
         --prompt-len 1024 --gen 32
@@ -60,6 +63,18 @@ def resolve_device(name: str) -> torch.device:
     return device
 
 
+def refuse_encoder_decoder(cfg, driver: str) -> None:
+    """The drivers run decoder-only archs, as the JAX drivers do: the JAX
+    serve driver prefills through ``transformer`` and serves no whisper
+    request, and the JAX train driver makes no ``frame_embeds``."""
+    if cfg.is_encdec:
+        raise ValueError(
+            f"{cfg.name} is an encoder-decoder arch: repro_torch.launch.{driver} does not "
+            f"run it, and neither does the JAX driver repro.launch.{driver}; use "
+            "repro_torch.models.whisper (prefill, decode_step) and the train step directly"
+        )
+
+
 def _load_params(args, cfg, device: torch.device):
     """Weights from the checkpoint store (lazy proxies, only the params
     resolved) or fresh random weights from a generator seeded with 0, made
@@ -83,10 +98,11 @@ def _load_params(args, cfg, device: torch.device):
 
 
 def serve(args) -> dict:
-    device = resolve_device(args.device)
     cfg = (get_smoke_config if args.smoke else get_config)(
         args.arch, attention_impl="pallas"
     )
+    refuse_encoder_decoder(cfg, "serve")
+    device = resolve_device(args.device)
     ctx = tx.RunCtx(decode=True)
     params = _load_params(args, cfg, device)
 

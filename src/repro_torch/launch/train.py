@@ -7,6 +7,8 @@ from the latest checkpoint.  One device: the mesh flags raise until the
 sharding port.  As the JAX driver passes its (n, 1) mesh, the step's
 context names an expert-parallel world of one, so an MoE config with
 ``moe_impl="ep"`` trains through the EP form, capacity drops included.
+An encoder-decoder arch (whisper-tiny) is refused up front: the JAX driver's
+batches carry no ``frame_embeds`` either.
 
     python -m repro_torch.launch.train --arch mamba2-130m \
         --steps 200 --batch 8 --seq 256
@@ -31,7 +33,7 @@ import torch
 from repro_torch import bridge
 from repro_torch.api import ConnectorSpec, StoreConfig
 from repro_torch.configs import get_config, get_smoke_config
-from repro_torch.launch.serve import resolve_device
+from repro_torch.launch.serve import refuse_encoder_decoder, resolve_device
 from repro_torch.models import transformer as tx
 from repro_torch.models.moe import ExpertWorld
 from repro_torch.train.checkpoint import CheckpointManager
@@ -52,8 +54,9 @@ def _check_single_device(args) -> None:
 
 def train(args) -> dict[str, Any]:
     _check_single_device(args)
-    device = resolve_device(args.device)
     cfg = (get_smoke_config if args.smoke else get_config)(args.arch)
+    refuse_encoder_decoder(cfg, "train")
+    device = resolve_device(args.device)
     if args.num_microbatches:
         cfg = cfg.replace(num_microbatches=args.num_microbatches)
     if args.remat:

@@ -2,13 +2,15 @@
 
 The train/prefill reference path is a *chunked online-softmax* attention in
 plain PyTorch (the score matrix is tiled, never (S, S) at once).  With
-``cfg.attention_impl == "pallas"`` the cache-free causal case goes to the
+``cfg.attention_impl == "pallas"`` the cache-free case goes to the
 hand-written CUDA flash kernel in ``repro_torch.kernels.flash_attention``
-(the plain version on CPU tensors), through the JAX package's own gate.
+(the plain version on CPU tensors), through the JAX package's own gate:
+causal for the decoders, non-causal for whisper's encoder.
 
 One dispatch differs from the JAX package: ``prefill`` always fills an empty
-cache at positions ``0..S-1`` (``transformer.prefill``), so its prompt
-attention is exactly the kernel's causal case over the S new keys.  The
+cache at positions ``0..S-1`` (``transformer.prefill``, and the decoder of
+``whisper.prefill``), so its prompt attention is exactly the kernel's
+causal case over the S new keys.  The
 JAX package computes it with ``kv_len = S`` over the zero tail of the cache,
 where every masked slot adds ``exp(-1e30 - m) = 0``: the same function.  The
 port sends it to the kernel when the kernel is configured.
@@ -28,10 +30,13 @@ latent space (the *absorbed* form).  Both go through ``chunked_attention``
 and never a kernel, as in the JAX package; ``attention_impl`` changes
 nothing for MLA.
 
+Cross attention (whisper's decoder, ``cross_kv=(k, v)``) projects q only and
+attends over the encoder's keys with ``chunked_attention``, unmasked and with
+no kernel, as in the JAX package.
+
 Caches are updated **in place**: the k/v (or latent) slots and the length
 of the (stacked) cache buffers passed in are written, and the same buffers
-are returned.  Cross attention waits for a later slice and raises
-``NotImplementedError``.
+are returned.
 """
 
 from __future__ import annotations
@@ -218,9 +223,10 @@ def apply_attention(
     cross_kv: tuple | None = None,
     ctx: Any = None,
 ) -> tuple[torch.Tensor, Params | None]:
-    """``ctx.prefill`` marks a prefill into an empty cache at positions 0..S-1."""
-    if cross_kv is not None:
-        raise NotImplementedError("cross attention is not ported yet")
+    """``ctx.prefill`` marks a prefill into an empty cache at positions 0..S-1.
+
+    With ``cross_kv = (k, v)``, each (B, T, KV, hd), only q is projected and
+    attends over all T keys (no mask, no cache, no kernel)."""
     ct = cfg.compute_dtype
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     G = H // KV
@@ -228,10 +234,17 @@ def apply_attention(
     x = x.to(ct)
 
     q = torch.einsum("bsd,dhk->bshk", x, p["w_q"].to(ct))
-    k = torch.einsum("bsd,dhk->bshk", x, p["w_k"].to(ct))
-    v = torch.einsum("bsd,dhk->bshk", x, p["w_v"].to(ct))
     if "b_q" in p:
         q = q + p["b_q"].to(ct)
+    if cross_kv is not None:
+        k, v = cross_kv
+        out = chunked_attention(
+            q.reshape(B, S, KV, G, hd), k, v, causal=False, chunk=cfg.attention_chunk
+        ).reshape(B, S, H, -1)
+        y = torch.einsum("bshk,hkd->bsd", out, p["w_o"].to(ct))
+        return shard_hint(y, ctx, ("dp", None, None)), None
+    k = torch.einsum("bsd,dhk->bshk", x, p["w_k"].to(ct))
+    v = torch.einsum("bsd,dhk->bshk", x, p["w_v"].to(ct))
     if "b_k" in p:
         k = k + p["b_k"].to(ct)
         v = v + p["b_v"].to(ct)

@@ -12,8 +12,8 @@ gradients once (indexing layer by layer would give every layer's backward a
 zero buffer the size of the whole stack).  ``remat`` maps to
 ``torch.utils.checkpoint`` around each layer.  The router's aux loss
 accumulates over the layers, as the JAX package's scan carries it.  The
-encoder-decoder path (whisper) waits for a later slice and raises
-``NotImplementedError``.
+encoder-decoder family (whisper) has its own module,
+``repro_torch.models.whisper``, and this one refuses its configs.
 """
 
 from __future__ import annotations
@@ -87,9 +87,10 @@ def layer_groups(cfg: ModelConfig) -> list[LayerGroup]:
     return [LayerGroup("layers", cfg.num_layers, "dense")]
 
 
-def _check_ported(cfg: ModelConfig) -> None:
+def _refuse_encoder_decoder(cfg: ModelConfig) -> None:
     if cfg.is_encdec:
-        raise NotImplementedError(f"{cfg.name}: the encoder-decoder path is not ported yet")
+        raise ValueError(f"{cfg.name} is an encoder-decoder config: use "
+                         "repro_torch.models.whisper")
 
 
 def _tree_map(fn, tree):
@@ -147,7 +148,7 @@ def init_params(cfg: ModelConfig, gen: torch.Generator) -> Params:
     made.  So the peak is the model's size, plus one layer of a group of
     several, plus the f32 draw of one leaf (one slab of an expert leaf).
     """
-    _check_ported(cfg)
+    _refuse_encoder_decoder(cfg)
     params: Params = {"embedding": init_embedding(cfg, gen)}
     for group in layer_groups(cfg):
         if group.count == 1:
@@ -293,7 +294,7 @@ def forward(
     one); the aux loss sums the MoE layers' (0 without them).  ``patch_embeds``
     replace the embeddings of the leading positions when they fit in S.
     """
-    _check_ported(cfg)
+    _refuse_encoder_decoder(cfg)
     B, S = tokens.shape
     x = embed_tokens(cfg, params["embedding"], tokens)
     x = shard_hint(x, ctx, ("dp", None, None))
@@ -361,7 +362,7 @@ def loss_fn(
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device) -> Params:
     """Stacked per-group decode caches."""
-    _check_ported(cfg)
+    _refuse_encoder_decoder(cfg)
     cache: Params = {}
     for group in layer_groups(cfg):
         if group.kind == "ssm":

@@ -3,8 +3,9 @@
 The PyTorch counterpart of ``repro/train/train_step.py``.  Gradients come
 from ``torch.autograd.grad`` over detached aliases of the parameter leaves,
 so the state's tensors never require grad and ``apply_updates`` can write
-them in place afterwards.  The encoder-decoder step (Whisper) is not
-ported: ``transformer`` raises for it, at init and in the loss.
+them in place afterwards.  Init and the loss dispatch on ``cfg.is_encdec``
+as in the JAX package: an encoder-decoder config (whisper) goes to
+``repro_torch.models.whisper``, whose batches carry ``frame_embeds``.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ import torch
 
 from repro_torch.bridge import flatten, unflatten
 from repro_torch.models import transformer as tx
+from repro_torch.models import whisper as wh
 from repro_torch.models.common import ModelConfig
 from repro_torch.train.optimizer import AdamWConfig, apply_updates, init_opt_state
 
@@ -22,8 +24,15 @@ TrainState = dict[str, Any]  # {"params", "opt"}
 
 
 def init_train_state(cfg: ModelConfig, gen: torch.Generator) -> TrainState:
-    params = tx.init_params(cfg, gen)
+    init = wh.init_params if cfg.is_encdec else tx.init_params
+    params = init(cfg, gen)
     return {"params": params, "opt": init_opt_state(params)}
+
+
+def _loss(cfg: ModelConfig, params, batch, ctx) -> torch.Tensor:
+    if cfg.is_encdec:
+        return wh.loss_fn(cfg, params, batch, ctx=ctx)
+    return tx.loss_fn(cfg, params, batch, ctx)
 
 
 def make_train_step(
@@ -33,9 +42,10 @@ def make_train_step(
 ) -> Callable[[TrainState, dict[str, torch.Tensor]], tuple[TrainState, dict]]:
     """Build the train step.
 
-    With ``cfg.num_microbatches > 1`` the global batch is split on the
-    leading axis and the gradients accumulate in f32, one microbatch at a
-    time (where the JAX package scans).
+    With ``cfg.num_microbatches > 1`` the global batch (every entry,
+    ``frame_embeds`` too) is split on the leading axis and the gradients
+    accumulate in f32, one microbatch at a time (where the JAX package
+    scans).
     """
 
     nmb = cfg.num_microbatches
@@ -43,7 +53,7 @@ def make_train_step(
     def grads_of(params, batch) -> tuple[torch.Tensor, list[torch.Tensor]]:
         pairs = [(path, p.detach().requires_grad_()) for path, p in flatten(params)]
         with torch.enable_grad():
-            loss = tx.loss_fn(cfg, unflatten(pairs), batch, ctx)
+            loss = _loss(cfg, unflatten(pairs), batch, ctx)
             grads = torch.autograd.grad(loss, [p for _, p in pairs])
         return loss.detach(), list(grads)
 

@@ -42,6 +42,7 @@ def test_scan_covers_the_package():
     assert "src/repro_torch/launch/serve.py" in rel
     assert "src/repro_torch/core/serialize.py" in rel
     assert "src/repro_torch/models/moe.py" in rel
+    assert "src/repro_torch/models/whisper.py" in rel
     assert len(FILES) > 40
 
 

@@ -44,7 +44,6 @@ DENSE = ["qwen2.5-3b", "phi4-mini-3.8b", "granite-20b", "starcoder2-15b", "inter
 SSM = ["mamba2-130m"]
 HYBRID = ["hymba-1.5b"]
 MOE = ["kimi-k2-1t-a32b", "deepseek-v2-lite-16b"]
-NOT_PORTED = ["whisper-tiny"]
 TOL = dict(rtol=1e-4, atol=1e-4)
 KERNEL_TOL = dict(rtol=3e-3, atol=3e-3)
 B, S, GEN = 2, 24, 4
@@ -598,22 +597,15 @@ def test_moe_init_cache_matches_jax_layout(arch):
     assert set(tc["moe"]) == ({"c", "k_rope", "length"} if tcfg.mla else {"k", "v", "length"})
 
 
-@pytest.mark.parametrize("arch", NOT_PORTED)
-def test_unported_families_raise(arch):
-    cfg = get_smoke_config(arch)
-    with pytest.raises(NotImplementedError):
+def test_transformer_refuses_an_encoder_decoder_config():
+    """whisper-tiny has its own module; the decoder-only one refuses it."""
+    cfg = get_smoke_config("whisper-tiny")
+    with pytest.raises(ValueError, match="repro_torch.models.whisper"):
         tx.init_params(cfg, torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="repro_torch.models.whisper"):
         tx.init_cache(cfg, 1, 8, device="cpu")
-
-
-def test_cross_attention_raises():
-    _, tcfg, _, tp = _setup("qwen2.5-3b")
-    p = {k: v[0] for k, v in tp["layers"]["attn"].items()}
-    x = torch.zeros(1, 4, tcfg.d_model)
-    pos = torch.arange(4)[None]
-    with pytest.raises(NotImplementedError, match="cross"):
-        tattn.apply_attention(tcfg, p, x, positions=pos, cross_kv=(x, x))
+    with pytest.raises(ValueError, match="repro_torch.models.whisper"):
+        tx.forward(cfg, {}, torch.zeros((1, 4), dtype=torch.long))
 
 
 def test_chunked_attention_matches_jax_with_offsets():

@@ -24,7 +24,9 @@ gap observed on the CPU:
 
 Then the reference's own model smoke tests (``tests/test_models_smoke.py``)
 and optimizer tests (``tests/test_train_infra.py``) run against the port,
-for every arch the port supports.
+for every arch the port supports; whisper-tiny's batches carry frame
+embeddings, as the reference's do.  (whisper's step against the JAX step is
+in ``tests/test_torch_whisper.py``.)
 """
 
 from __future__ import annotations
@@ -60,6 +62,7 @@ DENSE = ["qwen2.5-3b", "phi4-mini-3.8b", "granite-20b", "starcoder2-15b", "inter
 SSM = ["mamba2-130m"]
 HYBRID = ["hymba-1.5b"]
 MOE = ["kimi-k2-1t-a32b", "deepseek-v2-lite-16b"]
+ENCDEC = ["whisper-tiny"]
 B, S = 2, 32
 LOSS_RTOL, GNORM_RTOL, LR_RTOL = 1e-5, 1e-4, 1e-7
 MOMENT_REL_L2, UPDATE_REL_L2 = 1e-5, 1e-2
@@ -74,6 +77,9 @@ def _batch(cfg, rng: np.random.Generator, batch: int = B) -> dict[str, np.ndarra
     if cfg.family == "vlm":
         out["patch_embeds"] = rng.normal(
             size=(batch, cfg.num_image_tokens, cfg.d_model)).astype(np.float32)
+    if cfg.is_encdec:
+        out["frame_embeds"] = rng.normal(
+            size=(batch, cfg.encoder_seq, cfg.d_model)).astype(np.float32)
     return out
 
 
@@ -146,18 +152,25 @@ def test_train_state_bridges_both_ways():
 
 
 def test_encoder_decoder_train_step_raises():
+    """whisper's step dispatches to ``repro_torch.models.whisper`` (held to
+    JAX in ``tests/test_torch_whisper.py``); a batch without frame
+    embeddings raises there, as the JAX step's ``batch["frame_embeds"]``
+    does, and leaves the state alone."""
     cfg = get_smoke_config("whisper-tiny")
-    with pytest.raises(NotImplementedError, match="encoder-decoder"):
-        init_train_state(cfg, torch.Generator().manual_seed(0))
+    state = init_train_state(cfg, torch.Generator().manual_seed(0))
+    assert {"encoder", "decoder", "enc_pos", "dec_pos"} <= set(state["params"])
+    before = state["params"]["final_norm"]["scale"].clone()
     step = make_train_step(cfg, AdamWConfig())
-    with pytest.raises(NotImplementedError, match="encoder-decoder"):
-        step({"params": {}, "opt": {}}, {"tokens": torch.zeros((1, 4), dtype=torch.int32)})
+    with pytest.raises(KeyError, match="frame_embeds"):
+        step(state, {"tokens": torch.zeros((1, 4), dtype=torch.int32)})
+    assert int(state["opt"]["step"]) == 0
+    assert torch.equal(state["params"]["final_norm"]["scale"], before)
 
 
 # -- the reference's model smoke tests, against the port --------------------------------
 
 
-@pytest.mark.parametrize("arch", DENSE + SSM + HYBRID + MOE)
+@pytest.mark.parametrize("arch", DENSE + SSM + HYBRID + MOE + ENCDEC)
 def test_train_step_runs(arch):
     cfg = get_smoke_config(arch)
     state = init_train_state(cfg, torch.Generator().manual_seed(0))
@@ -170,7 +183,7 @@ def test_train_step_runs(arch):
     assert all(bool(torch.isfinite(x).all()) for _, x in bridge.flatten(state["params"]))
 
 
-@pytest.mark.parametrize("arch", DENSE + SSM + MOE)
+@pytest.mark.parametrize("arch", DENSE + SSM + MOE + ENCDEC)
 def test_loss_decreases(arch):
     """Five steps on the same batch must reduce the loss (optimizer sanity)."""
     cfg = get_smoke_config(arch)
@@ -188,7 +201,7 @@ def _clone(state):
     return {k: _clone(v) for k, v in state.items()} if isinstance(state, dict) else state.clone()
 
 
-@pytest.mark.parametrize("arch", DENSE + SSM)
+@pytest.mark.parametrize("arch", DENSE + SSM + ENCDEC)
 def test_microbatched_train_step_matches_single(arch):
     cfg = get_smoke_config(arch)
     batch = _tensors(_batch(cfg, np.random.default_rng(9), batch=4))
