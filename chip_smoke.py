@@ -116,6 +116,25 @@ Phases, each of which must pass (any failure exits non-zero):
       CPU within 1e-4, then full width (f32 params, batch 8 x 448 target
       tokens x 1500 frames, reference attention) for three steps, and five
       steps on one batch whose loss must fall (not with lr forced to 0).
+5. The distribution layer (no kernel):
+   a. compression at qwen2.5-3b's full width: ``quantize_int8`` gives every
+      pinned digest of ``COMPRESS_GOLDEN`` (the JAX function's) and the
+      CPU's q and scales on the embedding, bit for bit; ``quantize_tree``
+      over the f32 tree is timed beside its byte bound; 20 steps of error
+      feedback on a fixed gradient converge as the reference's test asks
+      (with the residual dropped they must not); the delta codec through
+      the port's Store: payload at most 0.26 of the f32 bytes, decode
+      within half a scale;
+   b. the op counter: qwen2.5-3b's prefill (B=4, S=1024, bf16 compute,
+      reference attention) and mamba2-130m's decode step, counted under
+      ``FakeTensorMode`` and on the card, must agree op for op (names and
+      shapes); the fake state's bytes within 1 % of the allocator's growth;
+      the measured time beside the counted FLOPs and bytes at peak;
+   c. the dry-run CLI, two subprocesses started at the phase's start:
+      qwen2.5-3b decode_32k on 256 fake ranks and deepseek-v2-lite
+      prefill_32k on 512, both exit 0, the second with an all-to-all;
+   d. ``repro_torch.launch.train --production`` at one rank raises,
+      naming the 256 ranks it needs.
 
 Each part prints its own seconds and the run's so far.  The last lines
 are the ``kernels`` JSON object (launches summed over the serve paths), the
@@ -125,6 +144,7 @@ card's name and power limit, and ``{"ok": true, "device": {...}}``.  Needs the r
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -351,6 +371,29 @@ PEAK_INT32_OPS = 132 * 64 * 1.98e9
 # a few hundred cycles a stage are not the chain's; the leaves' lines print
 # the measured cycles
 FP_CHAIN_CYCLES = 10
+
+
+# phase 5: pinned digests (sha256 of q's then the scales' bytes, first 16 hex
+# digits) of the JAX package's quantize_int8 on ``compress_golden_array``'s
+# inputs; tests/test_torch_compression.py regenerates them against both
+COMPRESS_GOLDEN = [
+    ("normal", 1, 0, "781ced082650a63f"),
+    ("normal", 255, 1, "79a3040e1ffdf481"),
+    ("normal", 4097, 2, "21379aa24f10568a"),
+    ("normal", 1048576, 3, "50aef41f4394593c"),
+    ("ties", 1000, 4, "3074a6d3e8deebbc"),
+    ("ties", 65536, 5, "6859f24ac0279a85"),
+    ("mixed", 1000, 6, "6fbd5a7b9e2851f4"),
+    ("mixed", 100003, 7, "eb9dcd346f5bb86a"),
+]
+COMPRESS_STEPS = 20          # error-feedback steps on one fixed gradient
+CODEC_PAYLOAD_SHARE = 0.26   # the codec's payload at most this share of the f32 bytes
+# the dry-run CLI on the card's host: (arch, shape, mesh, ranks, must show an all-to-all)
+DRYRUN_CELLS = [("qwen2.5-3b", "decode_32k", "single", 256, False),
+                ("deepseek-v2-lite-16b", "prefill_32k", "multi", 512, True)]
+DRYRUN_TIMEOUT = 600
+ARG_BYTES_TOL = 0.01         # predicted argument bytes against the allocator's growth
+PHASE5_SECONDS = 120
 
 
 def fail(msg: str) -> None:
@@ -2565,6 +2608,320 @@ def phase_train(gpu: str, fresh_ssd_launches: int) -> dict:
     return {**out, "gpu": gpu}
 
 
+# -- phase 5: the distribution layer ------------------------------------------------------
+
+def compress_golden_array(kind: str, n: int, seed: int) -> np.ndarray:
+    """The numpy input of a ``COMPRESS_GOLDEN`` entry: normal values over a
+    random scale, exact ties ``(k + 0.5) * scale`` (every block's max pinned
+    at ``127 * scale``), or a zero block, a constant block and normal values."""
+    rng = np.random.default_rng(seed)
+    if kind == "normal":
+        return (rng.normal(size=n) * 10.0 ** rng.uniform(-4, 2)).astype(np.float32)
+    if kind == "ties":
+        x = ((rng.integers(-126, 126, n) + 0.5) * np.float32(0.0123)).astype(np.float32)
+        x[::256] = np.float32(0.0123) * 127
+        return x
+    x = np.zeros(n, np.float32)
+    x[256:512] = -2.75
+    x[512:] = rng.normal(size=n - 512).astype(np.float32)
+    return x
+
+
+def compress_digest(q, scales) -> str:
+    q, scales = (t.cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
+                 for t in (q, scales))
+    import hashlib
+
+    return hashlib.sha256(q.tobytes() + scales.tobytes()).hexdigest()[:16]
+
+
+def start_dryruns() -> list:
+    """``DRYRUN_CELLS`` through the dry-run CLI, one subprocess each, started
+    together; they run on the host beside phases 5a and 5b."""
+    import os
+
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    runs = []
+    for arch, shape, mesh, ranks, a2a in DRYRUN_CELLS:
+        log = open(out_dir / f"dryrun_{arch}__{shape}__{mesh}.log", "w")
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+             "--shape", shape, "--mesh", mesh, "--force"],
+            cwd=ROOT, env=env, stdout=log, stderr=subprocess.STDOUT)
+        runs.append(((arch, shape, mesh, ranks, a2a), proc, log, time.perf_counter()))
+    return runs
+
+
+def finish_dryruns(runs) -> dict:
+    """Waits for ``start_dryruns``'s processes (killing any still running at
+    the limit) and checks their artifacts."""
+    from repro_torch.launch.dryrun import ARTIFACTS
+
+    out = {}
+    for (arch, shape, mesh, ranks, a2a), proc, log, t0 in runs:
+        try:
+            rc = proc.wait(timeout=max(1.0, DRYRUN_TIMEOUT - (time.perf_counter() - t0)))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+            rc = "timeout"
+        log.close()
+        secs = time.perf_counter() - t0
+        name = f"{arch}__{shape}__{mesh}"
+        if rc != 0:
+            for other in runs:
+                if other[1].poll() is None:
+                    other[1].kill()
+            fail(f"dry-run {name}: exit {rc} (chiprun_out/dryrun_{name}.log)")
+        res = json.loads((ARTIFACTS / f"{name}.json").read_text())
+        coll = res["collectives"]
+        if res["devices"] != ranks:
+            fail(f"dry-run {name}: {res['devices']} devices, need {ranks}")
+        if a2a and not coll["all-to-all"] > 0:
+            fail(f"dry-run {name}: no all-to-all (the EP exchange)")
+        mem = res["memory_analysis"]
+        print(f"[dryrun] {name}: exit 0 in {secs:.1f}s (trace {res['trace_seconds']}s), "
+              f"{res['devices']} ranks, {res['cost_analysis']['flops']:.4e} FLOP a device, "
+              f"arguments {mem['argument_size_in_bytes']:,} B, temp {mem['temp_size_in_bytes']:,} B; "
+              + ", ".join(f"{k} {v:,.0f} B" for k, v in coll.items() if k != "count" and v)
+              + f" ({coll['count']:.0f} collectives)")
+        out[name] = {"seconds": secs, "devices": res["devices"],
+                     "trace_seconds": res["trace_seconds"], "collectives": coll,
+                     "memory_analysis": mem, "cost_analysis": res["cost_analysis"]}
+    return out
+
+
+def phase_compress(gpu: str) -> dict:
+    """5a: int8 compression at qwen2.5-3b's full width on the card."""
+    from repro_torch.api import ConnectorSpec, StoreConfig
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.compression import (
+        CompressedDeltaCodec, compress_with_feedback, dequantize_int8, init_error_feedback,
+        payload_nbytes, quantize_int8, quantize_tree)
+    from repro_torch.models import transformer as tx
+
+    for kind, n, seed, want in COMPRESS_GOLDEN:
+        q, sc = quantize_int8(torch.from_numpy(compress_golden_array(kind, n, seed)).cuda())
+        if compress_digest(q, sc) != want:
+            fail(f"compress {kind}[{n}]: digest {compress_digest(q, sc)}, JAX {want}")
+    print(f"[compress] {len(COMPRESS_GOLDEN)} pinned JAX digests reproduced on the card")
+
+    cfg = get_config("qwen2.5-3b")
+    params = tx.init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    leaves = list(_leaves(params))
+    n_elem = sum(t.numel() for t in leaves)
+    f32_bytes = sum(t.numel() * t.element_size() for t in leaves)
+
+    emb = params["embedding"]["embed"]
+    qg, sg = quantize_int8(emb)
+    qc, sc = quantize_int8(emb.cpu())
+    if not (torch.equal(qg.cpu(), qc) and torch.equal(sg.cpu().view(torch.int32),
+                                                       sc.view(torch.int32))):
+        fail("compress: the card's q or scales differ from the CPU's on the embedding")
+    del qg, sg, qc, sc
+
+    ms = time_ms(lambda: quantize_tree(params), iters=3, warmup=1)
+    need = n_elem * (4 + 1 + 4 / 256)
+    bound = need / PEAK_BYTES * 1e3
+    print(f"[compress] quantize_tree over {n_elem:,} f32 elements ({f32_bytes:,} B): "
+          f"{ms:.4f} ms, {need / ms / 1e6:.1f} GB/s of the {need / 1e9:.3f} GB it needs; "
+          f"bound {bound:.4f} ms by bytes ({ms / bound:.2f}x) | {gpu}")
+
+    # error feedback on a fixed gradient (one MLP slab scaled down), and with
+    # the residual dropped (a planted fault): the mean of 20 dequantized steps
+    g = params["layers"]["mlp"]["w_gate"][0].reshape(-1)[: 1 << 22] * 1e-3
+
+    def mean_error(keep_residual: bool) -> float:
+        residual = init_error_feedback({"g": g})
+        acc = torch.zeros_like(g, dtype=torch.float64)
+        for _ in range(COMPRESS_STEPS):
+            qt, new = compress_with_feedback({"g": g}, residual)
+            residual = new if keep_residual else init_error_feedback({"g": g})
+            acc += dequantize_int8(*qt["g"][:2], tuple(g.shape)).double()
+        return float((acc / COMPRESS_STEPS - g.double()).abs().max())
+
+    nq, ns = quantize_int8(g)
+    naive = float((dequantize_int8(nq, ns, tuple(g.shape)) - g).abs().max())
+    ef, dropped = mean_error(True), mean_error(False)
+    print(f"[compress] error feedback, {COMPRESS_STEPS} steps on {g.numel():,} values: mean "
+          f"error {ef:.3e} against {naive:.3e} memoryless; residual dropped {dropped:.3e}")
+    if not ef < naive / 3:
+        fail(f"compress: error feedback did not converge ({ef:.3e} vs {naive:.3e} / 3)")
+    if dropped < naive / 3:
+        fail("compress: the dropped-residual fault passed the convergence check")
+
+    # the delta codec through the port's Store: the embedding and the
+    # attention leaves, stepped by a small delta
+    sub = {"embedding": params["embedding"], "attn": params["layers"]["attn"]}
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    stepped = {k: {n: t + 1e-3 * torch.randn(t.shape, generator=gen, device="cuda")
+                   for n, t in tree.items()} for k, tree in sub.items()}
+    codec = CompressedDeltaCodec(sub)
+    store = StoreConfig("chip-codec", ConnectorSpec("memory", segment="chip-codec")).build(
+        register=True)
+    t0 = time.perf_counter()
+    payload = codec.encode(stepped)
+    back = codec.decode(store.proxy(payload))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    sub_bytes = sum(t.numel() * 4 for t in _leaves(sub))
+    share = payload_nbytes(payload) / sub_bytes
+    worst = 0.0
+    for k, tree in stepped.items():
+        for n, want in tree.items():
+            _, scales, _, _ = payload[k][n]
+            half = 0.5 * torch.from_numpy(scales).cuda().repeat_interleave(256)[: want.numel()]
+            err = (back[k][n].reshape(-1) - want.reshape(-1)).abs()
+            worst = max(worst, float((err / half.clamp_min(1e-30)).max()))
+    store.close()
+    print(f"[compress] codec through the Store: {payload_nbytes(payload):,} B for "
+          f"{sub_bytes:,} B of f32 ({share:.4f}), worst error {worst:.4f} of half a scale "
+          f"({secs:.1f}s)")
+    if share > CODEC_PAYLOAD_SHARE:
+        fail(f"compress: codec payload {share:.4f} of the f32 bytes > {CODEC_PAYLOAD_SHARE}")
+    if worst > 1.0 + 1e-3:
+        fail(f"compress: codec decode off by {worst:.4f} of half a scale")
+    return {"elements": n_elem, "f32_bytes": f32_bytes, "quantize_tree_ms": ms,
+            "quantize_bound_ms": bound, "gb_per_s": need / ms / 1e6, "ef_mean_error": ef,
+            "memoryless_error": naive, "dropped_residual_error": dropped,
+            "codec_share": share, "codec_worst_half_scales": worst}
+
+
+def count_step(build, step, *, fake: bool):
+    """``build(device)`` -> (args of ``step``, bytes built); then ``step``
+    under an op counter.  ``fake``: inside ``FakeTensorMode``."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.launch.op_analysis import OpCounter
+    from repro_torch.models import layers
+
+    layers._rope_freqs.cache_clear()  # a cached table is made once per mode
+    mode = FakeTensorMode(allow_non_fake_inputs=True) if fake else contextlib.nullcontext()
+    with mode:
+        args = build()
+        counter = OpCounter(log=True)
+        with counter, torch.no_grad():
+            step(*args)
+    layers._rope_freqs.cache_clear()
+    return counter, args
+
+
+def phase_counter(gpu: str) -> dict:
+    """5b: the op counter's count of a step against the same step on the card."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tx
+
+    out = {}
+    qwen = get_config("qwen2.5-3b", attention_impl="reference")
+    mamba = get_config("mamba2-130m", attention_impl="reference")
+    B, S = 4, 1024
+    cases = {
+        "qwen2.5-3b prefill (B=4, S=1024)": (
+            qwen,
+            lambda cfg: (tx.init_params(cfg, torch.Generator(device="cuda").manual_seed(0)),
+                         torch.zeros((B, S), dtype=torch.int64, device="cuda"),
+                         tx.init_cache(cfg, B, S + 8, device="cuda")),
+            lambda cfg: lambda p, t, c: tx.prefill(cfg, p, t, c, tx.RunCtx(decode=True))),
+        "mamba2-130m decode step (B=4)": (
+            mamba,
+            lambda cfg: (tx.init_params(cfg, torch.Generator(device="cuda").manual_seed(0)),
+                         tx.init_cache(cfg, B, S + 8, device="cuda"),
+                         torch.zeros((B, 1), dtype=torch.int64, device="cuda"),
+                         torch.full((B, 1), S, dtype=torch.int64, device="cuda")),
+            lambda cfg: lambda p, c, t, pos: tx.decode_step(cfg, p, c, t, pos,
+                                                            tx.RunCtx(decode=True))),
+    }
+    for label, (cfg, build, make_step) in cases.items():
+        step = make_step(cfg)
+        fake, fargs = count_step(lambda: build(cfg), step, fake=True)
+        predicted = sum(t.numel() * t.element_size() for a in fargs
+                        for t in (_leaves(a) if isinstance(a, dict) else [a]))
+        del fargs
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        before = torch.cuda.memory_allocated()
+        real, args = count_step(lambda: build(cfg), step, fake=False)
+        torch.cuda.synchronize()
+        grown = torch.cuda.memory_allocated() - before
+        if real.log != fake.log:
+            i = next(i for i, (a, b) in enumerate(zip(real.log, fake.log)) if a != b) \
+                if any(a != b for a, b in zip(real.log, fake.log)) else min(len(real.log),
+                                                                           len(fake.log))
+            fail(f"counter, {label}: the card's op {i} of {len(real.log)} differs from the "
+                 f"fake count's ({len(fake.log)}): "
+                 f"{real.log[i] if i < len(real.log) else None} vs "
+                 f"{fake.log[i] if i < len(fake.log) else None}")
+        if real.flops != fake.flops or real.bytes != fake.bytes:
+            fail(f"counter, {label}: flops/bytes differ")
+        # the step's own time, off the counter
+        with torch.no_grad():
+            times = []
+            for _ in range(3):
+                if "prefill" in label:  # a fresh cache: the prefill fills an empty one
+                    args = (*args[:2], tx.init_cache(cfg, B, S + 8, device="cuda"))
+                _, t = events_ms(lambda: step(*args))
+                times.append(t)
+        ms = min(times)
+        flop_ms = fake.flops / PEAK_FLOPS["bfloat16"] * 1e3
+        byte_ms = fake.bytes / PEAK_BYTES * 1e3
+        # argument bytes: what the state occupies (the inputs of a decode
+        # step are a few bytes); the growth counts the allocator's rounding
+        if abs(grown - predicted) > ARG_BYTES_TOL * predicted:
+            fail(f"counter, {label}: predicted {predicted:,} argument bytes, the card "
+                 f"grew by {grown:,}")
+        print(f"[counter] {label}: {len(fake.log):,} ops equal on the card and under "
+              f"FakeTensorMode; {fake.flops:.4e} FLOP ({flop_ms:.4f} ms at 989 TF/s), "
+              f"{fake.bytes:.4e} B counted ({byte_ms:.4f} ms at 3.35 TB/s), "
+              f"{fake.transcendental_elems:.4e} transcendental elements; measured "
+              f"{ms:.4f} ms (min of {[round(t, 4) for t in times]}); arguments "
+              f"{predicted:,} B predicted, {grown:,} B allocated | {gpu}")
+        out[label] = {"ops": len(fake.log), "flops": fake.flops, "bytes": fake.bytes,
+                      "flop_ms": flop_ms, "byte_ms": byte_ms, "measured_ms": ms,
+                      "times_ms": times, "argument_bytes": predicted, "allocated": grown}
+        del args
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_distribution(gpu: str) -> dict:
+    """Phase 5: the distribution layer.  The dry-run CLI's cells (5c) run as
+    subprocesses beside compression (5a) and the counter (5b)."""
+    runs = start_dryruns()
+    try:
+        t0 = time.perf_counter()
+        compress = phase_compress(gpu)
+        torch.cuda.empty_cache()
+        print(f"[phase 5a] {time.perf_counter() - t0:.1f}s")
+        t0 = time.perf_counter()
+        counted = phase_counter(gpu)
+        print(f"[phase 5b] {time.perf_counter() - t0:.1f}s")
+    except BaseException:
+        for _, proc, _, _ in runs:
+            proc.kill()
+        raise
+    t0 = time.perf_counter()
+    dryruns = finish_dryruns(runs)
+    print(f"[phase 5c] waited {time.perf_counter() - t0:.1f}s for the dry-run cells")
+
+    # 5d: the production mesh at one rank raises with the ranks it needs
+    import tempfile
+
+    from repro_torch.launch import train as train_mod
+
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            train_mod.train(train_mod.parse_args(["--smoke", "--production", "--run-dir", tmp]))
+        except ValueError as exc:
+            if "needs 256 ranks" not in str(exc):
+                fail(f"train --production: {exc}")
+            print(f"[phase 5d] train --production at one rank: {exc}")
+        else:
+            fail("train --production ran at one rank")
+    return {"compress": compress, "counter": counted, "dryrun": dryruns}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2624,6 +2981,8 @@ def main() -> int:
     gpu = gpu_name_and_limit()
     trained = phase_train(gpu, served["mamba2-130m"]["launches"]["ssd_scan"])
     trained["seconds"] = done("phase 4 train")
+    distribution = phase_distribution(gpu)
+    distribution["seconds"] = done("phase 5 distribution")
 
     result = {"kernels": [fa, ssd, fp]}
     out_dir = ROOT / "chiprun_out"
@@ -2631,7 +2990,7 @@ def main() -> int:
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {**result, "serve": served, "decode": decode, "moe_models": moe_models, "whisper": whisper,
          "fingerprint": fp_detail, "prefill_kernels": prefill_kernels, "train": trained,
-         "gpu": gpu}, indent=1))
+         "distribution": distribution, "gpu": gpu}, indent=1))
     print(json.dumps(result))
     print(gpu)
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

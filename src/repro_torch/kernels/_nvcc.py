@@ -29,6 +29,23 @@ def nvcc(what: str) -> str:
     raise RuntimeError(f"nvcc not found: the {what} kernel is built from csrc/ at first use")
 
 
+def refuse_stand_ins(what: str, *tensors) -> None:
+    """A wrapper's first check: a ``DTensor``, or a fake tensor off the CPU,
+    never reaches the plain version or the launcher.  (A meta tensor is
+    refused by each launcher's own device check, before the build.)"""
+    from torch._subclasses.fake_tensor import FakeTensor
+    from torch.distributed.tensor import DTensor
+
+    for t in tensors:
+        if isinstance(t, DTensor):
+            raise TypeError(f"{what}: a DTensor input; the kernel runs on one card's "
+                            "tensors (call it on local shards, or run the model with "
+                            "attention_impl='reference')")
+        if isinstance(t, FakeTensor) and t.device.type != "cpu":
+            raise TypeError(f"{what}: a fake {t.device.type} tensor has no memory to "
+                            "launch the kernel on")
+
+
 def compile_library(source: Path, build_dir: Path, name: str) -> tuple[Path, str]:
     """Returns the library's path and the ``ptxas`` report of this build
     (empty when the library was already built)."""

@@ -24,6 +24,7 @@ from typing import Any
 import torch
 
 from repro_torch.bridge import to_tensor
+from repro_torch.kernels._nvcc import refuse_stand_ins
 from repro_torch.kernels.fingerprint.kernel import fingerprint_fwd
 from repro_torch.kernels.fingerprint.ref import MASK, fingerprint_ref
 
@@ -47,6 +48,7 @@ def as_bytes(x: torch.Tensor) -> torch.Tensor:
 def fingerprint(x: torch.Tensor) -> torch.Tensor:
     """Content fingerprint of any tensor. Returns (2,) uint32 on x's device."""
     global launch_count
+    refuse_stand_ins("fingerprint", x)
     data = as_bytes(x)
     if data.numel() == 0:
         raise ValueError("cannot fingerprint an empty tensor")

@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels._nvcc import refuse_stand_ins
 from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
@@ -37,6 +38,7 @@ def flash_attention_gqa(
     kernel's tiles are fixed at compile time and the plain version has none.
     """
     global launch_count
+    refuse_stand_ins("flash_attention_gqa", q, k, v)
     B, H, Sq, hd = q.shape
     KV = k.shape[1]
     if H % KV != 0:

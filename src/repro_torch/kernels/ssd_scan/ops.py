@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels._nvcc import refuse_stand_ins
 from repro_torch.kernels.ssd_scan.kernel import ssd_scan_fwd
 from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
 
@@ -36,6 +37,7 @@ def ssd_scan(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Returns (y (B,S,H,P), final_state (B,H,P,N) float32)."""
     global launch_count
+    refuse_stand_ins("ssd_scan", x, a, b, c, initial_state)
     B, S, H, P = x.shape
     N = b.shape[-1]
     Q = min(chunk, max(8, 1 << (S - 1).bit_length()))

@@ -40,14 +40,19 @@ store, leaf by leaf, onto the device.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor.experimental import implicit_replication
 
 from repro_torch import bridge
 from repro_torch.api import ClusterSpec, ConnectorSpec, ServeSpec, Session, StoreConfig
 from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.distributed.sharding import ShardingRules, distribute, gather_full
+from repro_torch.launch.mesh import world_mesh
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.models import transformer as tx
@@ -97,6 +102,12 @@ def _load_params(args, cfg, device: torch.device):
     return tx.init_params(cfg, gen)
 
 
+@contextlib.contextmanager
+def _sharded_step():
+    with torch.no_grad(), implicit_replication():
+        yield
+
+
 def serve(args) -> dict:
     cfg = (get_smoke_config if args.smoke else get_config)(
         args.arch, attention_impl="pallas"
@@ -105,8 +116,14 @@ def serve(args) -> dict:
     device = resolve_device(args.device)
     ctx = tx.RunCtx(decode=True)
     params = _load_params(args, cfg, device)
-
+    mesh = world_mesh(device.type)
     B, PL, G = args.batch, args.prompt_len, args.gen
+    if mesh is not None:
+        rules = ShardingRules(mesh, fsdp_params=False)  # serving layout
+        ctx = tx.RunCtx(mesh=mesh, dp_axes=rules.dp_axes, ep_axis="model", decode=True)
+        params = distribute(params, rules.state_shardings(params), mesh)
+        rows = rules.batch_spec(2) if B % mesh.size(0) == 0 else (None, None)
+
     n_req = args.requests or 2 * B
     timings = {"prefill_s": 0.0, "decode_s": 0.0, "decoded": 0, "prefills": 0}
 
@@ -114,17 +131,16 @@ def serve(args) -> dict:
         if device.type == "cuda":
             torch.cuda.synchronize(device)
 
-    @torch.inference_mode()
-    def generate(prompts: list) -> list:
-        """Batched forward for the server: pad to the fixed serving width,
-        prefill once, step the KV cache."""
-        k = len(prompts)
-        toks = np.stack([np.asarray(p, np.int64) for p in prompts])
-        if k < B:
-            toks = np.concatenate([toks, np.zeros((B - k, PL), np.int64)])
+    def run_batch(toks: np.ndarray) -> np.ndarray:
+        """Prefill the padded batch once, step the KV cache: (B, G) tokens.
+        With a mesh every rank runs it on its batch rows."""
         cache = tx.init_cache(cfg, B, PL + G + 1, device=device)
+        tokens = torch.from_numpy(toks).to(device)
+        if mesh is not None:
+            cache = distribute(cache, rules.cache_shardings(cache), mesh)
+            tokens = distribute(tokens, rows, mesh)
         t0 = time.perf_counter()
-        logits, cache = tx.prefill(cfg, params, torch.from_numpy(toks).to(device), cache, ctx)
+        logits, cache = tx.prefill(cfg, params, tokens, cache, ctx)
         sync()
         timings["prefill_s"] += time.perf_counter() - t0
         timings["prefills"] += 1
@@ -138,9 +154,34 @@ def serve(args) -> dict:
             out.append(tok)
         sync()
         timings["decode_s"] += time.perf_counter() - t0
+        return gather_full(torch.cat(out, dim=1)).to(torch.int32).cpu().numpy()
+
+    # with a mesh, rank 0 serves and hands each batch to the other ranks,
+    # which run it in step with it (plain tensors made in the step replicated)
+    step_mode = torch.inference_mode if mesh is None else _sharded_step
+
+    def generate(prompts: list) -> list:
+        """Batched forward for the server: pad to the fixed serving width,
+        prefill once, step the KV cache."""
+        k = len(prompts)
+        toks = np.stack([np.asarray(p, np.int64) for p in prompts])
+        if k < B:
+            toks = np.concatenate([toks, np.zeros((B - k, PL), np.int64)])
+        if mesh is not None:
+            dist.broadcast_object_list([toks], src=0)
+        with step_mode():
+            full = run_batch(toks)
         timings["decoded"] += k * (G - 1)
-        full = torch.cat(out, dim=1).to(torch.int32).cpu().numpy()
         return [full[i] for i in range(k)]
+
+    if mesh is not None and dist.get_rank() != 0:
+        while True:
+            batch = [None]
+            dist.broadcast_object_list(batch, src=0)
+            if batch[0] is None:
+                return {"follower": dist.get_rank(), "prefills": timings["prefills"]}
+            with step_mode():
+                run_batch(batch[0])
 
     spec = ClusterSpec(
         n_workers=1,
@@ -173,6 +214,8 @@ def serve(args) -> dict:
         t_wall = time.perf_counter() - t_wall
         sstats = server.stats()
         hub = session.cluster.streams().stats()
+    if mesh is not None:
+        dist.broadcast_object_list([None], src=0)  # the followers stop
 
     assert len(outs) == n_req, f"served {len(outs)}/{n_req} requests"
     tps = timings["decoded"] / timings["decode_s"] if timings["decode_s"] else 0.0

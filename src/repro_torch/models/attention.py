@@ -37,16 +37,33 @@ no kernel, as in the JAX package.
 Caches are updated **in place**: the k/v (or latent) slots and the length
 of the (stacked) cache buffers passed in are written, and the same buffers
 are returned.
+
+On ``DTensor`` inputs (a step laid out on a ``DeviceMesh``) the chunk loops
+run on each rank's batch rows and heads (``_sharded_attention``), the flash
+kernel on each rank's rows, and the cache writes on each rank's shard
+(``common.write_rows``).
 """
 
 from __future__ import annotations
 
+import functools
+import math
 from typing import Any
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.kernels.flash_attention.ops import flash_attention_gqa
-from repro_torch.models.common import shard_hint
+from repro_torch.models.common import (
+    as_dtensor,
+    batch_local,
+    contiguous_grad,
+    relayout,
+    shard_hint,
+    unshard,
+    write_rows,
+)
 from repro_torch.models.layers import apply_rope, normal_init
 
 Params = dict[str, Any]
@@ -100,11 +117,11 @@ def chunked_attention(
     q: torch.Tensor,        # (B, Sq, KV, G, hd)
     k: torch.Tensor,        # (B, Skv, KV, hd)
     v: torch.Tensor,        # (B, Skv, KV, hdv)
+    q_offset: Any = 0,      # scalar or (B,): absolute position of q[0]
+    kv_len: Any = None,     # scalar or (B,): valid prefix length of k/v
     *,
     causal: bool,
     window: int = 0,        # 0 = unlimited
-    q_offset: Any = 0,      # scalar or (B,): absolute position of q[0]
-    kv_len: Any = None,     # scalar or (B,): valid prefix length of k/v
     chunk: int = 1024,
     scale: float | None = None,
 ) -> torch.Tensor:
@@ -114,6 +131,11 @@ def chunked_attention(
     compute dtype, as ``preferred_element_type=f32`` does in the JAX package;
     probabilities are rounded to v's dtype before the value product.
     """
+    if isinstance(q, DTensor) or isinstance(k, DTensor):
+        return _sharded_attention(
+            q, k, v, causal=causal, window=window, q_offset=q_offset, kv_len=kv_len,
+            chunk=chunk, scale=scale,
+        )
     B, Sq, KV, G, hd = q.shape
     Skv = k.shape[1]
     hdv = v.shape[-1]
@@ -128,6 +150,8 @@ def chunked_attention(
     kc = min(chunk, Skv)
     q_off = _as_column(q_offset, dev)
     valid = _as_column(Skv if kv_len is None else kv_len, dev)
+    k_pos = torch.arange(Skv, device=dev)[None, None, :]
+    kv_ok = k_pos < valid[:, :, None]                                # (B', 1, Skv)
 
     outs = []
     for q0 in range(0, Sq, qc):
@@ -136,6 +160,13 @@ def chunked_attention(
         q_i = q[:, q0:q0 + qc].float()
         n_q = q_i.shape[1]
         q_pos = q_off + q0 + torch.arange(n_q, device=dev)[None, :]  # (B', n_q)
+        # the q chunk's mask over every key, sliced per kv chunk below
+        mask = kv_ok
+        if causal:
+            mask = mask & (k_pos <= q_pos[:, :, None])
+        if window > 0:
+            mask = mask & (q_pos[:, :, None] - k_pos < window)
+        mask = mask[:, :, None, None, :]                             # (B', n_q|1, 1, 1, Skv)
         m = torch.full((B, n_q, KV, G), NEG_INF, dtype=torch.float32, device=dev)
         l = torch.zeros((B, n_q, KV, G), dtype=torch.float32, device=dev)
         acc = torch.zeros((B, n_q, KV, G, hdv), dtype=torch.float32, device=dev)
@@ -143,13 +174,7 @@ def chunked_attention(
             k_j = k[:, k0:k0 + kc]
             v_j = v[:, k0:k0 + kc]
             s = torch.einsum("bqkgh,bckh->bqkgc", q_i, k_j.float()) * scale
-            k_pos = k0 + torch.arange(k_j.shape[1], device=dev)
-            mask = k_pos[None, None, :] < valid[:, :, None]  # (B', 1, kc)
-            if causal:
-                mask = mask & (k_pos[None, None, :] <= q_pos[:, :, None])
-            if window > 0:
-                mask = mask & (q_pos[:, :, None] - k_pos[None, None, :] < window)
-            s = torch.where(mask[:, :, None, None, :], s, NEG_INF)
+            s = torch.where(mask[..., k0:k0 + kc], s, NEG_INF)
             m_new = torch.maximum(m, s.amax(-1))
             p = torch.exp(s - m_new[..., None])
             corr = torch.exp(m - m_new)
@@ -160,6 +185,48 @@ def chunked_attention(
             m = m_new
         outs.append(acc / torch.clamp(l, min=1e-30)[..., None])
     return torch.cat(outs, dim=1).to(v.dtype)
+
+
+def _sharded_attention(q, k, v, *, q_offset, kv_len, **kw):
+    """``chunked_attention`` on ``DTensor`` inputs: each rank attends over its
+    own batch rows and heads, through ``local_map`` (the port's
+    ``shard_map``), so the chunk loops run on local shards.
+
+    The batch keeps q's batch sharding.  The heads shard over the mesh dims
+    the batch leaves free when the kv heads divide them; else, when all H =
+    KV * G query heads do, k and v are repeated to H heads and the output is
+    returned as (B, Sq, H, 1, hdv), the (KV, G) order flattened (every caller
+    reshapes it to (B, Sq, H, hdv)); else the heads are whole on every rank.
+    A cache sharded along its slots (context-parallel) is gathered whole."""
+    mesh = (q if isinstance(q, DTensor) else k).device_mesh
+    q, k, v = (as_dtensor(t, mesh) for t in (q, k, v))
+    B, Sq, KV, G, hd = q.shape
+    batch = [i for i, p in enumerate(q.placements) if p.is_shard() and p.dim == 0]
+    free = [i for i in range(mesh.ndim) if i not in batch]
+    n_free = math.prod(mesh.size(i) for i in free)
+    if KV % n_free and (KV * G) % n_free == 0:
+        q = unshard(q, (2, 3)).reshape(B, Sq, KV * G, 1, hd)
+        k = unshard(k, (2,)).repeat_interleave(G, dim=2)
+        v = unshard(v, (2,)).repeat_interleave(G, dim=2)
+    head_pl = Shard(2) if q.shape[2] % n_free == 0 else Replicate()
+    pl = [Shard(0) if i in batch else head_pl for i in range(mesh.ndim)]
+    rows = [Shard(0) if i in batch else Replicate() for i in range(mesh.ndim)]
+    q, k, v = (relayout(t, pl) for t in (q, k, v))
+
+    def per_row(x):
+        if not isinstance(x, torch.Tensor):
+            return x, None
+        x = as_dtensor(x, mesh)
+        return (relayout(x, rows), rows) if x.ndim else (x, [Replicate()] * mesh.ndim)
+
+    (q_offset, off_pl), (kv_len, len_pl) = per_row(q_offset), per_row(kv_len)
+
+    def body(q, k, v, q_offset, kv_len):
+        q, k, v = (contiguous_grad(t) for t in (q, k, v))
+        return chunked_attention(q, k, v, q_offset, kv_len, **kw)
+
+    local = local_map(body, out_placements=pl, in_placements=(pl, pl, pl, off_pl, len_pl))
+    return local(q, k, v, q_offset, kv_len)
 
 
 def _decode_attention(q, k, v, *, causal, window, q_offset, kv_len, scale):
@@ -185,7 +252,12 @@ def _decode_attention(q, k, v, *, causal, window, q_offset, kv_len, scale):
 
 def _flash(q, k, v, *, causal):
     """Model layout q (B,S,KV,G,hd), k/v (B,S,KV,hd) through the kernel's
-    (B,H,S,hd) layout.  The kernel takes strides, so the transposes are views."""
+    (B,H,S,hd) layout.  The kernel takes strides, so the transposes are views.
+    On ``DTensor`` inputs each rank runs the kernel on its batch rows."""
+    return batch_local(functools.partial(_flash_rows, causal=causal), q, k, v, rows=3)
+
+
+def _flash_rows(q, k, v, *, causal):
     B, S, KV, G, hd = q.shape
     qk = q.permute(0, 2, 3, 1, 4).reshape(B, KV * G, S, hd)
     out = flash_attention_gqa(qk, k.transpose(1, 2), v.transpose(1, 2), causal=causal)
@@ -236,10 +308,13 @@ def apply_attention(
     q = torch.einsum("bsd,dhk->bshk", x, p["w_q"].to(ct))
     if "b_q" in p:
         q = q + p["b_q"].to(ct)
+    # keep attention batch-parallel (heads shard only when they divide TP)
+    q = shard_hint(q, ctx, ("dp", None, "tp", None))
     if cross_kv is not None:
         k, v = cross_kv
         out = chunked_attention(
-            q.reshape(B, S, KV, G, hd), k, v, causal=False, chunk=cfg.attention_chunk
+            unshard(q, (2,)).reshape(B, S, KV, G, hd), k, v, causal=False,
+            chunk=cfg.attention_chunk,
         ).reshape(B, S, H, -1)
         y = torch.einsum("bshk,hkd->bsd", out, p["w_o"].to(ct))
         return shard_hint(y, ctx, ("dp", None, None)), None
@@ -248,10 +323,12 @@ def apply_attention(
     if "b_k" in p:
         k = k + p["b_k"].to(ct)
         v = v + p["b_v"].to(ct)
+    k = shard_hint(k, ctx, ("dp", None, "tp", None))
+    v = shard_hint(v, ctx, ("dp", None, "tp", None))
     if cfg.rope_theta > 0:  # 0 = learned/absolute positions (whisper)
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
-    q = q.reshape(B, S, KV, G, hd)
+    q = unshard(q, (2,)).reshape(B, S, KV, G, hd)
 
     prefill = bool(getattr(ctx, "prefill", False))
     if cache is not None and window > 0 and S > 1:
@@ -323,9 +400,8 @@ def _update_kv_cache(cache, k_new, v_new, positions, window, aligned=False):
     else:
         # ring slots; for a linear cache length < size, so the modulo never wraps
         write_pos = (length[:, None].to(torch.int64) + steps) % size  # (B, S_new)
-        bidx = torch.arange(B, device=k_new.device)[:, None]
-        cache["k"][bidx, write_pos] = k_new
-        cache["v"][bidx, write_pos] = v_new
+        write_rows(cache["k"], write_pos, k_new)
+        write_rows(cache["v"], write_pos, v_new)
     cache["length"].add_(S_new)
     new_len = length + S_new
     if window > 0:
@@ -423,9 +499,8 @@ def _update_latent_cache(cache, c, k_rope):
     size = cache["c"].shape[1]
     length = cache["length"].clone()
     write_pos = (length[:, None].to(torch.int64) + torch.arange(S, device=c.device)) % size
-    bidx = torch.arange(B, device=c.device)[:, None]
-    cache["c"][bidx, write_pos] = c
-    cache["k_rope"][bidx, write_pos] = k_rope
+    write_rows(cache["c"], write_pos, c)
+    write_rows(cache["k_rope"], write_pos, k_rope)
     cache["length"].add_(S)
     return cache["c"], cache["k_rope"], cache, length, length + S
 

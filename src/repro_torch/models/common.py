@@ -3,15 +3,204 @@
 from __future__ import annotations
 
 import dataclasses
+import math
 from dataclasses import dataclass
 from typing import Any
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 
 def shard_hint(x, ctx, dims: tuple) -> Any:
-    """Layout pin of the JAX package; the identity on one device."""
-    return x
+    """Pin ``x``'s layout mid-computation, as the JAX package's
+    ``with_sharding_constraint`` does: a ``DTensor`` is redistributed to the
+    hint, a plain tensor is returned as it is.
+
+    ``dims`` entries: "dp" (ctx.dp_axes), "tp" (ctx.ep_axis), or None.
+    Axes that do not divide the corresponding dim degrade to None, so the
+    same model code serves every mesh (and meshless smoke tests).
+    """
+    if not isinstance(x, DTensor):
+        return x
+    mesh = x.device_mesh
+    sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    spec = []
+    for dim, d in zip(x.shape, dims):
+        names: tuple[str, ...] = ()
+        if d == "dp":
+            names = tuple(ctx.dp_axes)
+        elif d == "tp":
+            names = (ctx.ep_axis,)
+        if names and dim % math.prod(sizes[a] for a in names) != 0:
+            names = ()
+        spec.append(names)
+    out = [Replicate()] * mesh.ndim
+    for dim, names in enumerate(spec):
+        for name in names:
+            out[mesh.mesh_dim_names.index(name)] = Shard(dim)
+    return relayout(x, out)
+
+
+def as_dtensor(x, mesh) -> DTensor:
+    """A plain tensor made inside a step, replicated on ``mesh``."""
+    if isinstance(x, DTensor):
+        return x
+    return DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim, run_check=False)
+
+
+def relayout(x, placements) -> Any:
+    """``x`` redistributed to ``placements``: the one place where the port
+    redistributes a ``DTensor`` explicitly, at an op for which DTensor has
+    no sharding strategy that keeps the layout (an uneven unflatten, an
+    in-place write into a sharded cache); GSPMD makes these choices silently
+    in the JAX package.  ``unshard``, ``copy_into`` and ``write_rows`` are
+    its callers, with ``fsdp_gather``, ``shard_hint`` and ``grad_in_layout``."""
+    placements = list(placements)
+    return x if list(x.placements) == placements else x.redistribute(placements=placements)
+
+
+class _ContiguousGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.contiguous()
+
+
+def contiguous_grad(x: torch.Tensor) -> torch.Tensor:
+    """``x``, whose gradient comes back dense.  Used on the local inputs of a
+    ``local_map`` body: a transposed local gradient wrapped as a ``DTensor``
+    gets a global stride that its local layout does not have, and a view in
+    the backward then fails."""
+    return _ContiguousGrad.apply(x) if x.requires_grad else x
+
+
+class _GradInLayout(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        ctx.placements = x.placements
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return relayout(grad, ctx.placements) if isinstance(grad, DTensor) else grad
+
+
+def grad_in_layout(x):
+    """``x``, whose gradient is laid out as ``x`` before it flows on: the
+    backward of a reshape that splits a dim (heads out of a hidden dim)
+    cannot take a gradient sharded along that dim when the shards do not
+    divide the split.  A plain tensor is returned as it is."""
+    return _GradInLayout.apply(x) if isinstance(x, DTensor) and x.requires_grad else x
+
+
+def unshard(x, dims: tuple[int, ...]) -> Any:
+    """``x`` with tensor dims ``dims`` whole on every rank; a plain tensor as
+    it is."""
+    if not isinstance(x, DTensor):
+        return x
+    dims = tuple(d % x.ndim for d in dims)
+    return relayout(x, [Replicate() if p.is_shard() and p.dim in dims else p
+                        for p in x.placements])
+
+
+def batch_local(fn, *args, rows: int = 1, n_out: int = 1):
+    """``fn(*args)`` on each rank's batch rows, through ``local_map``: the
+    first ``rows`` arguments keep the dim-0 shards of ``args[0]`` and are
+    whole along every other dim, the rest are whole on every rank.  For a
+    computation that is independent per batch row and has no DTensor
+    strategy over the layout it is given (a grouped convolution with the
+    batch over two mesh dims, the SSD scan, a kernel); its ``n_out``
+    outputs are batch-sharded as ``args[0]``.  Plain tensors: ``fn`` as it
+    is."""
+    if not isinstance(args[0], DTensor):
+        return fn(*args)
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = args[0].device_mesh
+    by_row = [p if p.is_shard() and p.dim == 0 else Replicate() for p in args[0].placements]
+    whole = [Replicate()] * mesh.ndim
+    laid, in_pl = [], []
+    for i, t in enumerate(args):
+        if not isinstance(t, torch.Tensor):
+            laid.append(t)
+            in_pl.append(None)
+            continue
+        pl = by_row if i < rows else whole
+        laid.append(relayout(as_dtensor(t, mesh), pl))
+        in_pl.append(pl)
+    out_pl = by_row if n_out == 1 else tuple([by_row] * n_out)
+    return local_map(fn, out_placements=out_pl, in_placements=tuple(in_pl))(*laid)
+
+
+def fsdp_gather(tree, ctx) -> Any:
+    """A layer's (or the embedding's) params whole over the data-parallel
+    axes, still sharded over the others: ZeRO-3's all-gather at use, one
+    layer at a time (under remat it runs again in the backward, whose
+    gradient reduce-scatters back to the FSDP shards).  Plain tensors are
+    returned as they are."""
+    if isinstance(tree, dict):
+        return {k: fsdp_gather(v, ctx) for k, v in tree.items()}
+    if not isinstance(tree, DTensor):
+        return tree
+    names = tree.device_mesh.mesh_dim_names
+    return relayout(tree, [Replicate() if names[i] in ctx.dp_axes else p
+                           for i, p in enumerate(tree.placements)])
+
+
+def copy_into(dst: torch.Tensor, src: torch.Tensor) -> None:
+    """``dst.copy_(src)``, with ``src`` laid out as ``dst`` first when ``dst``
+    is a ``DTensor`` (an in-place op cannot change its target's layout)."""
+    if isinstance(dst, DTensor):
+        src = relayout(as_dtensor(src, dst.device_mesh), dst.placements)
+    dst.copy_(src)
+
+
+def write_rows(buf: torch.Tensor, pos: torch.Tensor, new: torch.Tensor) -> None:
+    """``buf[b, pos[b, j]] = new[b, j]`` in place: the slot writes of the
+    caches, ``buf`` (B, S, ...), ``pos`` (B, S_new) slots that run on by one
+    modulo S from ``pos[:, 0]``, ``new`` (B, S_new, ...).
+
+    On a ``DTensor`` cache each rank writes its own shard: ``pos`` and
+    ``new`` are laid out on the cache's batch and trailing shards (whole
+    along the slots), and where the slot dim itself is sharded (a
+    context-parallel cache) each local slot takes the value written to it,
+    if any, as a gather (a scatter would need data-dependent shapes)."""
+    if not isinstance(buf, DTensor):
+        bidx = torch.arange(buf.shape[0], device=buf.device)[:, None]
+        buf[bidx, pos] = new
+        return
+    mesh = buf.device_mesh
+    on_batch = [p if p.is_shard() and p.dim == 0 else Replicate() for p in buf.placements]
+    on_rest = [p if p.is_shard() and p.dim != 1 else Replicate() for p in buf.placements]
+    pos_l = relayout(as_dtensor(pos, mesh), on_batch).to_local()
+    new_l = relayout(as_dtensor(new, mesh), on_rest).to_local()
+    buf_l = buf.to_local()
+    bidx = torch.arange(buf_l.shape[0], device=buf_l.device)[:, None]
+    slot_dims = [i for i, p in enumerate(buf.placements) if p.is_shard() and p.dim == 1]
+    if not slot_dims:
+        buf_l[bidx, pos_l] = new_l
+        return
+    coord = mesh.get_coordinate()
+    shard = 0
+    for i in slot_dims:
+        shard = shard * mesh.size(i) + coord[i]
+    n_loc, n_new = buf_l.shape[1], pos_l.shape[1]
+    slots = shard * n_loc + torch.arange(n_loc, device=buf_l.device)
+    j = (slots[None, :] - pos_l[:, :1]) % buf.shape[1]        # (B_loc, n_loc)
+    keep = (j < n_new).reshape(*j.shape, *([1] * (buf_l.ndim - 2)))
+    buf_l.copy_(torch.where(keep, new_l[bidx, j.clamp(max=n_new - 1)], buf_l))
+
+
+def last_masked(nll: torch.Tensor) -> torch.Tensor:
+    """The loss mask of a (B, S) per-token loss: 1, and 0 at the last
+    position.  Built from the positions rather than written in place, so a
+    batch-sharded ``DTensor`` loss takes it as it is."""
+    S = nll.shape[1]
+    keep = torch.arange(S, device=nll.device) < S - 1
+    return keep.to(nll.dtype).expand(nll.shape)
 
 
 @dataclass

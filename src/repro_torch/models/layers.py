@@ -8,6 +8,7 @@ from typing import Any
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 Params = dict[str, Any]
 
@@ -117,7 +118,44 @@ def init_embedding(cfg, gen: torch.Generator) -> Params:
 
 def embed_tokens(cfg, p: Params, tokens: torch.Tensor) -> torch.Tensor:
     # index first, then cast: the same numbers without casting the whole table
+    if isinstance(p["embed"], DTensor):
+        return _embed_sharded(p["embed"], tokens).to(cfg.compute_dtype)
     return p["embed"][tokens].to(cfg.compute_dtype)
+
+
+def _embed_sharded(table: DTensor, tokens: torch.Tensor) -> DTensor:
+    """The lookup on a ``DTensor`` table, vocab-parallel: each rank looks up
+    the tokens of its batch rows in its own slice of the vocabulary (zero
+    rows for the others'), and the rows are a partial sum over the mesh
+    dims that slice the vocabulary (exact: one addend is the row).  DTensor
+    has no strategy for an index with the batch over two mesh dims."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    from repro_torch.models.common import as_dtensor, relayout
+
+    mesh = table.device_mesh
+    tokens = as_dtensor(tokens, mesh)
+    rows = [i for i, q in enumerate(tokens.placements) if q.is_shard() and q.dim == 0]
+    vocab = [i for i, q in enumerate(table.placements)
+             if q.is_shard() and q.dim == 0 and i not in rows]
+    tok_pl = [Shard(0) if i in rows else Replicate() for i in range(mesh.ndim)]
+    tab_pl = [Shard(0) if i in vocab else Replicate() for i in range(mesh.ndim)]
+    out_pl = [Shard(0) if i in rows else Partial() if i in vocab else Replicate()
+              for i in range(mesh.ndim)]
+    coord = mesh.get_coordinate()
+    shard = 0
+    for i in vocab:
+        shard = shard * mesh.size(i) + coord[i]
+
+    def lookup(tok, tab):
+        n = tab.shape[0]
+        ids = tok.long() - shard * n
+        mine = (ids >= 0) & (ids < n)
+        return tab[ids.clamp(0, n - 1)] * mine[..., None].to(tab.dtype)
+
+    return local_map(lookup, out_placements=out_pl, in_placements=(tok_pl, tab_pl))(
+        relayout(tokens, tok_pl), relayout(table, tab_pl))
 
 
 def logits_matmul(cfg, p: Params, x: torch.Tensor) -> torch.Tensor:

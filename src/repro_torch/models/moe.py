@@ -20,6 +20,11 @@ Two forms share the parameters, as in the JAX package:
   prefill's ``(E, N, d)`` buffers would be some 65 GB.  No expert is
   skipped.
 
+On ``DTensor`` inputs laid out on a ``DeviceMesh`` the EP form runs its
+body through ``local_map`` with the JAX package's ``shard_map`` specs
+(``apply_moe_ep_sharded``), and the dense form runs each rank's own
+experts and sums their f32 outputs across ranks.
+
 ``apply_moe`` takes the EP form iff ``cfg.moe_impl == "ep"``, the context
 names an expert-parallel world and the call is not a decode, as the JAX
 package's does; serving passes ``decode=True`` in prefill too, so it always
@@ -30,12 +35,18 @@ takes the dense form.  The router aux (load-balance) loss follows Switch:
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.device_mesh import DeviceMesh
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
+from repro_torch.distributed.sharding import make_spec, placements
+from repro_torch.models.common import as_dtensor, relayout
 from repro_torch.models.layers import normal_init
 
 Params = dict[str, Any]
@@ -139,21 +150,52 @@ def apply_moe_dense(cfg, p: Params, x: torch.Tensor) -> tuple[torch.Tensor, torc
     probs, top_i, top_w = _router(cfg, p, x2)
     # combine weights over all experts: (N, E), zero off the top-k
     combine = torch.zeros_like(probs).scatter_add(1, top_i, top_w).to(ct)
-    y = torch.zeros((N, d), dtype=torch.float32, device=x.device)
-    for e0 in range(0, mo.num_experts, EXPERTS_PER_SLAB):
-        slab = slice(e0, e0 + EXPERTS_PER_SLAB)
-        c = combine[:, slab]
-        y_slab = _expert_ffn(
-            cfg, p["w_gate"][slab], p["w_up"][slab], p["w_down"][slab],
-            x2[None].expand(c.shape[1], N, d),
-        )  # (experts of the slab, N, d)
-        # products of compute-dtype values, summed over the experts in f32
-        y = y + torch.einsum("end,ne->nd", y_slab.float(), c.float())
-    y = y.to(ct)
+    y = _routed_experts(cfg, x2, combine, p["w_gate"], p["w_up"], p["w_down"]).to(ct)
     if mo.num_shared > 0:
         y = y + _shared_ffn(cfg, p, x2)
     aux = _aux_loss(cfg, probs, top_i)
     return y.reshape(B, S, d), aux
+
+
+def _expert_slabs(cfg, x2, combine, w_gate, w_up, w_down) -> torch.Tensor:
+    """sum_e combine[:, e] * ffn_e(x2) over the experts held, in slabs: (N, d) f32."""
+    N, d = x2.shape
+    y = torch.zeros((N, d), dtype=torch.float32, device=x2.device)
+    for e0 in range(0, w_gate.shape[0], EXPERTS_PER_SLAB):
+        slab = slice(e0, e0 + EXPERTS_PER_SLAB)
+        c = combine[:, slab]
+        y_slab = _expert_ffn(
+            cfg, w_gate[slab], w_up[slab], w_down[slab], x2[None].expand(c.shape[1], N, d),
+        )  # (experts of the slab, N, d)
+        # products of compute-dtype values, summed over the experts in f32
+        y = y + torch.einsum("end,ne->nd", y_slab.float(), c.float())
+    return y
+
+
+def _routed_experts(cfg, x2, combine, w_gate, w_up, w_down) -> torch.Tensor:
+    """The routed experts of the dense form.  On ``DTensor`` expert stacks
+    sharded along E, each rank runs its own experts on its rows (slicing a
+    slab across the shards would gather every stack whole), and the f32
+    partial sums are reduced before the cast."""
+    if not isinstance(w_gate, DTensor):
+        return _expert_slabs(cfg, x2, combine, w_gate, w_up, w_down)
+    mesh = w_gate.device_mesh
+    x2 = as_dtensor(x2, mesh)
+    experts = [i for i, q in enumerate(w_gate.placements) if q.is_shard() and q.dim == 0]
+    rows = [i for i, q in enumerate(x2.placements)
+            if q.is_shard() and q.dim == 0 and i not in experts]
+    pick = lambda on_rows, on_experts, other: [  # noqa: E731
+        on_rows if i in rows else on_experts if i in experts else other
+        for i in range(mesh.ndim)]
+    x_pl = pick(Shard(0), Replicate(), Replicate())
+    c_pl = pick(Shard(0), Shard(1), Replicate())
+    w_pl = pick(Replicate(), Shard(0), Replicate())
+    y = local_map(
+        functools.partial(_expert_slabs, cfg),
+        out_placements=pick(Shard(0), Partial(), Replicate()),
+        in_placements=(x_pl, c_pl, w_pl, w_pl, w_pl), redistribute_inputs=True,
+    )(x2, as_dtensor(combine, mesh), w_gate, w_up, w_down)
+    return relayout(y, pick(Shard(0), Replicate(), Replicate()))
 
 
 # -- expert-parallel form ----------------------------------------------------------
@@ -212,6 +254,16 @@ def apply_moe_ep(cfg, p: Params, x: torch.Tensor, *,
     rank's tokens, ``p``'s expert leaves hold its ``E / ep`` experts (the
     router and the shared experts whole).  The aux loss is averaged over
     the world, as ``pmean`` averages it."""
+    y, aux = _ep_block(cfg, p, x, world=world)
+    if cfg.moe.num_shared > 0:
+        y = y + _shared_ffn(cfg, p, x.to(cfg.compute_dtype))
+    return y, aux
+
+
+def _ep_block(cfg, p: Params, x: torch.Tensor, *,
+              world: ExpertWorld) -> tuple[torch.Tensor, torch.Tensor]:
+    """The routed experts of ``apply_moe_ep`` (the shard_map body of the JAX
+    package): (y, aux averaged over ``world``)."""
     mo = cfg.moe
     ct = cfg.compute_dtype
     ep = world.size
@@ -238,14 +290,59 @@ def apply_moe_ep(cfg, p: Params, x: torch.Tensor, *,
     z = _expert_ffn(cfg, p["w_gate"], p["w_up"], p["w_down"], z)
     back = _exchange(z.reshape(E // ep, ep, capacity, d).transpose(0, 1), world)
     y = _combine_unpack(cfg, back.reshape(E, capacity, d), book, x2.shape[0], capacity)
-    y = y.reshape(B, S, d)
-    if mo.num_shared > 0:
-        y = y + _shared_ffn(cfg, p, x.to(ct))
+    return y.reshape(B, S, d), aux
+
+
+def apply_moe_ep_sharded(cfg, p: Params, x: torch.Tensor, *, mesh: DeviceMesh,
+                         dp_axes: tuple[str, ...] = ("data",),
+                         ep_axis: str = "model") -> tuple[torch.Tensor, torch.Tensor]:
+    """``apply_moe_ep`` on ``DTensor`` inputs over ``mesh``, through
+    ``local_map`` with the JAX package's ``shard_map`` specs: x over
+    (dp, the sequence over ep when it divides, None), the expert stacks over
+    ep, the router whole; the aux loss averaged over every axis."""
+    ep = mesh.size(mesh.mesh_dim_names.index(ep_axis))
+    if cfg.moe.num_experts % ep:
+        raise ValueError(f"experts {cfg.moe.num_experts} must divide EP axis {ep}")
+    B, S, d = x.shape
+    seq = ep_axis if S % ep == 0 and S >= ep else None
+    x_pl = placements(make_spec(dp_axes, seq, None), mesh)
+    w_pl = placements((ep_axis, None, None), mesh)
+    whole = [Replicate()] * mesh.ndim
+    world = ExpertWorld(mesh.get_group(ep_axis))
+    others = [mesh.get_group(a) for a in mesh.mesh_dim_names if a != ep_axis]
+
+    def block(xb, router, w_gate, w_up, w_down):
+        from torch.distributed.nn.functional import all_reduce
+
+        y, aux = _ep_block(cfg, {"router": router, "w_gate": w_gate, "w_up": w_up,
+                                 "w_down": w_down}, xb, world=world)
+        for group in others:  # the pmean over the remaining axes
+            n = torch.distributed.get_world_size(group)
+            if n > 1:
+                aux = all_reduce(aux, group=group) / n
+        return y, aux
+
+    args = [as_dtensor(t, mesh) for t in (x, p["router"], p["w_gate"], p["w_up"],
+                                            p["w_down"])]
+    y, aux = local_map(
+        block, out_placements=(x_pl, whole),
+        in_placements=(x_pl, whole, w_pl, w_pl, w_pl), redistribute_inputs=True,
+    )(*args)
+    if cfg.moe.num_shared > 0:
+        y = y + _shared_ffn(cfg, p, x.to(cfg.compute_dtype))
     return y, aux
 
 
-def apply_moe(cfg, p: Params, x: torch.Tensor, *, world: ExpertWorld | None = None,
-              decode: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+def apply_moe(cfg, p: Params, x: torch.Tensor, *,
+              world: ExpertWorld | DeviceMesh | None = None, decode: bool = False,
+              dp_axes: tuple[str, ...] = ("data",),
+              ep_axis: str = "model") -> tuple[torch.Tensor, torch.Tensor]:
+    """The JAX package's rule: EP iff ``moe_impl == "ep"``, there is a mesh
+    (a ``DeviceMesh``, or an ``ExpertWorld`` for the world of one that the
+    single-card driver names) and the call is not a decode."""
     if cfg.moe_impl == "ep" and world is not None and not decode:
+        if isinstance(world, DeviceMesh):
+            return apply_moe_ep_sharded(cfg, p, x, mesh=world, dp_axes=dp_axes,
+                                        ep_axis=ep_axis)
         return apply_moe_ep(cfg, p, x, world=world)
     return apply_moe_dense(cfg, p, x)

@@ -20,12 +20,14 @@ passed in are written, and the same dict is returned.
 
 from __future__ import annotations
 
+import functools
 from typing import Any
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.ssd_scan.ops import ssd_scan
+from repro_torch.models.common import batch_local, copy_into, grad_in_layout, unshard
 from repro_torch.models.layers import normal_init
 
 Params = dict[str, Any]
@@ -47,9 +49,9 @@ def ssd_chunked(
     a: torch.Tensor,      # (B, S, H)     log-decay per step (dt * A, negative)
     b: torch.Tensor,      # (B, S, H, N)  input matrix (heads already broadcast)
     c: torch.Tensor,      # (B, S, H, N)  output matrix
+    initial_state: torch.Tensor | None = None,  # (B, H, P, N)
     *,
     chunk: int = 128,
-    initial_state: torch.Tensor | None = None,  # (B, H, P, N)
     return_final_state: bool = False,
 ):
     """Products take operands of the compute dtype and accumulate in f32, as
@@ -166,19 +168,19 @@ def apply_mamba(
     conv_in = torch.cat([xs, b, c], dim=-1)  # (B, S, din + 2N)
 
     if cache is None:
-        conv_out = F.silu(
-            _causal_conv(conv_in, p["conv_w"].to(ct), p["conv_b"].to(ct))
-        )
+        conv_out = F.silu(batch_local(
+            _causal_conv, conv_in, p["conv_w"].to(ct), p["conv_b"].to(ct)
+        ))
     else:
         # the cached conv tail stands in for the left padding
         full = torch.cat([cache["conv"].to(ct), conv_in], dim=1)
         w = p["conv_w"].to(ct)  # (C, K)
         segs = [full[:, i : i + S, :] * w[:, i] for i in range(K)]
         conv_out = F.silu(sum(segs) + p["conv_b"].to(ct))
-        cache["conv"].copy_(full[:, -(K - 1) :, :])
+        copy_into(cache["conv"], full[:, -(K - 1) :, :])
 
     xs, b, c = torch.split(conv_out, [din, N, N], dim=-1)
-    xh = xs.reshape(B, S, H, P)
+    xh = unshard(xs, (2,)).reshape(B, S, H, P)
     dt = F.softplus(dt.float() + p["dt_bias"].float())
     a = -torch.exp(p["a_log"].float())  # (H,) negative
     log_decay = dt * a  # (B, S, H)
@@ -186,22 +188,27 @@ def apply_mamba(
     bh = b[:, :, None, :].expand(B, S, H, N).to(ct)
     ch = c[:, :, None, :].expand(B, S, H, N).to(ct)
 
+    # the scan is independent per batch row: on DTensors each rank scans its
+    # own rows (``batch_local``), the chunk loop on local shards
     if cache is None:
         if cfg.attention_impl == "pallas":
-            y, _ = ssd_scan(x_dt, log_decay.float(), bh, ch, chunk=s.chunk)
+            y, _ = batch_local(functools.partial(ssd_scan, chunk=s.chunk),
+                               x_dt, log_decay.float(), bh, ch, rows=4, n_out=2)
         else:
-            y = ssd_chunked(x_dt, log_decay, bh, ch, chunk=s.chunk)
+            y = batch_local(functools.partial(ssd_chunked, chunk=s.chunk),
+                            x_dt, log_decay, bh, ch, rows=4)
     else:
         state = cache["state"]
         if S > 4 and cfg.attention_impl == "pallas":
             # prefill through the kernel (see the module docstring)
-            y, state = ssd_scan(
-                x_dt, log_decay.float(), bh, ch, initial_state=state, chunk=s.chunk
+            y, state = batch_local(
+                functools.partial(ssd_scan, chunk=s.chunk),
+                x_dt, log_decay.float(), bh, ch, state, rows=5, n_out=2,
             )
         elif S > 4:  # prefill: chunked dual form carrying the recurrent state
-            y, state = ssd_chunked(
-                x_dt, log_decay, bh, ch, chunk=s.chunk,
-                initial_state=state, return_final_state=True,
+            y, state = batch_local(
+                functools.partial(ssd_chunked, chunk=s.chunk, return_final_state=True),
+                x_dt, log_decay, bh, ch, state, rows=5, n_out=2,
             )
         else:  # decode: O(1) recurrent updates
             ys = []
@@ -211,10 +218,10 @@ def apply_mamba(
                 )
                 ys.append(y_t)
             y = torch.stack(ys, dim=1)
-        cache["state"].copy_(state)
+        copy_into(cache["state"], state)
 
     y = y + xh * p["d_skip"].to(ct)[None, None, :, None]
-    y = y.reshape(B, S, din)
+    y = grad_in_layout(y.reshape(B, S, din))
     # gated RMSNorm (mamba2): norm(y * silu(z))
     g = y * F.silu(z)
     var = (g.float() ** 2).mean(-1, keepdim=True)

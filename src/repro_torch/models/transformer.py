@@ -23,7 +23,6 @@ import functools
 from typing import Any, Callable
 
 import torch
-import torch.nn.functional as F
 from torch.utils.checkpoint import (
     CheckpointPolicy,
     checkpoint,
@@ -33,7 +32,13 @@ from torch.utils.checkpoint import (
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.common import ModelConfig, shard_hint
+from repro_torch.models.common import (
+    ModelConfig,
+    fsdp_gather,
+    last_masked,
+    shard_hint,
+    unshard,
+)
 from repro_torch.models.layers import (
     apply_mlp,
     apply_norm,
@@ -171,10 +176,14 @@ def init_params(cfg: ModelConfig, gen: torch.Generator) -> Params:
 
 @dataclasses.dataclass(frozen=True)
 class RunCtx:
-    """Per-call context.  ``mesh`` names the expert-parallel world of MoE
-    layers (a ``moe.ExpertWorld``; None for none); ``dp_axes``/``ep_axis``
-    keep the JAX fields (unused); ``prefill`` marks a prefill into an empty
-    cache, which lets attention take the flash kernel."""
+    """Per-call context.  ``mesh`` is the ``DeviceMesh`` the step's
+    ``DTensor`` state lies on, or None on one device; ``dp_axes``/``ep_axis``
+    name its data-parallel and tensor/expert-parallel axes, as in the JAX
+    package.  The EP world of MoE layers is ``mesh.get_group(ep_axis)``; a
+    ``moe.ExpertWorld()`` in place of a mesh is the world of one that the
+    single-card driver names, as the JAX driver's (1, 1) mesh does.
+    ``prefill`` marks a prefill into an empty cache, which lets attention
+    take the flash kernel."""
 
     mesh: Any = None
     dp_axes: tuple[str, ...] = ("data",)
@@ -194,10 +203,11 @@ def _apply_layer(
 ) -> tuple[torch.Tensor, torch.Tensor | None]:
     """One dense, SSM, hybrid or MoE layer: (x_out, aux loss or None for a
     layer without a router); a cache is updated in place."""
+    p = fsdp_gather(p, ctx)
     h = apply_norm(cfg, p["ln1"], x)
     if group.kind == "ssm":
         y, _ = ssm_mod.apply_mamba(cfg, p["mamba"], h, cache=cache, ctx=ctx)
-        return x + y, None
+        return _pin(x + y, ctx), None
     if group.kind == "hybrid":
         # attention (with the group's window) and the SSM mixer read the
         # same h; each updates its half of the layer's cache
@@ -220,9 +230,18 @@ def _apply_layer(
     x = x + y
     h2 = apply_norm(cfg, p["ln2"], x)
     if group.kind == "moe":
-        y2, aux = moe_mod.apply_moe(cfg, p["moe"], h2, world=ctx.mesh, decode=ctx.decode)
-        return x + y2, aux
-    return x + apply_mlp(cfg, p["mlp"], h2), None
+        y2, aux = moe_mod.apply_moe(cfg, p["moe"], h2, world=ctx.mesh, decode=ctx.decode,
+                                    dp_axes=ctx.dp_axes, ep_axis=ctx.ep_axis)
+        return _pin(x + y2, ctx), aux
+    return _pin(x + apply_mlp(cfg, p["mlp"], h2), ctx), None
+
+
+def _pin(x: torch.Tensor, ctx: RunCtx) -> torch.Tensor:
+    """The residual stream batch-parallel and whole on every other axis after
+    each layer (a ``DTensor``; a plain tensor as it is).  The port's own pin:
+    without it DTensor keeps the MLP's row-parallel output a partial sum and
+    the next layer all-gathers its weights to match."""
+    return shard_hint(x, ctx, ("dp", None, None))
 
 
 # the matrix products "dots" keeps (JAX's ``dots_with_no_batch_dims_saveable``
@@ -296,7 +315,7 @@ def forward(
     """
     _refuse_encoder_decoder(cfg)
     B, S = tokens.shape
-    x = embed_tokens(cfg, params["embedding"], tokens)
+    x = embed_tokens(cfg, fsdp_gather(params["embedding"], ctx), tokens)
     x = shard_hint(x, ctx, ("dp", None, None))
     if patch_embeds is not None and S >= patch_embeds.shape[1]:
         n_img = patch_embeds.shape[1]
@@ -318,7 +337,8 @@ def forward(
 
 def _chunk_nll(cfg: ModelConfig, emb: Params, x: torch.Tensor,
                targets: torch.Tensor) -> torch.Tensor:
-    logits = logits_matmul(cfg, emb, x).float()
+    # whole over the vocab: DTensor has no sharded gather along it
+    logits = unshard(logits_matmul(cfg, emb, x).float(), (-1,))
     lse = torch.logsumexp(logits, dim=-1)
     return lse - logits.gather(-1, targets[..., None])[..., 0]
 
@@ -350,10 +370,10 @@ def loss_fn(
     )
     targets = batch.get("labels")
     if targets is None:
-        targets = F.pad(tokens[:, 1:], (0, 1))
-    nll = _nll(cfg, params["embedding"], x, targets.long())
-    mask = torch.ones_like(nll)
-    mask[:, -1] = 0.0
+        # the next token, 0 after the last (masked) position
+        targets = torch.cat([tokens[:, 1:], torch.zeros_like(tokens[:, :1])], dim=1)
+    nll = _nll(cfg, fsdp_gather(params["embedding"], ctx), x, targets.long())
+    mask = last_masked(nll)
     loss = (nll * mask).sum() / mask.sum()
     if cfg.moe is not None:
         loss = loss + cfg.moe.router_aux_coef * aux
@@ -396,7 +416,7 @@ def decode_step(
     x, new_cache, _ = forward(
         cfg, params, tokens, positions=positions, cache=cache, ctx=ctx
     )
-    logits = logits_matmul(cfg, params["embedding"], x[:, -1:])
+    logits = logits_matmul(cfg, fsdp_gather(params["embedding"], ctx), x[:, -1:])
     return logits, new_cache
 
 
@@ -416,5 +436,5 @@ def prefill(
         cfg, params, tokens, positions=positions, cache=cache, ctx=ctx,
         patch_embeds=patch_embeds,
     )
-    logits = logits_matmul(cfg, params["embedding"], x[:, -1:])
+    logits = logits_matmul(cfg, fsdp_gather(params["embedding"], ctx), x[:, -1:])
     return logits, new_cache

@@ -29,10 +29,15 @@ import dataclasses
 from typing import Any
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.models import attention as attn_mod
-from repro_torch.models.common import ModelConfig, shard_hint
+from repro_torch.models.common import (
+    ModelConfig,
+    copy_into,
+    fsdp_gather,
+    last_masked,
+    shard_hint,
+)
 from repro_torch.models.layers import (
     apply_mlp,
     apply_norm,
@@ -43,7 +48,7 @@ from repro_torch.models.layers import (
     logits_matmul,
     normal_init,
 )
-from repro_torch.models.transformer import RunCtx, _tree_map
+from repro_torch.models.transformer import RunCtx, _pin, _tree_map
 
 Params = dict[str, Any]
 
@@ -100,17 +105,18 @@ def encode(cfg: ModelConfig, params: Params, frames: torch.Tensor, ctx=None) -> 
     B, T, _ = frames.shape
     ct = cfg.compute_dtype
     # cast, then add: the JAX package's rounding order
-    x = frames.to(ct) + params["enc_pos"][:T].to(ct)
+    x = frames.to(ct) + fsdp_gather(params["enc_pos"], ctx)[:T].to(ct)
     x = shard_hint(x, ctx, ("dp", None, None))
     positions = torch.arange(T, device=frames.device)[None, :].expand(B, T)
     for lp in _unstack(params["encoder"], cfg.encoder_layers):
+        lp = fsdp_gather(lp, ctx)
         h = apply_norm(cfg, lp["ln1"], x)
         y, _ = attn_mod.apply_attention(
             cfg, lp["attn"], h, positions=positions, causal=False, ctx=ctx
         )
         x = x + y
         h2 = apply_norm(cfg, lp["ln2"], x)
-        x = x + apply_mlp(cfg, lp["mlp"], h2)
+        x = _pin(x + apply_mlp(cfg, lp["mlp"], h2), ctx)
     return apply_norm(cfg, params["enc_norm"], x)
 
 
@@ -144,10 +150,12 @@ def decode_forward(
     B, S = tokens.shape
     if positions is None:
         positions = torch.arange(S, device=tokens.device)[None, :].expand(B, S)
-    x = embed_tokens(cfg, params["embedding"], tokens)
-    x = x + params["dec_pos"][positions[0].long()].to(cfg.compute_dtype)[None]
+    x = embed_tokens(cfg, fsdp_gather(params["embedding"], ctx), tokens)
+    dec_pos = fsdp_gather(params["dec_pos"], ctx)
+    x = x + dec_pos[positions[0].long()].to(cfg.compute_dtype)[None]
     x = shard_hint(x, ctx, ("dp", None, None))
     for i, lp in enumerate(_unstack(params["decoder"], cfg.num_layers)):
+        lp = fsdp_gather(lp, ctx)
         h = apply_norm(cfg, lp["ln1"], x)
         self_cache = None if cache is None else {k: t[i] for k, t in cache["self"].items()}
         y, _ = attn_mod.apply_attention(
@@ -161,14 +169,14 @@ def decode_forward(
         else:
             ck, cv = _cross_kv(cfg, lp, enc_out)
             if cache is not None:
-                cache["cross_k"][i].copy_(ck)
-                cache["cross_v"][i].copy_(cv)
+                copy_into(cache["cross_k"][i], ck)
+                copy_into(cache["cross_v"][i], cv)
         y2, _ = attn_mod.apply_attention(
             cfg, lp["cross_attn"], hx, positions=positions, cross_kv=(ck, cv), ctx=ctx,
         )
         x = x + y2
         h2 = apply_norm(cfg, lp["ln2"], x)
-        x = x + apply_mlp(cfg, lp["mlp"], h2)
+        x = _pin(x + apply_mlp(cfg, lp["mlp"], h2), ctx)
     x = apply_norm(cfg, params["final_norm"], x)
     return x, cache
 
@@ -180,14 +188,14 @@ def loss_fn(cfg: ModelConfig, params: Params, batch: dict[str, torch.Tensor],
     enc_out = encode(cfg, params, batch["frame_embeds"], ctx=ctx)
     tokens = batch["tokens"]
     x, _ = decode_forward(cfg, params, tokens, enc_out, ctx=ctx)
-    logits = logits_matmul(cfg, params["embedding"], x)
+    logits = logits_matmul(cfg, fsdp_gather(params["embedding"], ctx), x)
     targets = batch.get("labels")
     if targets is None:
-        targets = F.pad(tokens[:, 1:], (0, 1))
+        # the next token, 0 after the last (masked) position
+        targets = torch.cat([tokens[:, 1:], torch.zeros_like(tokens[:, :1])], dim=1)
     logp = torch.log_softmax(logits.float(), dim=-1)
     nll = -logp.gather(-1, targets.long()[..., None])[..., 0]
-    mask = torch.ones_like(nll)
-    mask[:, -1] = 0.0
+    mask = last_masked(nll)
     return (nll * mask).sum() / mask.sum()
 
 
@@ -219,7 +227,7 @@ def prefill(
     enc_out = encode(cfg, params, frames, ctx=ctx)
     ctx = dataclasses.replace(ctx or RunCtx(), prefill=True)
     x, cache = decode_forward(cfg, params, tokens, enc_out, cache=cache, ctx=ctx)
-    logits = logits_matmul(cfg, params["embedding"], x[:, -1:])
+    logits = logits_matmul(cfg, fsdp_gather(params["embedding"], ctx), x[:, -1:])
     return logits, cache
 
 
@@ -234,5 +242,5 @@ def decode_step(
     ctx = dataclasses.replace(ctx or RunCtx(), prefill=False)
     x, cache = decode_forward(cfg, params, tokens, None, positions=positions, cache=cache,
                               ctx=ctx)
-    logits = logits_matmul(cfg, params["embedding"], x[:, -1:])
+    logits = logits_matmul(cfg, fsdp_gather(params["embedding"], ctx), x[:, -1:])
     return logits, cache

@@ -13,11 +13,12 @@ from __future__ import annotations
 from typing import Any, Callable
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.bridge import flatten, unflatten
 from repro_torch.models import transformer as tx
 from repro_torch.models import whisper as wh
-from repro_torch.models.common import ModelConfig
+from repro_torch.models.common import ModelConfig, shard_hint, unshard
 from repro_torch.train.optimizer import AdamWConfig, apply_updates, init_opt_state
 
 TrainState = dict[str, Any]  # {"params", "opt"}
@@ -33,6 +34,18 @@ def _loss(cfg: ModelConfig, params, batch, ctx) -> torch.Tensor:
     if cfg.is_encdec:
         return wh.loss_fn(cfg, params, batch, ctx=ctx)
     return tx.loss_fn(cfg, params, batch, ctx)
+
+
+def _microbatch(v: torch.Tensor, nmb: int, i: int, ctx: tx.RunCtx) -> torch.Tensor:
+    """Rows ``[i*m, (i+1)*m)`` of the global batch, m = B / nmb.  A batch-sharded
+    ``DTensor`` is gathered whole first and the microbatch sharded again over
+    the data-parallel axes (a reshape to (nmb, m) cannot keep its shards when
+    nmb does not divide them, as the JAX package's reshape does)."""
+    if not isinstance(v, DTensor):
+        return v.reshape(nmb, v.shape[0] // nmb, *v.shape[1:])[i]
+    m = v.shape[0] // nmb
+    part = unshard(v, (0,))[i * m:(i + 1) * m]
+    return shard_hint(part, ctx, ("dp",) + (None,) * (v.ndim - 1))
 
 
 def make_train_step(
@@ -65,8 +78,7 @@ def make_train_step(
             loss = torch.zeros((), dtype=torch.float32, device=batch["tokens"].device)
             grads = None
             for i in range(nmb):
-                mb = {k: v.reshape(nmb, v.shape[0] // nmb, *v.shape[1:])[i]
-                      for k, v in batch.items()}
+                mb = {k: _microbatch(v, nmb, i, ctx) for k, v in batch.items()}
                 loss_i, g_i = grads_of(params, mb)
                 loss = loss + loss_i
                 if grads is None:  # 0 + g is g: start the f32 sums from it

@@ -46,6 +46,30 @@ def test_scan_covers_the_package():
     assert len(FILES) > 40
 
 
+def test_scan_covers_the_distribution_layer():
+    rel = {p.relative_to(ROOT).as_posix() for p in FILES}
+    for mod in ("distributed/compression.py", "distributed/sharding.py", "launch/mesh.py",
+                "launch/specs.py", "launch/dryrun.py", "launch/op_analysis.py"):
+        assert f"src/repro_torch/{mod}" in rel, mod
+
+
+def test_importing_the_dry_run_creates_no_process_group():
+    """The reference sets ``XLA_FLAGS`` when its dry-run is imported; the
+    port sets up its fake process group only inside ``run_cell``."""
+    code = (
+        "import torch.distributed as dist\n"
+        "import repro_torch.launch.dryrun, repro_torch.launch.specs, repro_torch.launch.mesh\n"
+        "import repro_torch.launch.op_analysis, repro_torch.distributed.sharding\n"
+        "import repro_torch.distributed.compression\n"
+        "print(dist.is_initialized())\n"
+    )
+    env = {"PYTHONPATH": f"{ROOT / 'src'}:{ROOT}", "PATH": "/usr/bin:/bin"}
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         env=env, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "False"
+
+
 @pytest.mark.parametrize("path", FILES, ids=lambda p: p.relative_to(ROOT).as_posix())
 def test_no_jax_or_repro_imports(path):
     bad = {n for n in _imported(path) if n.split(".")[0] in BANNED}

@@ -177,8 +177,15 @@ def test_train_without_cuda_raises_unless_device_cpu(tmp_path):
     assert not any(tmp_path.iterdir())
 
 
-@pytest.mark.parametrize("flag", ["--production", "--multi-pod", "--fsdp-pod"])
-def test_mesh_flags_raise(flag, tmp_path):
-    args = train_mod.parse_args(["--smoke", "--device", "cpu", "--run-dir", str(tmp_path), flag])
-    with pytest.raises(NotImplementedError, match="sharding port"):
+@pytest.mark.parametrize("flags, ranks", [
+    (["--production"], 256),
+    (["--production", "--multi-pod"], 512),
+    (["--production", "--fsdp-pod"], 256),
+])
+def test_mesh_flags_raise(flags, ranks, tmp_path):
+    """At world size 1 the production mesh raises with the ranks it needs,
+    as ``jax.make_mesh`` raises with too few devices."""
+    args = train_mod.parse_args(["--smoke", "--device", "cpu", "--run-dir", str(tmp_path),
+                                 *flags])
+    with pytest.raises(ValueError, match=f"needs {ranks} ranks"):
         train_mod.train(args)
