@@ -130,11 +130,24 @@ Phases, each of which must pass (any failure exits non-zero):
       ``FakeTensorMode`` and on the card, must agree op for op (names and
       shapes); the fake state's bytes within 1 % of the allocator's growth;
       the measured time beside the counted FLOPs and bytes at peak;
-   c. the dry-run CLI, two subprocesses started at the phase's start:
-      qwen2.5-3b decode_32k on 256 fake ranks and deepseek-v2-lite
-      prefill_32k on 512, both exit 0, the second with an all-to-all;
+   c. the dry-run CLI, four subprocesses started at the phase's start:
+      qwen2.5-3b decode_32k on 256 fake ranks, deepseek-v2-lite
+      prefill_32k on 512 (with an all-to-all), and the decode_32k cells of
+      mamba2-130m and hymba-1.5b, whose decode steps leave the layers in
+      their FSDP shards and move the tokens: all exit 0 on the card's
+      torch, each printing its FLOPs, collective bytes and trace seconds
+      beside the committed artifact's;
    d. ``repro_torch.launch.train --production`` at one rank raises,
-      naming the 256 ranks it needs.
+      naming the 256 ranks it needs;
+   e. ``repro_torch.launch.roofline`` prices every committed dry-run cell
+      beside the reference's (``chiprun_out/roofline.md``, with the card's
+      name and power limit), and each step 5b measured takes at least 0.95
+      of the larger of the compute and memory terms that its counted FLOPs
+      and bytes give at the module's rates.
+6. The examples, as a user runs them on the card:
+   ``examples/serve_batched_torch.py`` (a lazy checkpoint restore, 8
+   requests through ``Session.serve``) and ``examples/train_lm_torch.py``
+   (the train driver, 200 steps, the loss must fall).
 
 Each part prints its own seconds and the run's so far.  The last lines
 are the ``kernels`` JSON object (launches summed over the serve paths), the
@@ -390,7 +403,11 @@ COMPRESS_STEPS = 20          # error-feedback steps on one fixed gradient
 CODEC_PAYLOAD_SHARE = 0.26   # the codec's payload at most this share of the f32 bytes
 # the dry-run CLI on the card's host: (arch, shape, mesh, ranks, must show an all-to-all)
 DRYRUN_CELLS = [("qwen2.5-3b", "decode_32k", "single", 256, False),
-                ("deepseek-v2-lite-16b", "prefill_32k", "multi", 512, True)]
+                ("deepseek-v2-lite-16b", "prefill_32k", "multi", 512, True),
+                ("mamba2-130m", "decode_32k", "single", 256, False),
+                ("hymba-1.5b", "decode_32k", "single", 256, False)]
+DRYRUN_OUT = ROOT / "chiprun_out" / "dryrun_torch"  # the card's cells; the committed stay
+ROOFLINE_FLOOR = 0.95        # a measured step at least this share of its roofline bound
 DRYRUN_TIMEOUT = 600
 ARG_BYTES_TOL = 0.01         # predicted argument bytes against the allocator's growth
 PHASE5_SECONDS = 120
@@ -2648,7 +2665,7 @@ def start_dryruns() -> list:
         log = open(out_dir / f"dryrun_{arch}__{shape}__{mesh}.log", "w")
         proc = subprocess.Popen(
             [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
-             "--shape", shape, "--mesh", mesh, "--force"],
+             "--shape", shape, "--mesh", mesh, "--force", "--out", str(DRYRUN_OUT)],
             cwd=ROOT, env=env, stdout=log, stderr=subprocess.STDOUT)
         runs.append(((arch, shape, mesh, ranks, a2a), proc, log, time.perf_counter()))
     return runs
@@ -2656,7 +2673,8 @@ def start_dryruns() -> list:
 
 def finish_dryruns(runs) -> dict:
     """Waits for ``start_dryruns``'s processes (killing any still running at
-    the limit) and checks their artifacts."""
+    the limit) and checks their artifacts; each cell's counts print beside
+    the committed artifact's (as traced when they were committed)."""
     from repro_torch.launch.dryrun import ARTIFACTS
 
     out = {}
@@ -2675,7 +2693,8 @@ def finish_dryruns(runs) -> dict:
                 if other[1].poll() is None:
                     other[1].kill()
             fail(f"dry-run {name}: exit {rc} (chiprun_out/dryrun_{name}.log)")
-        res = json.loads((ARTIFACTS / f"{name}.json").read_text())
+        res = json.loads((DRYRUN_OUT / f"{name}.json").read_text())
+        committed = json.loads((ARTIFACTS / f"{name}.json").read_text())
         coll = res["collectives"]
         if res["devices"] != ranks:
             fail(f"dry-run {name}: {res['devices']} devices, need {ranks}")
@@ -2687,8 +2706,16 @@ def finish_dryruns(runs) -> dict:
               f"arguments {mem['argument_size_in_bytes']:,} B, temp {mem['temp_size_in_bytes']:,} B; "
               + ", ".join(f"{k} {v:,.0f} B" for k, v in coll.items() if k != "count" and v)
               + f" ({coll['count']:.0f} collectives)")
+        total = res["hlo_analysis"]["collectives"]["total"]
+        was = committed["hlo_analysis"]
+        print(f"[dryrun] {name} on torch {torch.__version__}: {res['hlo_analysis']['flops']:.4e} "
+              f"FLOP, {total:,.0f} collective B, trace {res['trace_seconds']}s; committed "
+              f"artifact: {was['flops']:.4e} FLOP, {was['collectives']['total']:,.0f} B")
         out[name] = {"seconds": secs, "devices": res["devices"],
                      "trace_seconds": res["trace_seconds"], "collectives": coll,
+                     "collective_bytes": total, "flops": res["hlo_analysis"]["flops"],
+                     "committed_flops": was["flops"],
+                     "committed_collective_bytes": was["collectives"]["total"],
                      "memory_analysis": mem, "cost_analysis": res["cost_analysis"]}
     return out
 
@@ -2919,7 +2946,75 @@ def phase_distribution(gpu: str) -> dict:
             print(f"[phase 5d] train --production at one rank: {exc}")
         else:
             fail("train --production ran at one rank")
-    return {"compress": compress, "counter": counted, "dryrun": dryruns}
+    return {"compress": compress, "counter": counted, "dryrun": dryruns,
+            "roofline": phase_roofline(gpu, counted)}
+
+
+def phase_roofline(gpu: str, counted: dict) -> dict:
+    """5e: ``repro_torch.launch.roofline`` over the committed dry-run
+    artifacts (the port's beside the reference's), then the roofline held
+    to the card: each step 5b measured must take at least ``ROOFLINE_FLOOR``
+    of the larger of the compute and memory terms its counted FLOPs and
+    bytes give at the module's rates, or the rates are wrong."""
+    import os
+
+    from repro_torch.launch import roofline
+
+    res = subprocess.run([sys.executable, "-m", "repro_torch.launch.roofline", "--markdown"],
+                         cwd=ROOT, env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+                         capture_output=True, text=True, timeout=120)
+    if res.returncode != 0:
+        fail(f"roofline: exit {res.returncode}: {res.stderr[-2000:]}")
+    rows = roofline.table()
+    (ROOT / "chiprun_out").mkdir(exist_ok=True)
+    (ROOT / "chiprun_out" / "roofline.md").write_text(f"{gpu}\n{res.stdout}")
+    slower = [r for r in rows if r.get("verdict") == "reference faster"]
+    print(f"[roofline] {len(rows)} cells priced (chiprun_out/roofline.md), "
+          f"{sum('ref' in r for r in rows)} beside the reference's; "
+          f"{len(slower)} where the reference's compute + collective time is the smaller "
+          f"by more than 1.25x: {[(r['arch'], r['shape'], r['mesh']) for r in slower]} | {gpu}")
+    print(f"[roofline] {res.stdout.splitlines()[0]}")
+    print(roofline.SUMMARY_HEADER)
+    print("\n".join(roofline.summary_rows(rows)))
+    checks = {}
+    for label, c in counted.items():
+        bound_ms = roofline.bound_seconds(c["flops"], c["bytes"]) * 1e3
+        share = c["measured_ms"] / bound_ms
+        print(f"[roofline] {label}: measured {c['measured_ms']:.4f} ms, bound "
+              f"{bound_ms:.4f} ms (compute {c['flops'] / roofline.PEAK_FLOPS * 1e3:.4f}, memory "
+              f"{c['bytes'] / roofline.HBM_BW * 1e3:.4f}): {share:.2f}x | {gpu}")
+        if share < ROOFLINE_FLOOR:
+            fail(f"roofline: {label} measured {c['measured_ms']:.4f} ms, under "
+                 f"{ROOFLINE_FLOOR} of its {bound_ms:.4f} ms bound: the rates are wrong")
+        checks[label] = {"measured_ms": c["measured_ms"], "bound_ms": bound_ms, "share": share}
+    return {"cells": len(rows), "reference_faster": [
+        (r["arch"], r["shape"], r["mesh"]) for r in slower], "checks": checks}
+
+
+def phase_examples() -> dict:
+    """Phase 6: the two examples, as a user runs them, on the card."""
+    import importlib.util
+
+    out = {}
+    for name in ("serve_batched_torch", "train_lm_torch"):
+        spec = importlib.util.spec_from_file_location(name, ROOT / "examples" / f"{name}.py")
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        t0 = time.perf_counter()
+        res = mod.main([])
+        secs = time.perf_counter() - t0
+        if name == "serve_batched_torch":
+            if len(res["outputs"]) != mod.REQUESTS:
+                fail(f"{name}: served {len(res['outputs'])}/{mod.REQUESTS} requests")
+            if next(iter(res["params"]["embedding"].values())).device.type != "cuda":
+                fail(f"{name}: the restored params are not on the card")
+            out[name] = {"seconds": secs, "requests": len(res["outputs"]),
+                         "batches": res["server"]["batches"]}
+        else:
+            out[name] = {"seconds": secs, "first_loss": res["log"][0]["loss"],
+                         "last_loss": res["log"][-1]["loss"], "steps": len(res["log"])}
+        print(f"[examples] {name}: {out[name]}")
+    return out
 
 
 def main() -> int:
@@ -2983,6 +3078,8 @@ def main() -> int:
     trained["seconds"] = done("phase 4 train")
     distribution = phase_distribution(gpu)
     distribution["seconds"] = done("phase 5 distribution")
+    examples = phase_examples()
+    examples["seconds"] = done("phase 6 examples")
 
     result = {"kernels": [fa, ssd, fp]}
     out_dir = ROOT / "chiprun_out"
@@ -2990,7 +3087,7 @@ def main() -> int:
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {**result, "serve": served, "decode": decode, "moe_models": moe_models, "whisper": whisper,
          "fingerprint": fp_detail, "prefill_kernels": prefill_kernels, "train": trained,
-         "distribution": distribution, "gpu": gpu}, indent=1))
+         "distribution": distribution, "examples": examples, "gpu": gpu}, indent=1))
     print(json.dumps(result))
     print(gpu)
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -19,7 +19,11 @@ its shards) and ``temp_size_in_bytes``, the peak of the bytes that the
 step's ops allocated and held at once (the counter's ``peak_bytes``, the
 outputs it made included).  ``CommDebugMode`` would count the same
 collectives (the tests hold the two counts equal) but doubles the trace
-time of a long prefill, so the dry-run leaves it out.
+time of a long prefill, so the dry-run leaves it out.  On this CPU mesh
+DTensor runs a ``Shard(i) -> Shard(j)`` redistribution as an all-gather and
+a chunk (gloo has no all-to-all), and the counter counts that all-gather:
+mesh-size times the output bytes of the all-to-all NCCL would run, an
+upper bound on the port's collective bytes.
 ``generated_code_size_in_bytes``
 and ``hlo_bytes`` have no meaning without a compiler and are left out.
 Importing this module creates no process group.
@@ -28,7 +32,7 @@ Usage::
 
     python -m repro_torch.launch.dryrun --arch qwen2.5-3b --shape decode_32k --mesh single
     python -m repro_torch.launch.dryrun --all            # every cell, resumable
-    python -m repro_torch.launch.dryrun --all --subprocess   # one process per cell
+    python -m repro_torch.launch.dryrun --all --subprocess --jobs 6  # 6 processes at a time
 """
 
 from __future__ import annotations
@@ -217,6 +221,18 @@ def _artifact_path(arch: str, shape: str, mesh_kind: str, tag: str = "") -> Path
     return ARTIFACTS / f"{arch}__{shape}__{mesh_kind}{suffix}.json"
 
 
+def _run_subprocesses(cmds: list[list[str]], jobs: int) -> int:
+    """Runs ``cmds`` at most ``jobs`` at a time; the number that failed."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    def run(cmd):
+        print(f"[cell] {cmd[4]} x {cmd[6]} x {cmd[8]} ...", flush=True)
+        return subprocess.call(cmd)
+
+    with ThreadPoolExecutor(max(1, jobs)) as pool:
+        return sum(rc != 0 for rc in pool.map(run, cmds))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch")
@@ -225,12 +241,19 @@ def main(argv=None) -> int:
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--subprocess", action="store_true",
                     help="run each cell in a fresh interpreter (bounded memory)")
+    ap.add_argument("--jobs", type=int, default=1,
+                    help="with --subprocess, cells run at a time")
+    ap.add_argument("--out", type=Path, default=None,
+                    help="write the artifacts here (default artifacts/dryrun_torch)")
     ap.add_argument("--overrides", type=json.loads, default=None,
                     help='JSON dict of ModelConfig overrides (perf experiments)')
     ap.add_argument("--tag", default="", help="artifact suffix for experiments")
     ap.add_argument("--force", action="store_true")
     args = ap.parse_args(argv)
 
+    global ARTIFACTS
+    if args.out is not None:
+        ARTIFACTS = args.out
     ARTIFACTS.mkdir(parents=True, exist_ok=True)
 
     if args.all:
@@ -244,24 +267,20 @@ def main(argv=None) -> int:
             for m in ("single", "multi")
         ]
         failures = 0
+        cmds = []
         for arch, shape, mesh_kind in cells:
             path = _artifact_path(arch, shape, mesh_kind)
             if path.exists() and not args.force:
                 print(f"[skip-cached] {path.name}")
                 continue
             if args.subprocess:
-                cmd = [
-                    sys.executable, "-m", "repro_torch.launch.dryrun",
-                    "--arch", arch, "--shape", shape, "--mesh", mesh_kind,
-                ]
-                if args.force:
-                    cmd.append("--force")
-                print(f"[cell] {arch} x {shape} x {mesh_kind} ...", flush=True)
-                rc = subprocess.call(cmd)
-                failures += rc != 0
+                cmds.append([sys.executable, "-m", "repro_torch.launch.dryrun",
+                             "--arch", arch, "--shape", shape, "--mesh", mesh_kind,
+                             "--out", str(ARTIFACTS)] + (["--force"] if args.force else []))
             else:
                 rc = _run_and_write(arch, shape, mesh_kind, None, "")
                 failures += rc != 0
+        failures += _run_subprocesses(cmds, args.jobs)
         return 1 if failures else 0
 
     if not args.arch or not args.shape:

@@ -64,7 +64,10 @@ def build_mesh(args, device: torch.device) -> DeviceMesh | None:
     return world_mesh(device.type)
 
 
-def train(args) -> dict[str, Any]:
+def train(args, sample=synthetic_batch) -> dict[str, Any]:
+    """The driver's run; ``sample(rng, batch, seq, vocab)`` makes each batch
+    (uniform tokens, as the JAX driver's, unless a caller passes another,
+    such as ``train.data.zipf_batch``)."""
     cfg = (get_smoke_config if args.smoke else get_config)(args.arch)
     refuse_encoder_decoder(cfg, "train")
     device = resolve_device(args.device)
@@ -109,7 +112,7 @@ def train(args) -> dict[str, Any]:
     replicated = implicit_replication if mesh is not None else contextlib.nullcontext
 
     def make_batch(i):
-        return synthetic_batch(
+        return sample(
             np.random.default_rng(args.seed * 100_003 + i),
             args.batch, args.seq, cfg.vocab_size,
         )

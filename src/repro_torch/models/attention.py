@@ -208,7 +208,9 @@ def _sharded_attention(q, k, v, *, q_offset, kv_len, **kw):
         q = unshard(q, (2, 3)).reshape(B, Sq, KV * G, 1, hd)
         k = unshard(k, (2,)).repeat_interleave(G, dim=2)
         v = unshard(v, (2,)).repeat_interleave(G, dim=2)
-    head_pl = Shard(2) if q.shape[2] % n_free == 0 else Replicate()
+    # free mesh dims of size 1 split nothing: a Shard there would only
+    # forbid the callers' reshape of a one-head dim (MLA's latent q)
+    head_pl = Shard(2) if n_free > 1 and q.shape[2] % n_free == 0 else Replicate()
     pl = [Shard(0) if i in batch else head_pl for i in range(mesh.ndim)]
     rows = [Shard(0) if i in batch else Replicate() for i in range(mesh.ndim)]
     q, k, v = (relayout(t, pl) for t in (q, k, v))
@@ -281,6 +283,15 @@ def _maybe_pallas_attention(cfg, q, k, v, *, causal, window, q_offset, kv_len):
     )
 
 
+def _out_proj(out: torch.Tensor, w_o: torch.Tensor) -> torch.Tensor:
+    """``einsum("bshk,hkd->bsd", out, w_o)`` as one product over the flattened
+    (heads, head dim): on head-sharded ``DTensor``s its backward keeps the
+    heads split (the einsum's took them whole on every rank: 16x the
+    gradient products and an all-gather of the heads)."""
+    B, S = out.shape[:2]
+    return out.reshape(B, S, -1) @ w_o.reshape(-1, w_o.shape[-1])
+
+
 # -- GQA full layer ----------------------------------------------------------------
 
 def apply_attention(
@@ -316,7 +327,7 @@ def apply_attention(
             unshard(q, (2,)).reshape(B, S, KV, G, hd), k, v, causal=False,
             chunk=cfg.attention_chunk,
         ).reshape(B, S, H, -1)
-        y = torch.einsum("bshk,hkd->bsd", out, p["w_o"].to(ct))
+        y = _out_proj(out, p["w_o"].to(ct))
         return shard_hint(y, ctx, ("dp", None, None)), None
     k = torch.einsum("bsd,dhk->bshk", x, p["w_k"].to(ct))
     v = torch.einsum("bsd,dhk->bshk", x, p["w_v"].to(ct))
@@ -366,7 +377,7 @@ def apply_attention(
         )
 
     out = out.reshape(B, S, H, -1)
-    y = torch.einsum("bshk,hkd->bsd", out, p["w_o"].to(ct))
+    y = _out_proj(out, p["w_o"].to(ct))
     return shard_hint(y, ctx, ("dp", None, None)), new_cache
 
 
@@ -487,7 +498,7 @@ def apply_mla(
         ).reshape(B, S, H, m.kv_lora_rank)
         out = torch.einsum("bshr,rhk->bshk", out_lat, p["w_uv"].to(ct))
 
-    y = torch.einsum("bshk,hkd->bsd", out, p["w_o"].to(ct))
+    y = _out_proj(out, p["w_o"].to(ct))
     return shard_hint(y, ctx, ("dp", None, None)), new_cache
 
 

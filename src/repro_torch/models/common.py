@@ -8,6 +8,7 @@ from dataclasses import dataclass
 from typing import Any
 
 import torch
+from torch.distributed.device_mesh import DeviceMesh
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
 
@@ -54,9 +55,20 @@ def relayout(x, placements) -> Any:
     no sharding strategy that keeps the layout (an uneven unflatten, an
     in-place write into a sharded cache); GSPMD makes these choices silently
     in the JAX package.  ``unshard``, ``copy_into`` and ``write_rows`` are
-    its callers, with ``fsdp_gather``, ``shard_hint`` and ``grad_in_layout``."""
+    its callers, with ``fsdp_gather``, ``shard_hint`` and ``grad_in_layout``.
+
+    Partial sums bound for a shard are reduce-scattered first, while the
+    other mesh dims still split ``x``: DTensor's own order may gather them
+    first and reduce the whole (the logits of a decode whose tokens moved,
+    partial over ``data`` and split over ``model``)."""
     placements = list(placements)
-    return x if list(x.placements) == placements else x.redistribute(placements=placements)
+    if list(x.placements) == placements:
+        return x
+    first = [t if p.is_partial() and t.is_shard() else p
+             for p, t in zip(x.placements, placements)]
+    if first != list(x.placements):
+        x = x.redistribute(placements=first)
+    return x if first == placements else x.redistribute(placements=placements)
 
 
 class _ContiguousGrad(torch.autograd.Function):
@@ -135,12 +147,60 @@ def batch_local(fn, *args, rows: int = 1, n_out: int = 1):
     return local_map(fn, out_placements=out_pl, in_placements=tuple(in_pl))(*laid)
 
 
+# A layer whose tokens move meets its params in their FSDP shards: its
+# tokens are gathered over the data axes once, each product's partial sums
+# reduce back, and a few products move their outputs.  Moving the tokens
+# pays when gathering the params would move more than this many times the
+# bytes of the tokens whole over the data axes.  In the dry-run's
+# production cells the decisions are far from the line: a decode layer's
+# params gather to 5.5-296x this many token bytes, and a prefill's or
+# train microbatch's tokens are 3.5-1481x the layer's gathered params.
+TOKEN_MOVES = 8
+
+
+def _fsdp_axes(tree, ctx) -> set[str]:
+    """The data-parallel axes that shard some leaf of ``tree``."""
+    if isinstance(tree, dict):
+        return set().union(*(_fsdp_axes(v, ctx) for v in tree.values()))
+    if not isinstance(tree, DTensor):
+        return set()
+    names = tree.device_mesh.mesh_dim_names
+    return {names[i] for i, p in enumerate(tree.placements)
+            if p.is_shard() and names[i] in ctx.dp_axes}
+
+
+def _dp_gathered_bytes(tree, ctx) -> int:
+    """The bytes ``fsdp_gather(tree, ctx)`` would gather: each leaf sharded
+    over a data axis, whole over those axes (still split over the others)."""
+    if isinstance(tree, dict):
+        return sum(_dp_gathered_bytes(v, ctx) for v in tree.values())
+    if not isinstance(tree, DTensor):
+        return 0
+    mesh = tree.device_mesh
+    n = math.prod(mesh.size(i) for i, p in enumerate(tree.placements)
+                  if p.is_shard() and mesh.mesh_dim_names[i] in ctx.dp_axes)
+    if n == 1:
+        return 0
+    local = tree.to_local()
+    return n * local.numel() * local.element_size()
+
+
+def moves_tokens(tree, ctx, token_bytes: int) -> bool:
+    """True when ``tree``'s params should stay in their FSDP shards and the
+    ``token_bytes`` of activations (whole over the data axes) that meet them
+    move instead: what a decode step does, as GSPMD lays out the JAX
+    package's (see ``TOKEN_MOVES``)."""
+    if not isinstance(getattr(ctx, "mesh", None), DeviceMesh):
+        return False  # one device: nothing is sharded
+    return 0 < TOKEN_MOVES * token_bytes < _dp_gathered_bytes(tree, ctx)
+
+
 def fsdp_gather(tree, ctx) -> Any:
     """A layer's (or the embedding's) params whole over the data-parallel
     axes, still sharded over the others: ZeRO-3's all-gather at use, one
     layer at a time (under remat it runs again in the backward, whose
-    gradient reduce-scatters back to the FSDP shards).  Plain tensors are
-    returned as they are."""
+    gradient reduce-scatters back to the FSDP shards).  Its callers skip it
+    where ``moves_tokens``.  Plain tensors are returned as they are."""
     if isinstance(tree, dict):
         return {k: fsdp_gather(v, ctx) for k, v in tree.items()}
     if not isinstance(tree, DTensor):
@@ -148,6 +208,26 @@ def fsdp_gather(tree, ctx) -> Any:
     names = tree.device_mesh.mesh_dim_names
     return relayout(tree, [Replicate() if names[i] in ctx.dp_axes else p
                            for i, p in enumerate(tree.placements)])
+
+
+def tokens_whole(x, ctx, params) -> Any:
+    """``x`` whole over the data-parallel axes that shard ``params`` (an
+    all-gather of the tokens), still laid out as it was over the others; a
+    plain tensor as it is.  The products of a layer whose params stay in
+    their FSDP shards then take the rank's slice of the tokens' hidden dim
+    and leave partial sums over those axes; a data axis that only
+    replicates the params (``pod`` without ``fsdp_pod``) keeps its tokens."""
+    if not isinstance(x, DTensor):
+        return x
+    axes = _fsdp_axes(params, ctx)
+    names = x.device_mesh.mesh_dim_names
+    return relayout(x, [Replicate() if names[i] in axes else p
+                        for i, p in enumerate(x.placements)])
+
+
+def nbytes(x) -> int:
+    """The bytes of ``x`` whole (a ``DTensor``'s global size)."""
+    return x.numel() * x.element_size()
 
 
 def copy_into(dst: torch.Tensor, src: torch.Tensor) -> None:

@@ -127,8 +127,11 @@ def _embed_sharded(table: DTensor, tokens: torch.Tensor) -> DTensor:
     """The lookup on a ``DTensor`` table, vocab-parallel: each rank looks up
     the tokens of its batch rows in its own slice of the vocabulary (zero
     rows for the others'), and the rows are a partial sum over the mesh
-    dims that slice the vocabulary (exact: one addend is the row).  DTensor
-    has no strategy for an index with the batch over two mesh dims."""
+    dims that slice the vocabulary (exact: one addend is the row).  Over a
+    mesh dim that splits the table's hidden dim (its FSDP shards, left in
+    place while the tokens move), the tokens are whole and each rank looks
+    up its slice of every row.  DTensor has no strategy for an index with
+    the batch over two mesh dims."""
     from torch.distributed.tensor import Partial, Replicate, Shard
     from torch.distributed.tensor.experimental import local_map
 
@@ -136,12 +139,16 @@ def _embed_sharded(table: DTensor, tokens: torch.Tensor) -> DTensor:
 
     mesh = table.device_mesh
     tokens = as_dtensor(tokens, mesh)
-    rows = [i for i, q in enumerate(tokens.placements) if q.is_shard() and q.dim == 0]
+    cols = [i for i, q in enumerate(table.placements) if q.is_shard() and q.dim == 1]
+    rows = [i for i, q in enumerate(tokens.placements)
+            if q.is_shard() and q.dim == 0 and i not in cols]
     vocab = [i for i, q in enumerate(table.placements)
              if q.is_shard() and q.dim == 0 and i not in rows]
     tok_pl = [Shard(0) if i in rows else Replicate() for i in range(mesh.ndim)]
-    tab_pl = [Shard(0) if i in vocab else Replicate() for i in range(mesh.ndim)]
-    out_pl = [Shard(0) if i in rows else Partial() if i in vocab else Replicate()
+    tab_pl = [Shard(0) if i in vocab else Shard(1) if i in cols else Replicate()
+              for i in range(mesh.ndim)]
+    out_pl = [Shard(0) if i in rows else Partial() if i in vocab
+              else Shard(tokens.ndim) if i in cols else Replicate()
               for i in range(mesh.ndim)]
     coord = mesh.get_coordinate()
     shard = 0

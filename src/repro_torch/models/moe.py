@@ -179,6 +179,8 @@ def _routed_experts(cfg, x2, combine, w_gate, w_up, w_down) -> torch.Tensor:
     partial sums are reduced before the cast."""
     if not isinstance(w_gate, DTensor):
         return _expert_slabs(cfg, x2, combine, w_gate, w_up, w_down)
+    if any(q.is_shard() and q.dim != 0 for q in w_gate.placements):
+        return _routed_experts_in_shards(cfg, x2, combine, w_gate, w_up, w_down)
     mesh = w_gate.device_mesh
     x2 = as_dtensor(x2, mesh)
     experts = [i for i, q in enumerate(w_gate.placements) if q.is_shard() and q.dim == 0]
@@ -196,6 +198,53 @@ def _routed_experts(cfg, x2, combine, w_gate, w_up, w_down) -> torch.Tensor:
         in_placements=(x_pl, c_pl, w_pl, w_pl, w_pl), redistribute_inputs=True,
     )(x2, as_dtensor(combine, mesh), w_gate, w_up, w_down)
     return relayout(y, pick(Shard(0), Replicate(), Replicate()))
+
+
+def _gate_up(cfg, x2, w_gate, w_up):
+    ct = cfg.compute_dtype
+    z = x2[None].expand(w_gate.shape[0], *x2.shape)
+    return torch.bmm(z, w_gate.to(ct)), torch.bmm(z, w_up.to(ct))
+
+
+def _down_combine(cfg, h, combine, w_down):
+    y = torch.bmm(h, w_down.to(cfg.compute_dtype))      # (E_loc, N, d_loc)
+    return torch.einsum("end,ne->nd", y.float(), combine.float())
+
+
+def _routed_experts_in_shards(cfg, x2, combine, w_gate, w_up, w_down) -> torch.Tensor:
+    """The dense form with the expert stacks left in their FSDP shards (the
+    hidden dim d over data axes, the experts over others): the tokens are
+    whole over the axes that split d, so each rank multiplies its rows by
+    its slice of d and its experts.  The gate and up products' partial sums
+    over those axes reduce, and the down product gives each rank its slice
+    of d, summed over the experts in f32 and reduced over the expert
+    shards.  A mesh dim that splits the rows and not the stacks (``pod``)
+    keeps them split."""
+    mesh = w_gate.device_mesh
+    x2, combine = as_dtensor(x2, mesh), as_dtensor(combine, mesh)
+    kind = []  # per mesh dim: "experts", "d", "rows" or None
+    for wq, xq in zip(w_gate.placements, x2.placements):
+        kind.append("experts" if wq.is_shard() and wq.dim == 0 else
+                    "d" if wq.is_shard() else
+                    "rows" if xq.is_shard() and xq.dim == 0 else None)
+    pick = lambda **by: [by.get(k, Replicate()) for k in kind]  # noqa: E731
+    w_pl = pick(experts=Shard(0), d=Shard(1))
+    g, u = local_map(
+        functools.partial(_gate_up, cfg),
+        out_placements=(pick(experts=Shard(0), d=Partial(), rows=Shard(1)),) * 2,
+        in_placements=(pick(d=Shard(1), rows=Shard(0)), w_pl, w_pl),
+        redistribute_inputs=True,
+    )(x2, w_gate, w_up)
+    whole = pick(experts=Shard(0), rows=Shard(1))
+    h = F.silu(relayout(g, whole)) * relayout(u, whole)
+    y = local_map(
+        functools.partial(_down_combine, cfg),
+        out_placements=pick(experts=Partial(), d=Shard(1), rows=Shard(0)),
+        in_placements=(whole, pick(experts=Shard(1), rows=Shard(0)),
+                       pick(experts=Shard(0), d=Shard(2))),
+        redistribute_inputs=True,
+    )(h, combine, w_down)
+    return relayout(y, pick(d=Shard(0), rows=Shard(0)))
 
 
 # -- expert-parallel form ----------------------------------------------------------

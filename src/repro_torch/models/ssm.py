@@ -27,7 +27,13 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.ssd_scan.ops import ssd_scan
-from repro_torch.models.common import batch_local, copy_into, grad_in_layout, unshard
+from repro_torch.models.common import (
+    batch_local,
+    copy_into,
+    grad_in_layout,
+    shard_hint,
+    unshard,
+)
 from repro_torch.models.layers import normal_init
 
 Params = dict[str, Any]
@@ -163,7 +169,9 @@ def apply_mamba(
     B, S, _ = x.shape
     x = x.to(ct)
 
-    zxbcdt = x @ p["w_in"].to(ct)
+    # batch rows whole along the projection: where the tokens moved (a
+    # decode step), their partial sums over the data axes reduce here, once
+    zxbcdt = shard_hint(x @ p["w_in"].to(ct), ctx, ("dp", None, None))
     z, xs, b, c, dt = torch.split(zxbcdt, [din, din, N, N, H], dim=-1)
     conv_in = torch.cat([xs, b, c], dim=-1)  # (B, S, din + 2N)
 

@@ -35,8 +35,12 @@ from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import (
     ModelConfig,
     fsdp_gather,
+    grad_in_layout,
     last_masked,
+    moves_tokens,
+    nbytes,
     shard_hint,
+    tokens_whole,
     unshard,
 )
 from repro_torch.models.layers import (
@@ -202,9 +206,15 @@ def _apply_layer(
     ctx: RunCtx,
 ) -> tuple[torch.Tensor, torch.Tensor | None]:
     """One dense, SSM, hybrid or MoE layer: (x_out, aux loss or None for a
-    layer without a router); a cache is updated in place."""
-    p = fsdp_gather(p, ctx)
+    layer without a router); a cache is updated in place.  Its params are
+    gathered over the data axes, or, where its tokens are far fewer bytes
+    (a decode step), stay in their FSDP shards while the tokens move."""
+    move = moves_tokens(p, ctx, nbytes(x))
+    if not move:
+        p = fsdp_gather(p, ctx)
     h = apply_norm(cfg, p["ln1"], x)
+    if move:
+        h = tokens_whole(h, ctx, p)
     if group.kind == "ssm":
         y, _ = ssm_mod.apply_mamba(cfg, p["mamba"], h, cache=cache, ctx=ctx)
         return _pin(x + y, ctx), None
@@ -227,8 +237,10 @@ def _apply_layer(
             cfg, p["attn"], h, positions=positions, causal=True,
             window=group.window, cache=cache, ctx=ctx,
         )
-    x = x + y
+    x = _pin(x + y, ctx)
     h2 = apply_norm(cfg, p["ln2"], x)
+    if move:
+        h2 = tokens_whole(h2, ctx, p)
     if group.kind == "moe":
         y2, aux = moe_mod.apply_moe(cfg, p["moe"], h2, world=ctx.mesh, decode=ctx.decode,
                                     dp_axes=ctx.dp_axes, ep_axis=ctx.ep_axis)
@@ -238,10 +250,13 @@ def _apply_layer(
 
 def _pin(x: torch.Tensor, ctx: RunCtx) -> torch.Tensor:
     """The residual stream batch-parallel and whole on every other axis after
-    each layer (a ``DTensor``; a plain tensor as it is).  The port's own pin:
-    without it DTensor keeps the MLP's row-parallel output a partial sum and
-    the next layer all-gathers its weights to match."""
-    return shard_hint(x, ctx, ("dp", None, None))
+    each layer (a ``DTensor``; a plain tensor as it is), its gradient too.
+    The port's own pin: without it DTensor keeps the MLP's row-parallel
+    output a partial sum and the next layer all-gathers its weights to
+    match; in the backward it keeps the column-parallel products' input
+    gradient a partial sum, and the row-parallel products before them then
+    gather their weights and run whole over the heads (16x the products)."""
+    return grad_in_layout(shard_hint(x, ctx, ("dp", None, None)))
 
 
 # the matrix products "dots" keeps (JAX's ``dots_with_no_batch_dims_saveable``
@@ -315,7 +330,7 @@ def forward(
     """
     _refuse_encoder_decoder(cfg)
     B, S = tokens.shape
-    x = embed_tokens(cfg, fsdp_gather(params["embedding"], ctx), tokens)
+    x = _embed(cfg, params["embedding"]["embed"], tokens, ctx)
     x = shard_hint(x, ctx, ("dp", None, None))
     if patch_embeds is not None and S >= patch_embeds.shape[1]:
         n_img = patch_embeds.shape[1]
@@ -416,8 +431,29 @@ def decode_step(
     x, new_cache, _ = forward(
         cfg, params, tokens, positions=positions, cache=cache, ctx=ctx
     )
-    logits = logits_matmul(cfg, fsdp_gather(params["embedding"], ctx), x[:, -1:])
-    return logits, new_cache
+    return _last_logits(cfg, params, x, ctx), new_cache
+
+
+def _embed(cfg: ModelConfig, table: torch.Tensor, ids: torch.Tensor, ctx: RunCtx):
+    """``table``'s rows at ``ids`` in the compute dtype (the token embedding,
+    or whisper's learned positions); the table stays in its FSDP shards
+    where the rows looked up are far fewer bytes (a decode step)."""
+    row_bytes = ids.numel() * table.shape[-1] * torch.finfo(cfg.compute_dtype).bits // 8
+    if not moves_tokens(table, ctx, row_bytes):
+        table = fsdp_gather(table, ctx)
+    return embed_tokens(cfg, {"embed": table}, ids)
+
+
+def _last_logits(cfg: ModelConfig, params: Params, x: torch.Tensor, ctx: RunCtx):
+    """The logits of the last position; the output embedding stays in its
+    FSDP shards and the rows move where they are far fewer bytes."""
+    x = x[:, -1:]
+    emb = params["embedding"]
+    if moves_tokens(emb, ctx, nbytes(x)):
+        x = tokens_whole(x, ctx, emb)
+    else:
+        emb = fsdp_gather(emb, ctx)
+    return logits_matmul(cfg, emb, x)
 
 
 def prefill(
@@ -436,5 +472,4 @@ def prefill(
         cfg, params, tokens, positions=positions, cache=cache, ctx=ctx,
         patch_embeds=patch_embeds,
     )
-    logits = logits_matmul(cfg, fsdp_gather(params["embedding"], ctx), x[:, -1:])
-    return logits, new_cache
+    return _last_logits(cfg, params, x, ctx), new_cache

@@ -26,6 +26,7 @@ returns a new cache holding the same; ``decode_step`` reads them back.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any
 
 import torch
@@ -36,19 +37,21 @@ from repro_torch.models.common import (
     copy_into,
     fsdp_gather,
     last_masked,
+    moves_tokens,
+    nbytes,
     shard_hint,
+    tokens_whole,
 )
 from repro_torch.models.layers import (
     apply_mlp,
     apply_norm,
-    embed_tokens,
     init_embedding,
     init_mlp,
     init_norm,
     logits_matmul,
     normal_init,
 )
-from repro_torch.models.transformer import RunCtx, _pin, _tree_map
+from repro_torch.models.transformer import RunCtx, _embed, _last_logits, _pin, _tree_map
 
 Params = dict[str, Any]
 
@@ -114,7 +117,7 @@ def encode(cfg: ModelConfig, params: Params, frames: torch.Tensor, ctx=None) -> 
         y, _ = attn_mod.apply_attention(
             cfg, lp["attn"], h, positions=positions, causal=False, ctx=ctx
         )
-        x = x + y
+        x = _pin(x + y, ctx)
         h2 = apply_norm(cfg, lp["ln2"], x)
         x = _pin(x + apply_mlp(cfg, lp["mlp"], h2), ctx)
     return apply_norm(cfg, params["enc_norm"], x)
@@ -150,20 +153,24 @@ def decode_forward(
     B, S = tokens.shape
     if positions is None:
         positions = torch.arange(S, device=tokens.device)[None, :].expand(B, S)
-    x = embed_tokens(cfg, fsdp_gather(params["embedding"], ctx), tokens)
-    dec_pos = fsdp_gather(params["dec_pos"], ctx)
-    x = x + dec_pos[positions[0].long()].to(cfg.compute_dtype)[None]
+    x = _embed(cfg, params["embedding"]["embed"], tokens, ctx)
+    x = x + _embed(cfg, params["dec_pos"], positions[:1].long(), ctx)
     x = shard_hint(x, ctx, ("dp", None, None))
     for i, lp in enumerate(_unstack(params["decoder"], cfg.num_layers)):
-        lp = fsdp_gather(lp, ctx)
-        h = apply_norm(cfg, lp["ln1"], x)
+        # the params stay in their FSDP shards where the tokens (and the
+        # encoder output a prefill projects) are far fewer bytes
+        move = moves_tokens(lp, ctx, nbytes(x) + (0 if enc_out is None else nbytes(enc_out)))
+        if not move:
+            lp = fsdp_gather(lp, ctx)
+        whole = functools.partial(tokens_whole, ctx=ctx, params=lp) if move else (lambda t: t)
+        h = whole(apply_norm(cfg, lp["ln1"], x))
         self_cache = None if cache is None else {k: t[i] for k, t in cache["self"].items()}
         y, _ = attn_mod.apply_attention(
             cfg, lp["self_attn"], h, positions=positions, causal=True,
             cache=self_cache, ctx=ctx,
         )
-        x = x + y
-        hx = apply_norm(cfg, lp["ln_x"], x)
+        x = _pin(x + y, ctx)
+        hx = whole(apply_norm(cfg, lp["ln_x"], x))
         if enc_out is None:
             ck, cv = cache["cross_k"][i], cache["cross_v"][i]
         else:
@@ -174,8 +181,8 @@ def decode_forward(
         y2, _ = attn_mod.apply_attention(
             cfg, lp["cross_attn"], hx, positions=positions, cross_kv=(ck, cv), ctx=ctx,
         )
-        x = x + y2
-        h2 = apply_norm(cfg, lp["ln2"], x)
+        x = _pin(x + y2, ctx)
+        h2 = whole(apply_norm(cfg, lp["ln2"], x))
         x = _pin(x + apply_mlp(cfg, lp["mlp"], h2), ctx)
     x = apply_norm(cfg, params["final_norm"], x)
     return x, cache
@@ -227,8 +234,7 @@ def prefill(
     enc_out = encode(cfg, params, frames, ctx=ctx)
     ctx = dataclasses.replace(ctx or RunCtx(), prefill=True)
     x, cache = decode_forward(cfg, params, tokens, enc_out, cache=cache, ctx=ctx)
-    logits = logits_matmul(cfg, fsdp_gather(params["embedding"], ctx), x[:, -1:])
-    return logits, cache
+    return _last_logits(cfg, params, x, ctx), cache
 
 
 def decode_step(
@@ -242,5 +248,4 @@ def decode_step(
     ctx = dataclasses.replace(ctx or RunCtx(), prefill=False)
     x, cache = decode_forward(cfg, params, tokens, None, positions=positions, cache=cache,
                               ctx=ctx)
-    logits = logits_matmul(cfg, fsdp_gather(params["embedding"], ctx), x[:, -1:])
-    return logits, cache
+    return _last_logits(cfg, params, x, ctx), cache

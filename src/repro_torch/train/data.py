@@ -32,6 +32,22 @@ def synthetic_batch(
     return out
 
 
+def zipf_batch(
+    rng: np.random.Generator,
+    batch: int,
+    seq: int,
+    vocab: int,
+    alpha: float = 1.2,
+) -> dict[str, np.ndarray]:
+    """Tokens drawn independently from a Zipf law over the vocabulary
+    (p(k) ~ 1 / (k + 1)^alpha): a unigram distribution that a model learns
+    within a few steps, so a short run's loss visibly falls.  Uniform tokens
+    (``synthetic_batch``) leave nothing to learn: a fresh model's loss is
+    already within about 0.01 of log V."""
+    p = 1.0 / np.arange(1, vocab + 1, dtype=np.float64) ** alpha
+    return {"tokens": rng.choice(vocab, size=(batch, seq), p=p / p.sum()).astype(np.int32)}
+
+
 class ProxyPrefetcher:
     """Background producer; consumer iterates proxies of ready batches."""
 

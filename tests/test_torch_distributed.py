@@ -126,17 +126,21 @@ def _decode(cfg, params, cache, logits, ctx) -> dict:
     return steps
 
 
-def _ep_rank(rank: int, port: int, out_path: str) -> None:
+def _ep_rank(rank: int, port: int, out_path: str, mesh_shape: tuple = (1, WORLD)) -> None:
     import torch.distributed as dist
     from torch.distributed.tensor.experimental import implicit_replication
 
     from repro_torch.distributed.sharding import ShardingRules, distribute, gather_full
     from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import moe
 
     _join(rank, port)
     try:
+        in_shards = []
+        real = moe._routed_experts_in_shards
+        moe._routed_experts_in_shards = lambda *a: in_shards.append(1) or real(*a)
         cfg = _ep_cfg("ep")
-        mesh = make_debug_mesh(1, WORLD)
+        mesh = make_debug_mesh(*mesh_shape)
         rules = ShardingRules(mesh)
         params = tx.init_params(cfg, torch.Generator().manual_seed(0))
         cache = tx.init_cache(cfg, B, S + 8, device="cpu")
@@ -153,6 +157,8 @@ def _ep_rank(rank: int, port: int, out_path: str) -> None:
         if rank == 0:
             np.savez(out_path, **{"/".join(p): t.float().numpy()
                                   for p, t in bridge.flatten(out)})
+            with open(out_path + ".json", "w") as f:
+                json.dump(len(in_shards), f)
     finally:
         dist.destroy_process_group()
 
@@ -177,6 +183,32 @@ def test_ep_prefill_at_mesh_1x2_matches_the_dense_form(tmp_path, monkeypatch):
     assert sorted(got.files) == sorted(want)
     for name, w in want.items():
         np.testing.assert_allclose(got[name], w, rtol=1e-5, atol=1e-5, err_msg=name)
+
+
+def test_moe_decode_at_mesh_2x1_moves_tokens_and_matches_the_dense_form(tmp_path):
+    """deepseek-v2-lite at mesh (2, 1): the decode steps leave the layers'
+    params in their FSDP shards over ``data``, so the dense MoE form runs
+    on every token with each rank's slice of the experts' hidden dim
+    (``_routed_experts_in_shards``).  Its prefill runs MLA with a head dim
+    of one over a ``model`` dim of size 1, which ``_sharded_attention`` once
+    marked sharded and the reshape after it refused.  Everything equals one
+    process's dense form within 1e-5."""
+    _spawn(_ep_rank, str(tmp_path / "ep.npz"), (WORLD, 1))
+    got = np.load(tmp_path / "ep.npz")
+    cfg = _ep_cfg("dense")
+    params = tx.init_params(cfg, torch.Generator().manual_seed(0))
+    cache = tx.init_cache(cfg, B, S + 8, device="cpu")
+    with torch.no_grad():
+        logits, cache = tx.prefill(cfg, params, _tokens(cfg), cache, tx.RunCtx())
+        steps = _decode(cfg, params, cache, logits, tx.RunCtx(decode=True))
+    want = {"/".join(p): t.float().numpy()
+            for p, t in bridge.flatten({"logits": logits, "cache": cache, "steps": steps})}
+    assert sorted(got.files) == sorted(want)
+    for name, w in want.items():
+        np.testing.assert_allclose(got[name], w, rtol=1e-5, atol=1e-5, err_msg=name)
+    # every MoE layer of both decode steps took the experts in their shards
+    n_moe = cfg.num_layers - cfg.moe.first_dense
+    assert json.loads((tmp_path / "ep.npz.json").read_text()) == 2 * n_moe
 
 
 @pytest.mark.parametrize("impl, form", [("ep", "_ep_block"), ("dense", "apply_moe_dense")])
@@ -207,6 +239,98 @@ def test_a_mesh_routes_moe_by_the_jax_rule(impl, form, monkeypatch):
         assert taken == [form, "apply_moe_dense"]
     finally:
         dist.destroy_process_group()
+
+
+# -- mamba2-130m's layouts at mesh (2, 1) and (1, 2) ----------------------------------------
+
+MAMBA_S = 64
+
+
+def _mamba_cfg():
+    """The smoke config at widths that do not divide 2: in_proj's 2 * 192 +
+    2 * 16 + 3 = 419 outputs (3 heads of 64) and a vocabulary of 257, so
+    over ``model`` they stay whole on each rank."""
+    cfg = get_smoke_config("mamba2-130m")
+    return cfg.replace(d_model=96, vocab_size=257,
+                       ssm=dataclasses.replace(cfg.ssm, head_dim=64))
+
+
+def _mamba_run(cfg, params, cache, tokens, ctx) -> dict:
+    """The prompt's prefill, then two greedy decode steps."""
+    logits, cache = tx.prefill(cfg, params, tokens, cache, ctx)
+    steps, tok = {}, logits[:, -1:].argmax(-1)
+    for i in range(2):
+        pos = torch.full((B, 1), MAMBA_S + i, dtype=torch.int64)
+        step_logits, cache = tx.decode_step(cfg, params, cache, tok, pos, ctx)
+        steps[str(i)] = step_logits
+        tok = step_logits[:, -1:].argmax(-1)
+    return {"logits": logits, "cache": cache, "steps": steps}
+
+
+def _mamba_inputs(cfg):
+    params = tx.init_params(cfg, torch.Generator().manual_seed(0))
+    cache = tx.init_cache(cfg, B, MAMBA_S + 8, device="cpu")
+    tokens = torch.from_numpy(np.random.default_rng(7).integers(0, cfg.vocab_size,
+                                                                (B, MAMBA_S)))
+    return params, cache, tokens
+
+
+def _mamba_rank(rank: int, port: int, mesh_shape: tuple, out_path: str) -> None:
+    import torch.distributed as dist
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.distributed.sharding import ShardingRules, distribute, gather_full
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import common
+
+    _join(rank, port)
+    try:
+        cfg = _mamba_cfg()
+        mesh = make_debug_mesh(*mesh_shape)
+        rules = ShardingRules(mesh)
+        params, cache, tokens = _mamba_inputs(cfg)
+        params = distribute(params, rules.state_shardings(params), mesh)
+        cache = distribute(cache, rules.cache_shardings(cache), mesh)
+        tokens = distribute(tokens, rules.batch_spec(2), mesh)
+        ctx = tx.RunCtx(mesh=mesh, dp_axes=rules.dp_axes, ep_axis="model")
+        moved = []
+        real = common.moves_tokens
+        tx.moves_tokens = lambda *a: moved.append(real(*a)) or moved[-1]
+        with torch.no_grad(), implicit_replication():
+            out = _mamba_run(cfg, params, cache, tokens, ctx)
+        out = gather_full(out)
+        if rank == 0:
+            np.savez(out_path, moved=np.array(moved),
+                     **{"/".join(p): t.float().numpy() for p, t in bridge.flatten(out)})
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("mesh_shape", [(2, 1), (1, 2)])
+def test_mamba_prefill_and_decode_on_a_mesh_match_one_process(mesh_shape, tmp_path):
+    """At (2, 1) the layers' params are FSDP shards over ``data``: the
+    prefill gathers them, each decode step leaves them in place and moves
+    its tokens (``moves_tokens``), the embedding looked up and the logits
+    taken on each rank's slice of the hidden dim.  At (1, 2) in_proj and the
+    vocabulary do not divide ``model`` and stay whole on each rank.  The
+    logits, every cache leaf and both decode steps' logits equal one
+    process's within 1e-5."""
+    _spawn(_mamba_rank, mesh_shape, str(tmp_path / "out.npz"))
+    got = np.load(tmp_path / "out.npz")
+    cfg = _mamba_cfg()
+    params, cache, tokens = _mamba_inputs(cfg)
+    with torch.no_grad():
+        out = _mamba_run(cfg, params, cache, tokens, tx.RunCtx())
+    want = {"/".join(p): t.float().numpy() for p, t in bridge.flatten(out)}
+    assert sorted(f for f in got.files if f != "moved") == sorted(want)
+    for name, w in want.items():
+        np.testing.assert_allclose(got[name], w, rtol=1e-5, atol=1e-5, err_msg=name)
+    # each step asks for its embedding, each layer and its last logits: the
+    # prefill's 64 tokens gather the table and the layers, its last row and
+    # the decode steps move; over ``model`` alone nothing moves
+    L = cfg.num_layers
+    expect = [False] * (L + 1) + [True] + [True] * (L + 2) * 2
+    assert got["moved"].tolist() == (expect if mesh_shape[0] > 1 else [False] * len(expect))
 
 
 # -- the serve driver at mesh (2, 1) ------------------------------------------------------
