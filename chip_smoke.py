@@ -14,13 +14,15 @@ Phases, each of which must pass (any failure exits non-zero):
      row, the 32 B and 64 B swizzles, hymba-1.5b's prefill with its odd
      group of 5, kimi-k2's with 64 heads in groups of 8, whisper-tiny's
      non-causal encoder over 1500 frames (a ragged last kv tile in every q
-     tile) and its decoder's 224-token prompt, an input off TMA's 16-byte
+     tile) and its decoder's 224-token prompt, the prefills of
+     phi4-mini-3.8b (G = 3), internvl2-2b (G = 2), starcoder2-15b (G = 12)
+     and granite-20b (one K/V head, G = 48), an input off TMA's 16-byte
      alignment, and V = identity so that O reads back P), and at
      qwen2.5-3b's serving prefill geometry, where two planted faults must
-     be rejected (at whisper's encoder too, with "causal mask applied" for
-     "non-causal"); the f32 scalar kernel is timed there too, and hymba's,
-     kimi's and whisper's prefills are timed beside SDPA (non-causal for
-     the encoder);
+     be rejected (at every model's prefill too, with "causal mask applied"
+     for "non-causal" at whisper's encoder); the f32 scalar kernel is timed
+     there too, and the other models' prefills are timed beside SDPA on K/V
+     repeated over the group (non-causal for the encoder);
    * the SSD scan over the kernel test shapes x {float32, bfloat16}
      (tolerance 5e-4 / 3e-2 on y and the final state, plus a per-step
      relative L2 limit on y), over bf16 shapes at the tensor-core kernel's
@@ -42,7 +44,12 @@ Phases, each of which must pass (any failure exits non-zero):
    exists, one PyTorch library call at the serving geometry for the
    ``kernels`` line.
 2. Model checks, for qwen2.5-3b, mamba2-130m, hymba-1.5b, kimi-k2,
-   deepseek-v2-lite and then whisper-tiny: the smoke config on the card against the same weights
+   deepseek-v2-lite, whisper-tiny, and then phi4-mini-3.8b, internvl2-2b,
+   starcoder2-15b and granite-20b (``DENSE_ARCHS``, at full width and
+   depth; starcoder2 and granite with bf16 params, ``CONFIG_CUTS``;
+   internvl2's forward with 256 image positions' patch embeddings, each
+   printing its params' size and peak memory and the inputs the K1 wrapper
+   copied): the smoke config on the card against the same weights
    on the CPU (prefill and decode logits); the full-width bf16 model
    through the kernels, block by block no further from an f32-compute run
    than the reference path is (the planted faults must fail this check
@@ -53,7 +60,7 @@ Phases, each of which must pass (any failure exits non-zero):
    logits and in every ring, where a planted ring write that stops at the
    last slot must fail. kimi-k2 runs at full width cut to 2 layers (its
    dense layer and one MoE layer of 384 experts) with bf16 params
-   (``MOE_CUTS``): its forward's prompt attention takes K1 at G = 8
+   (``CONFIG_CUTS``): its forward's prompt attention takes K1 at G = 8
    (exactly 2 launches), both K1 faults must fail the block check, the MoE
    layers' EP form at ep = 1 with nothing dropped (capacity factor 48) is
    held to the dense form, and each path prints how many tokens chose other
@@ -78,9 +85,11 @@ Phases, each of which must pass (any failure exits non-zero):
    timed at the largest leaf and the embedding (with the measured cycles a
    chain step).
 3. Serve: ``repro_torch.launch.serve`` at full qwen2.5-3b, mamba2-130m,
-   hymba-1.5b, kimi-k2 and deepseek-v2-lite width (hymba with prompts of
-   2048 tokens; the MoE archs with ``MOE_CUTS``, applied through a spy on
-   the serve module's ``get_config``), behind ``Session``/``ModelServer``;
+   hymba-1.5b, kimi-k2, deepseek-v2-lite, phi4-mini-3.8b, internvl2-2b,
+   starcoder2-15b and granite-20b width (hymba with prompts of 2048
+   tokens; kimi, deepseek, starcoder2 and granite with ``CONFIG_CUTS``,
+   applied through a spy on the serve module's ``get_config``), behind
+   ``Session``/``ModelServer``;
    then whisper-tiny, which the serve driver refuses as the JAX one serves
    none of its requests, in a loop over ``whisper.prefill``/``decode_step``
    (8 requests of 1500 frames and a 224-token prompt, batches of 4, 32
@@ -100,7 +109,13 @@ Phases, each of which must pass (any failure exits non-zero):
    c. one train step of mamba2-130m, f32 compute, on the card and on the
       CPU from the same weights and batch: loss and grad norm within 1e-4,
       every leaf's first moment within 1e-4 relative L2; then bf16 compute
-      on the card, its loss within 2e-2 of the f32 loss;
+      on the card, its loss within 2e-2 of the f32 loss; then the same
+      card-against-CPU step at the smoke config of every other decoder-only
+      arch (``TRAIN_CHECK_ARCHS``: qwen2.5-3b, hymba-1.5b, kimi-k2,
+      deepseek-v2-lite, phi4-mini-3.8b, internvl2-2b with patch embeddings,
+      starcoder2-15b, granite-20b); the MoE archs' card steps run free and
+      with routing pinned to the CPU's, and the pinned one is held when a
+      token's experts differ;
    d. five steps on one repeated batch: the loss must fall by 1 %, and a
       planted fault (the optimizer's lr forced to 0) must fail that check;
    e. qwen2.5-3b at full width, all 36 layers, ``remat="full"``, batch 2,
@@ -146,8 +161,12 @@ Phases, each of which must pass (any failure exits non-zero):
       and bytes give at the module's rates.
 6. The examples, as a user runs them on the card:
    ``examples/serve_batched_torch.py`` (a lazy checkpoint restore, 8
-   requests through ``Session.serve``) and ``examples/train_lm_torch.py``
-   (the train driver, 200 steps, the loss must fall).
+   requests through ``Session.serve``), ``examples/train_lm_torch.py``
+   (the train driver, 200 steps, the loss must fall),
+   ``examples/quickstart_torch.py`` (its sums and products equal numpy's)
+   and ``examples/active_learning_torch.py`` (the surrogate a tensor on the
+   card, proxied through the store; the same candidates and scores as the
+   same loop on the CPU).
 
 Each part prints its own seconds and the run's so far.  The last lines
 are the ``kernels`` JSON object (launches summed over the serve paths), the
@@ -159,6 +178,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import json
 import math
 import subprocess
@@ -202,10 +222,18 @@ FA_KIMI = (4, 64, 8, 1024, 1024, 128, True)
 # the decoder's 224-token prompt, causal; 6 heads of 64, G = 1
 FA_WHISPER_ENC = (4, 6, 6, 1500, 1500, 64, False)
 FA_WHISPER_DEC = (4, 6, 6, 224, 224, 64, True)
+# the serving prefills of the other dense archs, hd 128: phi4-mini-3.8b's 24
+# q heads in groups of 3, internvl2-2b's 16 in groups of 2, starcoder2-15b's
+# 48 in groups of 12, and granite-20b's 48 on one K/V head (MQA, G = 48),
+# whose K/V views have a head dim of length 1
+FA_PHI4 = (4, 24, 8, 1024, 1024, 128, True)
+FA_INTERNVL2 = (4, 16, 8, 1024, 1024, 128, True)
+FA_STARCODER2 = (4, 48, 4, 1024, 1024, 128, True)
+FA_GRANITE = (4, 48, 1, 1024, 1024, 128, True)
 # bf16 shapes at the wgmma + TMA kernel's edges, beside the sweep above:
 # Sq and Skv off its 128-row tiles, one q row against many keys, the 32 B
-# and 64 B swizzles (hd 16, 32), and hymba's, kimi's and whisper's prefills;
-# the first and the prefills are built as the model's strided views
+# and 64 B swizzles (hd 16, 32), and the models' prefills; the first and the
+# prefills are built as the model's strided views
 FA_BF16_EDGES = [
     (2, 16, 2, 1000, 1000, 128, True),
     (1, 8, 1, 1, 1024, 128, False),
@@ -215,10 +243,16 @@ FA_BF16_EDGES = [
     FA_KIMI,
     FA_WHISPER_ENC,
     FA_WHISPER_DEC,
+    FA_PHI4,
+    FA_INTERNVL2,
+    FA_STARCODER2,
+    FA_GRANITE,
 ]
-# prefills of FA_BF16_EDGES timed beside SDPA, by the name of their model
+# prefills of FA_BF16_EDGES, where the planted faults must be rejected too,
+# timed beside SDPA, by the name of their model
 FA_PREFILLS = {FA_HYMBA: "hymba", FA_KIMI: "kimi", FA_WHISPER_ENC: "whisper_encoder",
-               FA_WHISPER_DEC: "whisper_decoder"}
+               FA_WHISPER_DEC: "whisper_decoder", FA_PHI4: "phi4", FA_INTERNVL2: "internvl2",
+               FA_STARCODER2: "starcoder2", FA_GRANITE: "granite"}
 FAULT_TILE = 128  # keys per K/V tile of the bf16 kernel (kRows in flash_attention.cu)
 # Full-width bf16 forward: over every block of FORWARD_BLOCK tokens, the
 # flash path's relative L2 distance from an f32-compute forward is at most
@@ -240,6 +274,10 @@ SERVE_LAUNCHES = {
     "kimi-k2-1t-a32b": {"flash_attention": 2},            # both layers' prompt attention
     "deepseek-v2-lite-16b": {},                           # MLA and MoE reach no kernel
     "whisper-tiny": {"flash_attention": 8},               # 4 encoder + 4 decoder layers
+    "phi4-mini-3.8b": {"flash_attention": 32},            # every layer's prompt attention
+    "internvl2-2b": {"flash_attention": 24},
+    "starcoder2-15b": {"flash_attention": 40},
+    "granite-20b": {"flash_attention": 52},
 }
 
 # (B, S, H, P, N, chunk): the SSD kernel test shapes of the JAX package
@@ -284,18 +322,25 @@ HYMBA_STEPS = 8  # decode steps of the full-width model check, after a 2048-toke
 # Planted in the full-width hymba run, each with the check that must see it
 HYMBA_FAULTS = {"non-causal": "forward", "state not carried across chunks": "forward",
                 "ring write stops at the last slot": "ring"}
-# The MoE configurations' cuts, at full width.  kimi-k2: 61 layers cut to 2
-# (the leading dense layer and one MoE layer, whose 384 experts alone are
-# 16.9e9 parameters) and bf16 params: 19,967,675,392 params with the norms'
-# scales, 39.9 GB, where an f32 tree would be 79.9 GB.  deepseek-v2-lite: all 27 layers, bf16
-# params (31.4 GB), since its 62.8 GB f32 tree leaves no room for the
-# checks' second forward
-MOE_CUTS = {"kimi-k2-1t-a32b": {"num_layers": 2, "param_dtype": torch.bfloat16},
-            "deepseek-v2-lite-16b": {"param_dtype": torch.bfloat16}}
+# Config cuts at full width, for the archs whose f32 params do not fit one
+# card beside what the checks run.  kimi-k2: 61 layers cut to 2 (the leading
+# dense layer and one MoE layer, whose 384 experts alone are 16.9e9
+# parameters) and bf16 params: 19,967,675,392 params with the norms' scales,
+# 39.9 GB, where an f32 tree would be 79.9 GB.  deepseek-v2-lite (62.8 GB
+# f32), starcoder2-15b (63.8 GB f32) and granite-20b (112.7 GB f32): all
+# their layers, bf16 params
+CONFIG_CUTS = {"kimi-k2-1t-a32b": {"num_layers": 2, "param_dtype": torch.bfloat16},
+               "deepseek-v2-lite-16b": {"param_dtype": torch.bfloat16},
+               "starcoder2-15b": {"param_dtype": torch.bfloat16},
+               "granite-20b": {"param_dtype": torch.bfloat16}}
 KIMI_SERVE_ARGS = ["--arch", "kimi-k2-1t-a32b", "--batch", "4", "--prompt-len", "1024",
                    "--gen", "32", "--requests", "8", "--device", "cuda"]
 DEEPSEEK_SERVE_ARGS = ["--arch", "deepseek-v2-lite-16b", "--batch", "4", "--prompt-len",
                        "1024", "--gen", "32", "--requests", "8", "--device", "cuda"]
+# the dense archs beside qwen2.5-3b, served and checked at full width and depth
+DENSE_ARCHS = ("phi4-mini-3.8b", "internvl2-2b", "starcoder2-15b", "granite-20b")
+DENSE_SERVE_ARGS = {arch: ["--arch", arch, "--batch", "4", "--prompt-len", "1024", "--gen",
+                           "32", "--requests", "8", "--device", "cuda"] for arch in DENSE_ARCHS}
 # the EP form at ep = 1 against the dense form at kimi's width: at S = 1024
 # this factor makes the capacity ceil(1024 * 8 / 384 * 48) = 1024 = N, so
 # no token is dropped
@@ -328,6 +373,11 @@ RESTART_STEPS = 40
 # against the f32 loss (relative)
 TRAIN_RTOL = 1e-4
 MOMENT_REL_L2 = 1e-4
+# 4c's other archs, one step each at the smoke config, card against CPU:
+# every decoder family (dense with its variants, VLM, hybrid, MoE with MLA)
+TRAIN_CHECK_ARCHS = ("qwen2.5-3b", "hymba-1.5b", "kimi-k2-1t-a32b", "deepseek-v2-lite-16b",
+                     "phi4-mini-3.8b", "internvl2-2b", "starcoder2-15b", "granite-20b")
+TRAIN_CHECK_BATCH = (2, 64)  # past hymba's smoke window of 16
 BF16_LOSS_REL = 2e-2
 LOSS_FALL = 0.01  # five steps on one batch must cut the loss by at least 1 %
 # qwen2.5-3b at full width: batch, seq, steps
@@ -411,6 +461,9 @@ ROOFLINE_FLOOR = 0.95        # a measured step at least this share of its roofli
 DRYRUN_TIMEOUT = 600
 ARG_BYTES_TOL = 0.01         # predicted argument bytes against the allocator's growth
 PHASE5_SECONDS = 120
+# the active-learning example on the card against the CPU: the same f32
+# products summed in another order, so the scores' rounding is absolute
+EXAMPLE_SCORE_RTOL, EXAMPLE_SCORE_ATOL = 1e-5, 1e-5
 
 
 def fail(msg: str) -> None:
@@ -574,8 +627,7 @@ def check_flash(gen) -> dict:
             name = FA_PREFILLS[shape]
             if not all(tma_ready(t) for t in qkv):
                 fail(f"{name}'s strided views would be copied before the kernel")
-            if not shape[6]:
-                faults_rejected(*qkv, False, ref)
+            faults_rejected(*qkv, shape[6], ref)
             t = prefills[name] = {"shape": shape, "max_abs_err": err,
                                   **flash_times(*qkv, causal=shape[6])}
             print(f"[flash] {name} prefill {shape}: kernel {t['ms']:.4f} ms | card only "
@@ -1148,15 +1200,79 @@ def block_rel(a, b, block: int) -> torch.Tensor:
     return torch.stack([(x - y).norm() / y.norm() for x, y in pairs])
 
 
+def forward_check(tx, cfg, params, toks, label: str, **fwd) -> dict:
+    """A dense arch's full-width bf16 forward through K1 (B=1) against the
+    reference path: block by block no further from an f32-compute forward
+    than the reference path is (FORWARD_NOISE), both FAULTS planted and
+    rejected, K1 launched once a layer.  Counts the inputs the wrapper
+    copies before the kernel (none when the model's views are TMA-ready).
+    ``fwd`` goes to ``tx.forward`` (internvl2's patch embeddings)."""
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.models import attention
+
+    real_flash, real_inputs = attention._flash, fa_kernel.kernel_inputs
+    copies = []
+
+    def counted_inputs(q, k, v):
+        out = real_inputs(q, k, v)
+        copies.append(sum(a is not b for a, b in zip((q, k, v), out)))
+        return out
+
+    pcfg = cfg.replace(attention_impl="pallas")
+    with torch.inference_mode():
+        ref, _, _ = tx.forward(cfg.replace(attention_impl="reference"), params, toks, **fwd)
+        exact, _, _ = tx.forward(cfg.replace(compute_dtype=torch.float32), params, toks, **fwd)
+        n0 = fa_ops.launch_count
+        fa_kernel.kernel_inputs = counted_inputs
+        try:
+            out, _, _ = tx.forward(pcfg, params, toks, **fwd)
+            torch.cuda.synchronize()
+        finally:
+            fa_kernel.kernel_inputs = real_inputs
+        n = fa_ops.launch_count - n0
+        planted = {}
+        for fault in FAULTS:
+            attention._flash = plant_fault(real_flash, fault, 1)
+            try:
+                planted[fault], _, _ = tx.forward(pcfg, params, toks, **fwd)
+            finally:
+                attention._flash = real_flash
+
+    # Through dozens of random-weight layers the bf16 rounding noise itself
+    # is a few 1e-2 of relative L2, so the flash path is held to the
+    # reference path's own distance from the f32 forward, block by block
+    noise = block_rel(ref, exact, FORWARD_BLOCK)
+    ratio = (block_rel(out, exact, FORWARD_BLOCK) / noise).max().item()
+    err = (out.float() - ref.float()).abs().max().item()
+    B, S = toks.shape
+    print(f"[model] {label} full-width forward (B={B}, S={S}), bf16: flash vs reference "
+          f"max_abs_err {err:.3e} rel_l2 {rel(out, ref):.3e} | against the f32-compute forward: "
+          f"reference rel_l2 {rel(ref, exact):.3e} (blocks {noise.min().item():.3e}-"
+          f"{noise.max().item():.3e}), flash rel_l2 {rel(out, exact):.3e}, worst block ratio "
+          f"{ratio:.3f} (tol {FORWARD_NOISE}) | flash launches {n} | kernel inputs copied "
+          f"before the kernel {sum(copies)} of {3 * len(copies)}")
+    if out.shape != (B, S, cfg.d_model) or not bool(torch.isfinite(out).all()):
+        fail(f"{label} full-width forward: wrong shape or non-finite values")
+    faults = {}
+    for fault, bad in planted.items():
+        b_ratio = faults[fault] = (block_rel(bad, exact, FORWARD_BLOCK) / noise).max().item()
+        print(f"[model] planted fault '{fault}': rel_l2 vs f32 forward {rel(bad, exact):.3e}, "
+              f"worst block ratio {b_ratio:.3f} -> {'PASSED' if b_ratio <= FORWARD_NOISE else 'rejected'}")
+        if b_ratio <= FORWARD_NOISE:
+            fail(f"the {label} forward check does not see the planted fault '{fault}'")
+    if n != cfg.num_layers or ratio > FORWARD_NOISE:
+        fail(f"{label} full-width forward: flash path disagrees with the reference")
+    return {"flash_launches": n, "worst_block_ratio": ratio, "fault_ratios": faults,
+            "inputs_copied": sum(copies)}
+
+
 def phase_model(fp: dict) -> tuple[dict, dict]:
     """qwen2.5-3b's model checks and decode breakdown, then the fingerprint's
     path on the same full-width parameters (filling ``fp``)."""
     from repro_torch.configs import get_config
-    from repro_torch.kernels.flash_attention import ops as fa_ops
-    from repro_torch.models import attention
     from repro_torch.models import transformer as tx
 
-    real_flash = attention._flash
     smoke_check(tx, "qwen2.5-3b")
 
     # full width, bf16 compute: flash forward against the chunked reference
@@ -1169,44 +1285,7 @@ def phase_model(fp: dict) -> tuple[dict, dict]:
           f"({n_params * 4 / 1e9:.2f} GB f32) made in {time.perf_counter() - t0:.1f}s")
     toks = torch.randint(0, cfg.vocab_size, (1, 1024), device="cuda",
                          generator=torch.Generator(device="cuda").manual_seed(1))
-    pcfg = cfg.replace(attention_impl="pallas")
-    with torch.inference_mode():
-        ref, _, _ = tx.forward(cfg.replace(attention_impl="reference"), params, toks)
-        exact, _, _ = tx.forward(cfg.replace(compute_dtype=torch.float32), params, toks)
-        n0 = fa_ops.launch_count
-        out, _, _ = tx.forward(pcfg, params, toks)
-        torch.cuda.synchronize()
-        n = fa_ops.launch_count - n0
-        planted = {}
-        for fault in FAULTS:
-            attention._flash = plant_fault(real_flash, fault, 1)
-            try:
-                planted[fault], _, _ = tx.forward(pcfg, params, toks)
-            finally:
-                attention._flash = real_flash
-
-    # Through 36 random-weight layers the bf16 rounding noise itself is a
-    # few 1e-2 of relative L2, so the flash path is held to the reference
-    # path's own distance from the f32 forward, block by block
-    noise = block_rel(ref, exact, FORWARD_BLOCK)
-    ratio = (block_rel(out, exact, FORWARD_BLOCK) / noise).max().item()
-    err = (out.float() - ref.float()).abs().max().item()
-    print(f"[model] full-width forward (B=1, S=1024), bf16: flash vs reference max_abs_err "
-          f"{err:.3e} rel_l2 {rel(out, ref):.3e} | against the f32-compute forward: reference "
-          f"rel_l2 {rel(ref, exact):.3e} (blocks {noise.min().item():.3e}-{noise.max().item():.3e})"
-          f", flash rel_l2 {rel(out, exact):.3e}, worst block ratio {ratio:.3f} "
-          f"(tol {FORWARD_NOISE}) | flash launches {n}")
-    if out.shape != (1, 1024, cfg.d_model) or not bool(torch.isfinite(out).all()):
-        fail("full-width forward: wrong shape or non-finite values")
-    for fault, bad in planted.items():
-        b_ratio = (block_rel(bad, exact, FORWARD_BLOCK) / noise).max().item()
-        print(f"[model] planted fault '{fault}': rel_l2 vs f32 forward {rel(bad, exact):.3e}, "
-              f"worst block ratio {b_ratio:.3f} -> {'PASSED' if b_ratio <= FORWARD_NOISE else 'rejected'}")
-        if b_ratio <= FORWARD_NOISE:
-            fail(f"the forward check does not see the planted fault '{fault}'")
-    if n != cfg.num_layers or ratio > FORWARD_NOISE:
-        fail("full-width forward: flash path disagrees with the reference")
-    del ref, exact, out, planted
+    forward_check(tx, cfg, params, toks, "qwen2.5-3b")
     decode = decode_breakdown(tx, cfg, params)
     fp_detail = fingerprint_leaves(params, fp)
     del params
@@ -1445,14 +1524,14 @@ def phase_model_hymba() -> dict:
     return decode
 
 
-def moe_config(arch: str):
-    """The full config of an MoE arch with ``MOE_CUTS`` applied."""
+def cut_config(arch: str):
+    """The full config of ``arch`` with its ``CONFIG_CUTS`` applied."""
     from repro_torch.configs import get_config
 
-    return get_config(arch).replace(**MOE_CUTS[arch])
+    return get_config(arch).replace(**CONFIG_CUTS.get(arch, {}))
 
 
-def init_moe_params(tx, cfg, label: str):
+def init_full_params(tx, cfg, label: str):
     """Random full-width params on the card; prints their size and the
     init's peak memory."""
     torch.cuda.synchronize()
@@ -1494,7 +1573,7 @@ class RouterPin:
         layer = len(calls) % self.n_layers
         calls.append(top_i)
         if self.pin:
-            top_i = self.picks["f32"][layer][self.rows]
+            top_i = self.picks["f32"][layer][self.rows].to(probs.device)
             top_w = probs.gather(-1, top_i)
             top_w = top_w / torch.clamp(top_w.sum(-1, keepdim=True), min=1e-9)
         return probs, top_i, top_w
@@ -1503,12 +1582,12 @@ class RouterPin:
         """Token-layer pairs of ``label``'s first calls (one forward over the
         f32 run's tokens) whose own expert set differs from the f32 run's."""
         sort = lambda t: t.sort(dim=-1).values  # noqa: E731
-        return sum(int((sort(a) != sort(b[:a.shape[0]])).any(dim=-1).sum())
+        return sum(int((sort(a) != sort(b[:a.shape[0]].to(a.device))).any(dim=-1).sum())
                    for a, b in zip(self.picks[label][:self.n_layers], self.picks["f32"]))
 
 
 def phase_model_kimi() -> dict:
-    """kimi-k2 at full width (MOE_CUTS): the smoke config on the card
+    """kimi-k2 at full width (CONFIG_CUTS): the smoke config on the card
     against the CPU, then a bf16 forward (B=1, S=1024) whose prompt
     attention runs K1 at G = 8, held to the reference path's distance from
     an f32-compute forward block by block with routing pinned to the f32
@@ -1523,8 +1602,8 @@ def phase_model_kimi() -> dict:
     arch = "kimi-k2-1t-a32b"
     real_flash = attention._flash
     smoke_check(tx, arch)
-    cfg = moe_config(arch)
-    params, sizes = init_moe_params(tx, cfg, "kimi-k2 full width")
+    cfg = cut_config(arch)
+    params, sizes = init_full_params(tx, cfg, "kimi-k2 full width")
     S = 1024
     capacity = math.ceil(S * cfg.moe.top_k / cfg.moe.num_experts * EP_CAPACITY_FACTOR)
     if capacity != S:
@@ -1624,7 +1703,7 @@ def plant_latent_fault(update):
 
 
 def phase_model_deepseek() -> dict:
-    """deepseek-v2-lite at full width and depth (MOE_CUTS): the smoke config
+    """deepseek-v2-lite at full width and depth (CONFIG_CUTS): the smoke config
     on the card against the CPU; then in bf16 a 1024-token prefill in the
     absorbed form (against the latent cache) and DEEPSEEK_STEPS decode
     steps, held to the expanded cache-free forward over the same tokens,
@@ -1638,8 +1717,8 @@ def phase_model_deepseek() -> dict:
 
     arch = "deepseek-v2-lite-16b"
     smoke_check(tx, arch)
-    cfg = moe_config(arch)
-    params, sizes = init_moe_params(tx, cfg, "deepseek-v2-lite full width and depth")
+    cfg = cut_config(arch)
+    params, sizes = init_full_params(tx, cfg, "deepseek-v2-lite full width and depth")
     S, steps = 1024, DEEPSEEK_STEPS
     toks = torch.randint(0, cfg.vocab_size, (1, S + steps), device="cuda",
                          generator=torch.Generator(device="cuda").manual_seed(1))
@@ -1733,6 +1812,38 @@ def phase_model_deepseek() -> dict:
     res = {**sizes, "worst_block_ratio": got["forward"], "worst_decode_ratio": got["decode"],
            "free_routing_ratios": free_got, "routings_moved": moved, "fault_ratios": worse,
            "launches": n, "decode": decode_breakdown(tx, cfg, params)}
+    del params
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_model_dense(arch: str) -> dict:
+    """One of DENSE_ARCHS at full width and depth (``CONFIG_CUTS``: bf16
+    params for starcoder2-15b and granite-20b): the smoke config on the card
+    against the CPU, ``forward_check`` at B=1, S=1024 (internvl2-2b's forward
+    also takes its image positions' patch embeddings, from seed 0, so that
+    they run through the kernel), the params' size and the peak memory,
+    then the decode breakdown."""
+    from repro_torch.models import transformer as tx
+
+    smoke_check(tx, arch)
+    cfg = cut_config(arch)
+    params, sizes = init_full_params(tx, cfg, f"{arch} full width and depth")
+    S = 1024
+    toks = torch.randint(0, cfg.vocab_size, (1, S), device="cuda",
+                         generator=torch.Generator(device="cuda").manual_seed(1))
+    fwd = {}
+    if cfg.family == "vlm":
+        fwd["patch_embeds"] = torch.randn((1, cfg.num_image_tokens, cfg.d_model), device="cuda",
+                                          generator=torch.Generator(device="cuda").manual_seed(0))
+    res = {**sizes, **forward_check(tx, cfg, params, toks, arch, **fwd)}
+    torch.cuda.synchronize()
+    res["peak_bytes"] = torch.cuda.max_memory_allocated()
+    inputs = "".join(f" | {name} {tuple(t.shape)}" for name, t in fwd.items())
+    print(f"[model] {arch}: peak memory of the init and the forward checks "
+          f"{res['peak_bytes']:,} B of {torch.cuda.get_device_properties(0).total_memory:,} B"
+          f"{inputs}")
+    res["decode"] = decode_breakdown(tx, cfg, params)
     del params
     torch.cuda.empty_cache()
     return res
@@ -1952,12 +2063,12 @@ def phase_serve_whisper() -> dict:
 
 
 def phase_serve_cut(argv: list[str]) -> dict:
-    """``phase_serve`` of an MoE arch with ``MOE_CUTS`` applied through a spy
-    on the serve module's ``get_config``."""
+    """``phase_serve`` of an arch with its ``CONFIG_CUTS`` applied through a
+    spy on the serve module's ``get_config``."""
     from repro_torch.launch import serve as serve_mod
 
     real = serve_mod.get_config
-    serve_mod.get_config = lambda arch, **kw: real(arch, **kw).replace(**MOE_CUTS[arch])
+    serve_mod.get_config = lambda arch, **kw: real(arch, **kw).replace(**CONFIG_CUTS[arch])
     try:
         return phase_serve(argv)
     finally:
@@ -2199,7 +2310,7 @@ def train_driver(run_dir: str) -> dict:
     print(f"[train]   steps that follow a save (its snapshot is on the step path): "
           f"{', '.join(f'step {k} {v:.1f} ms' for k, v in after_save.items())}")
     state = init_train_state(cfg, torch.Generator(device="cuda").manual_seed(0))
-    tokens = _mamba_batch(cfg, args.batch, args.seq, 0).cuda()
+    tokens = _token_batch(cfg, args.batch, args.seq, 0).cuda()
     breakdown, _ = step_breakdown(f"{args.arch} batch {args.batch} x seq {args.seq}",
                                   make_train_step(cfg, AdamWConfig()), state,
                                   {"tokens": tokens}, 3)
@@ -2311,42 +2422,64 @@ def train_restart(run_dir: str) -> dict:
             "evicted_keys": len(alive), "restore_seconds": restore_s}
 
 
-def _mamba_batch(cfg, batch: int, seq: int, seed: int) -> torch.Tensor:
+def _token_batch(cfg, batch: int, seq: int, seed: int) -> torch.Tensor:
     rng = np.random.default_rng(seed)
     return torch.from_numpy(rng.integers(0, cfg.vocab_size, (batch, seq)).astype(np.int32))
 
 
-def card_against_cpu(label: str, cfg, batch: dict) -> dict:
-    """One train step from the same state (seed 0) and batch on the card and
-    on the CPU: loss and grad norm within TRAIN_RTOL (relative), every
-    leaf's first moment within MOMENT_REL_L2 (relative L2)."""
+def card_against_cpu(label: str, cfg, batch: dict, router: RouterPin | None = None) -> dict:
+    """One train step from the same state (seed 0) and batch on the CPU and
+    on the card: loss and grad norm within TRAIN_RTOL (relative), every
+    leaf's first moment within MOMENT_REL_L2 (relative L2).  With a
+    ``RouterPin`` installed (an MoE arch) the CPU's step records its routing
+    as "f32" and the card steps twice from the same state, once routing
+    freely and once pinned to the CPU's experts; the free step is held when
+    every token chose the CPU's experts, else the pinned one (a top-k tie
+    that fell the other way moves a token by a whole expert's output), and
+    both are printed."""
     from repro_torch import bridge
     from repro_torch.train import AdamWConfig, init_train_state, make_train_step
 
     state_cpu = init_train_state(cfg, torch.Generator().manual_seed(0))
-    state_gpu = _to(state_cpu, "cuda")
+    runs = ("card",) if router is None else ("card", "card pinned")
+    states = {run: _to(state_cpu, "cuda") for run in runs}
     step = make_train_step(cfg, AdamWConfig())
-    t0 = time.perf_counter()
-    state_gpu, mg = step(state_gpu, _to(batch, "cuda"))
-    torch.cuda.synchronize()
-    gpu_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    state_cpu, mc = step(state_cpu, batch)
-    cpu_s = time.perf_counter() - t0
-    loss_g, loss_c = float(mg["loss"]), float(mc["loss"])
-    gn_g, gn_c = float(mg["grad_norm"]), float(mc["grad_norm"])
-    worst = max(
-        rel(a.cpu(), b) for (_, a), (_, b) in zip(bridge.flatten(state_gpu["opt"]["m"]),
-                                                  bridge.flatten(state_cpu["opt"]["m"])))
-    print(f"[train] {label}, f32 compute: loss card {loss_g:.7f} CPU {loss_c:.7f} (rel "
-          f"{abs(loss_g / loss_c - 1):.2e}, tol {TRAIN_RTOL}) | grad_norm card {gn_g:.7f} CPU "
-          f"{gn_c:.7f} (rel {abs(gn_g / gn_c - 1):.2e}) | worst leaf's m rel_l2 {worst:.2e} "
-          f"(tol {MOMENT_REL_L2}) | step {gpu_s:.3f}s card (first), {cpu_s:.3f}s CPU")
-    if not (abs(loss_g / loss_c - 1) <= TRAIN_RTOL and abs(gn_g / gn_c - 1) <= TRAIN_RTOL
-            and worst <= MOMENT_REL_L2):
+
+    def timed_step(run, state, b):
+        if router is not None:
+            router.label, router.pin = run, run == "card pinned"
+        t0 = time.perf_counter()
+        state, metrics = step(state, b)
+        loss, gn = float(metrics["loss"]), float(metrics["grad_norm"])
+        return state, loss, gn, time.perf_counter() - t0
+
+    state_cpu, loss_c, gn_c, cpu_s = timed_step("f32", state_cpu, batch)
+    res = {}
+    for run in runs:
+        state, loss_g, gn_g, gpu_s = timed_step(run, states.pop(run), _to(batch, "cuda"))
+        worst = max(rel(a.cpu(), b) for (_, a), (_, b) in zip(
+            bridge.flatten(state["opt"]["m"]), bridge.flatten(state_cpu["opt"]["m"])))
+        del state
+        ok = (abs(loss_g / loss_c - 1) <= TRAIN_RTOL and abs(gn_g / gn_c - 1) <= TRAIN_RTOL
+              and worst <= MOMENT_REL_L2)
+        res[run] = {"loss_card": loss_g, "loss_cpu": loss_c, "grad_norm_card": gn_g,
+                    "grad_norm_cpu": gn_c, "m_rel_l2": worst, "within": ok}
+        pinned = ", routing pinned to the CPU's" if run == "card pinned" else ""
+        print(f"[train] {label}, f32 compute{pinned}: loss card {loss_g:.7f} CPU {loss_c:.7f} "
+              f"(rel {abs(loss_g / loss_c - 1):.2e}, tol {TRAIN_RTOL}) | grad_norm card "
+              f"{gn_g:.7f} CPU {gn_c:.7f} (rel {abs(gn_g / gn_c - 1):.2e}) | worst leaf's m "
+              f"rel_l2 {worst:.2e} (tol {MOMENT_REL_L2}) | step {gpu_s:.3f}s card (first), "
+              f"{cpu_s:.3f}s CPU")
+    held = "card"
+    if router is not None:
+        moved = router.moved("card")
+        held = "card" if moved == 0 else "card pinned"
+        print(f"[train] {label}: token-layer pairs routed to other experts on the card than on "
+              f"the CPU {moved}; held: the {held} step")
+        res["card"]["moved"] = moved
+    if not res[held]["within"]:
         fail(f"{label}: the train step on the card disagrees with the CPU")
-    return {"loss_card": loss_g, "loss_cpu": loss_c, "grad_norm_card": gn_g,
-            "grad_norm_cpu": gn_c, "m_rel_l2": worst}
+    return res["card"] if router is None else {**res[held], "held": held, "runs": res}
 
 
 def train_card_vs_cpu() -> dict:
@@ -2356,7 +2489,7 @@ def train_card_vs_cpu() -> dict:
     from repro_torch.train import AdamWConfig, init_train_state, make_train_step
 
     cfg = get_config("mamba2-130m").replace(compute_dtype=torch.float32)
-    tokens = _mamba_batch(cfg, 2, 256, 4)
+    tokens = _token_batch(cfg, 2, 256, 4)
     res = card_against_cpu("mamba2-130m one step, batch 2 x seq 256", cfg, {"tokens": tokens})
     state_bf16 = _to(init_train_state(cfg, torch.Generator().manual_seed(0)), "cuda")
     _, mb = make_train_step(cfg.replace(compute_dtype=torch.bfloat16), AdamWConfig())(
@@ -2368,6 +2501,36 @@ def train_card_vs_cpu() -> dict:
     if not abs(ratio - 1) <= BF16_LOSS_REL:
         fail("the bf16-compute train step's loss is too far from the f32 loss")
     return {**res, "loss_bf16": loss_b, "bf16_over_f32": ratio}
+
+
+def train_archs_card_vs_cpu() -> dict:
+    """4c for every decoder family: one step of each TRAIN_CHECK_ARCHS
+    arch's smoke config, f32 compute, card against CPU (``card_against_cpu``;
+    the MoE archs with a ``RouterPin``).  internvl2-2b's batch carries patch
+    embeddings, which neither train driver's data makes."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import moe
+
+    B, S = TRAIN_CHECK_BATCH
+    out = {}
+    for i, arch in enumerate(TRAIN_CHECK_ARCHS):
+        cfg = get_smoke_config(arch).replace(compute_dtype=torch.float32)
+        batch = {"tokens": _token_batch(cfg, B, S, 20 + i)}
+        if cfg.family == "vlm":
+            rng = np.random.default_rng(40 + i)
+            batch["patch_embeds"] = torch.from_numpy(rng.normal(
+                size=(B, cfg.num_image_tokens, cfg.d_model)).astype(np.float32))
+        router = RouterPin(moe, cfg.num_layers - cfg.moe.first_dense) \
+            if cfg.family == "moe" else None
+        if router is not None:
+            moe._router = router
+        try:
+            out[arch] = card_against_cpu(f"{arch} smoke, one step, batch {B} x seq {S}", cfg,
+                                         batch, router)
+        finally:
+            if router is not None:
+                moe._router = router.real
+    return out
 
 
 def loss_falls(label: str, cfg, batch: dict) -> dict:
@@ -2402,7 +2565,7 @@ def train_loss_falls() -> dict:
     from repro_torch.configs import get_config
 
     cfg = get_config("mamba2-130m")
-    return loss_falls("mamba2-130m", cfg, {"tokens": _mamba_batch(cfg, 2, 256, 5).cuda()})
+    return loss_falls("mamba2-130m", cfg, {"tokens": _token_batch(cfg, 2, 256, 5).cuda()})
 
 
 def _sliced_run_group(cfg, group, gparams, x, positions, gcache, ctx):
@@ -2615,6 +2778,7 @@ def phase_train(gpu: str, fresh_ssd_launches: int) -> dict:
         out["restart"] = train_restart(run_dir)
         torch.cuda.empty_cache()
         out["card_vs_cpu"] = train_card_vs_cpu()
+        out["card_vs_cpu_archs"] = train_archs_card_vs_cpu()
         torch.cuda.empty_cache()
         out["loss_falls"] = train_loss_falls()
         torch.cuda.empty_cache()
@@ -2992,17 +3156,23 @@ def phase_roofline(gpu: str, counted: dict) -> dict:
 
 
 def phase_examples() -> dict:
-    """Phase 6: the two examples, as a user runs them, on the card."""
+    """Phase 6: the four examples, as a user runs them, on the card.  The
+    quickstart's sums and products are held to numpy's on the host; the
+    active-learning loop runs on the CPU too, and the card must select the
+    same candidates with the same scores (EXAMPLE_SCORE_RTOL / _ATOL)."""
     import importlib.util
 
     out = {}
-    for name in ("serve_batched_torch", "train_lm_torch"):
+    for name in ("serve_batched_torch", "train_lm_torch", "quickstart_torch",
+                 "active_learning_torch"):
         spec = importlib.util.spec_from_file_location(name, ROOT / "examples" / f"{name}.py")
         mod = importlib.util.module_from_spec(spec)
         spec.loader.exec_module(mod)
         t0 = time.perf_counter()
         res = mod.main([])
         secs = time.perf_counter() - t0
+        if name in ("quickstart_torch", "active_learning_torch") and res["device"] != "cuda":
+            fail(f"{name} ran on {res['device']}, not the card")
         if name == "serve_batched_torch":
             if len(res["outputs"]) != mod.REQUESTS:
                 fail(f"{name}: served {len(res['outputs'])}/{mod.REQUESTS} requests")
@@ -3010,9 +3180,37 @@ def phase_examples() -> dict:
                 fail(f"{name}: the restored params are not on the card")
             out[name] = {"seconds": secs, "requests": len(res["outputs"]),
                          "batches": res["server"]["batches"]}
-        else:
+        elif name == "train_lm_torch":
             out[name] = {"seconds": secs, "first_loss": res["log"][0]["loss"],
                          "last_loss": res["log"][-1]["loss"], "steps": len(res["log"])}
+        elif name == "quickstart_torch":
+            data = np.random.default_rng(0).normal(size=(512, 512))
+            grams = [x @ x.T for x in (data, data * 2)]
+            gram_err = max(float(np.abs(c[3] - g).max() / np.abs(g).max())
+                           for c, g in zip(res["c"], grams))
+            sum_err = max(abs(res[k] / float(data.sum()) - 1) for k in ("a", "b"))
+            out[name] = {"seconds": secs, "sum": res["a"], "sum_rel_err": sum_err,
+                         "gram_rel_err": gram_err, "store_bytes": res["store_bytes"],
+                         "scheduler_bytes": res["scheduler_bytes"]}
+            if sum_err > 1e-12 or gram_err > 1e-12 or not all(
+                    c[1] and c[2] == (512, 512) for c in res["c"]) or len(res["c"]) != 2:
+                fail(f"{name}: the card's results are not numpy's: {out[name]}")
+        else:
+            t1 = time.perf_counter()
+            cpu = mod.main(["--device", "cpu"])
+            cpu_secs = time.perf_counter() - t1
+            scores = lambda r: np.asarray(r["baseline"]["scores"])  # noqa: E731
+            score_err = float(np.abs(scores(res) - scores(cpu)).max())
+            same = res["baseline"]["selected"] == cpu["baseline"]["selected"]
+            close = np.allclose(scores(res), scores(cpu), rtol=EXAMPLE_SCORE_RTOL,
+                                atol=EXAMPLE_SCORE_ATOL)
+            out[name] = {
+                "seconds": secs, "cpu_seconds": cpu_secs, "selected": res["baseline"]["selected"],
+                "same_selection_as_cpu": same, "max_score_err_vs_cpu": score_err,
+                **{f"{run}_{key}": res[run][key] for run in ("baseline", "proxied")
+                   for key in ("seconds", "scheduler_bytes")}}
+            if not (same and close):
+                fail(f"{name}: the card's loop is not the CPU's: {out[name]}")
         print(f"[examples] {name}: {out[name]}")
     return out
 
@@ -3035,6 +3233,7 @@ def main() -> int:
 
     def done(label: str) -> float:
         """Print a part's seconds and the run's so far; returns the part's."""
+        gc.collect()  # a model's tens of GB must be gone before the next arch's
         torch.cuda.empty_cache()
         marks.append(time.perf_counter())
         secs = marks[-1] - marks[-2]
@@ -3047,7 +3246,9 @@ def main() -> int:
     prefill_kernels = {"hymba": {"flash_attention": fa.pop("hymba"), "ssd_scan": ssd.pop("hymba")},
                        "kimi": {"flash_attention": fa.pop("kimi")},
                        "whisper": {"flash_attention": {"encoder": fa.pop("whisper_encoder"),
-                                                       "decoder": fa.pop("whisper_decoder")}}}
+                                                       "decoder": fa.pop("whisper_decoder")}},
+                       **{name: {"flash_attention": fa.pop(name)}
+                          for name in ("phi4", "internvl2", "starcoder2", "granite")}}
     qwen_decode, fp_detail = phase_model(fp)
     done("phase 2 qwen2.5-3b and the fingerprint's path")
     decode = {"qwen2.5-3b": qwen_decode, "mamba2-130m": phase_model_mamba()}
@@ -3060,16 +3261,20 @@ def main() -> int:
     done("phase 2 deepseek-v2-lite")
     whisper = phase_model_whisper()
     done("phase 2 whisper-tiny")
+    dense_models = {}
+    for arch in DENSE_ARCHS:
+        dense_models[arch] = phase_model_dense(arch)
+        done(f"phase 2 {arch}")
     served = {}
     for argv in (SERVE_ARGS, MAMBA_SERVE_ARGS, HYMBA_SERVE_ARGS, KIMI_SERVE_ARGS,
-                 DEEPSEEK_SERVE_ARGS):
+                 DEEPSEEK_SERVE_ARGS, *DENSE_SERVE_ARGS.values()):
         arch = argv[argv.index("--arch") + 1]
-        served[arch] = (phase_serve_cut if arch in MOE_CUTS else phase_serve)(argv)
+        served[arch] = (phase_serve_cut if arch in CONFIG_CUTS else phase_serve)(argv)
         done(f"phase 3 {arch} serve")
     served["whisper-tiny"] = phase_serve_whisper()
     done("phase 3 whisper-tiny serve")
-    # every serve path's launches: qwen's, hymba's, kimi's and whisper's
-    # flash, mamba's and hymba's ssd_scan
+    # every serve path's launches: every attention arch's flash but
+    # deepseek's, mamba's and hymba's ssd_scan
     for entry in (fa, ssd):
         entry["launches"] = sum(res["launches"][entry["name"]] for res in served.values())
 
@@ -3085,7 +3290,8 @@ def main() -> int:
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
-        {**result, "serve": served, "decode": decode, "moe_models": moe_models, "whisper": whisper,
+        {**result, "serve": served, "decode": decode, "moe_models": moe_models,
+         "dense_models": dense_models, "whisper": whisper,
          "fingerprint": fp_detail, "prefill_kernels": prefill_kernels, "train": trained,
          "distribution": distribution, "examples": examples, "gpu": gpu}, indent=1))
     print(json.dumps(result))

@@ -21,11 +21,16 @@ import torch
 def to_tensor(x: Any, *, device: Any) -> torch.Tensor:
     """An ndarray-like or a tensor (or a proxy of either) as a tensor on ``device``.
 
-    ``np.array`` copies into a writable array first: ``torch.as_tensor`` on a
-    proxy takes the forwarded ``__dlpack__`` of a read-only array and raises
-    ``BufferError``, and ``torch.from_numpy`` warns on read-only memory.
+    A proxy is resolved first: its class reads as the tensor's it was made
+    from, but a store decodes a tensor as an ndarray, so its target may be
+    one.  ``np.array`` copies into a writable array: ``torch.as_tensor`` on a
+    read-only array's ``__dlpack__`` raises ``BufferError``, and
+    ``torch.from_numpy`` warns on read-only memory.
     """
-    if isinstance(x, torch.Tensor):  # a proxy answers with its target's class
+    from repro_torch.core.proxy import extract
+
+    x = extract(x)
+    if isinstance(x, torch.Tensor):
         return x.detach().to(device)
     arr = np.array(x)
     if arr.dtype.name == "bfloat16":  # ml_dtypes: carry the bits across

@@ -27,9 +27,12 @@ it, and ``chip_smoke.py`` drives them.
     python -m repro_torch.launch.serve --arch hymba-1.5b --batch 4 \
         --prompt-len 2048 --gen 32 --requests 8
 
-kimi-k2's config does not fit one card (4.1 TB of f32 params), and
-deepseek-v2-lite's f32 params are 62.8 GB; ``chip_smoke.py`` serves both
-through this module with bf16 params, kimi cut to 2 layers.
+kimi-k2's config does not fit one card (4.1 TB of f32 params), and the f32
+params of deepseek-v2-lite, starcoder2-15b and granite-20b are 62.8, 63.8
+and 112.7 GB; ``chip_smoke.py`` serves all four through this module with
+bf16 params, kimi cut to 2 layers, the others at full depth.  The other
+dense archs (qwen2.5-3b, phi4-mini-3.8b, internvl2-2b) serve as configured;
+internvl2-2b's requests are tokens alone, as the JAX driver's are.
 
 Runs on ``cuda`` unless ``--device cpu`` is given; it never falls back to the
 CPU on its own.  ``--run-dir`` serves a training run's latest checkpoint

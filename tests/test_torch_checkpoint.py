@@ -173,6 +173,16 @@ def test_lazy_restore_returns_proxies(store, tmp_path):
     assert t.dtype == torch.float64 and torch.equal(t, torch.zeros(64, dtype=torch.float64))
 
 
+def test_to_tensor_takes_a_proxy_of_a_tensor(store):
+    """The store decodes a tensor as an ndarray; the proxy's class still
+    reads as the tensor's."""
+    t = torch.arange(12.0).reshape(3, 4)
+    p = store.proxy(t)
+    assert is_proxy(p) and isinstance(p, torch.Tensor) and not is_resolved(p)
+    got = bridge.to_tensor(p, device="cpu")
+    assert type(got) is torch.Tensor and torch.equal(got, t)
+
+
 def test_bfloat16_leaves_travel_as_raw_bits(store, tmp_path):
     w = torch.randn(5, 7, generator=torch.Generator().manual_seed(3)).to(torch.bfloat16)
     mgr = CheckpointManager(store, str(tmp_path / "b.json"))

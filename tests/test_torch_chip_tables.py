@@ -1,0 +1,86 @@
+"""``chip_smoke.py``'s tables against the configs they stand for.
+
+The card run holds every serve path to ``SERVE_LAUNCHES`` exactly and times
+K1 at the ``FA_*`` prefill shapes, so a table that drifts from its config
+would hold the card to the wrong count or time a shape no model runs.  Here,
+on the CPU: a dense arch's K1 launches a prefill are its layer count (every
+layer's prompt attention), each model's prefill shape is (serving batch 4,
+its heads, its K/V heads, the 1024-token prompt, its head dim, causal), the
+dense archs' serve arguments and config cuts, and the ``kernels`` line's
+sums over the serve paths.
+"""
+
+from __future__ import annotations
+
+import pytest
+import torch
+
+import chip_smoke
+from repro_torch.configs import get_config, list_archs
+from repro_torch.launch.serve import parse_args
+
+torch.set_num_threads(1)
+
+DENSE = ["qwen2.5-3b", *chip_smoke.DENSE_ARCHS]
+PREFILLS = {
+    "phi4-mini-3.8b": chip_smoke.FA_PHI4,
+    "internvl2-2b": chip_smoke.FA_INTERNVL2,
+    "starcoder2-15b": chip_smoke.FA_STARCODER2,
+    "granite-20b": chip_smoke.FA_GRANITE,
+    "kimi-k2-1t-a32b": chip_smoke.FA_KIMI,
+}
+
+
+def test_the_new_dense_archs_are_the_four_of_this_slice():
+    assert chip_smoke.DENSE_ARCHS == ("phi4-mini-3.8b", "internvl2-2b", "starcoder2-15b",
+                                      "granite-20b")
+
+
+@pytest.mark.parametrize("arch", DENSE)
+def test_dense_serve_launches_flash_once_a_layer(arch):
+    cfg = chip_smoke.cut_config(arch)
+    assert chip_smoke.SERVE_LAUNCHES[arch] == {"flash_attention": cfg.num_layers}
+    assert cfg.num_layers == get_config(arch).num_layers  # no layer is cut
+
+
+@pytest.mark.parametrize("arch", list(PREFILLS))
+def test_prefill_shape_is_the_models(arch):
+    cfg = get_config(arch)
+    shape = PREFILLS[arch]
+    assert shape == (4, cfg.num_heads, cfg.num_kv_heads, 1024, 1024, cfg.head_dim, True)
+    assert shape in chip_smoke.FA_BF16_EDGES and shape in chip_smoke.FA_PREFILLS
+
+
+@pytest.mark.parametrize("arch", chip_smoke.DENSE_ARCHS)
+def test_dense_serve_args_are_the_serving_cell(arch):
+    args = parse_args(chip_smoke.DENSE_SERVE_ARGS[arch])
+    assert (args.arch, args.batch, args.prompt_len, args.gen, args.requests, args.device) == (
+        arch, 4, 1024, 32, 8, "cuda")
+    assert not args.smoke
+
+
+def test_config_cuts_keep_full_depth_but_kimi():
+    for arch, cut in chip_smoke.CONFIG_CUTS.items():
+        assert cut.get("param_dtype") == torch.bfloat16, arch
+        assert set(cut) == ({"num_layers", "param_dtype"} if arch == "kimi-k2-1t-a32b"
+                            else {"param_dtype"}), arch
+    assert "phi4-mini-3.8b" not in chip_smoke.CONFIG_CUTS  # f32 params fit
+    assert "internvl2-2b" not in chip_smoke.CONFIG_CUTS
+
+
+def test_kernels_line_sums_the_serve_paths():
+    """8 requests in batches of 4: two prefills on every serve path."""
+    served = [argv[argv.index("--arch") + 1] for argv in (
+        chip_smoke.SERVE_ARGS, chip_smoke.MAMBA_SERVE_ARGS, chip_smoke.HYMBA_SERVE_ARGS,
+        chip_smoke.KIMI_SERVE_ARGS, chip_smoke.DEEPSEEK_SERVE_ARGS,
+        *chip_smoke.DENSE_SERVE_ARGS.values())] + ["whisper-tiny"]
+    assert sorted(served) == sorted(chip_smoke.SERVE_LAUNCHES)
+    total = {k: 2 * sum(chip_smoke.SERVE_LAUNCHES[a].get(k, 0) for a in served)
+             for k in ("flash_attention", "ssd_scan")}
+    assert total == {"flash_attention": 394, "ssd_scan": 112}
+
+
+def test_every_decoder_only_arch_is_trained_card_against_cpu():
+    """Phase 4c: mamba2-130m by its own step, the other eight here."""
+    decoders = {a for a in list_archs() if not get_config(a).is_encdec} - {"mamba2-130m"}
+    assert set(chip_smoke.TRAIN_CHECK_ARCHS) == decoders

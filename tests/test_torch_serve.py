@@ -11,7 +11,10 @@ tokens are equal.  hymba's prompts (28 tokens) are longer than its window
 (16), and its decode's write slot runs past the end of the local layers'
 rings and back to slot 0.  kimi-k2 and deepseek-v2-lite serve through the
 MoE layers' dense form, as the JAX serve driver's ``decode=True`` context
-makes it take, and deepseek's MLA through its latent cache.
+makes it take, and deepseek's MLA through its latent cache.  The other
+dense archs (phi4-mini-3.8b's tied head, internvl2-2b's VLM family served
+on tokens alone, as the JAX driver serves it, starcoder2-15b's LayerNorm and
+GELU with biases, granite-20b's single K/V head) serve as qwen2.5-3b does.
 """
 
 from __future__ import annotations
@@ -67,6 +70,15 @@ def served_mamba():
 
 @pytest.fixture(scope="module", params=["kimi-k2-1t-a32b", "deepseek-v2-lite-16b"])
 def served_moe(request):
+    args = parse_args(ARGS + ["--arch", request.param])
+    return args, serve(args)
+
+
+DENSE_ARCHS = ["phi4-mini-3.8b", "internvl2-2b", "starcoder2-15b", "granite-20b"]
+
+
+@pytest.fixture(scope="module", params=DENSE_ARCHS)
+def served_dense(request):
     args = parse_args(ARGS + ["--arch", request.param])
     return args, serve(args)
 
@@ -155,5 +167,21 @@ def test_serve_moe_answers_every_request(served_moe):
 
 def test_serve_moe_tokens_equal_a_jax_greedy_loop(served_moe):
     args, res = served_moe
+    expect = _jax_greedy(args.arch, res["prompts"], args.gen)
+    np.testing.assert_array_equal(np.stack(res["outputs"]), expect)
+
+
+def test_serve_dense_answers_every_request(served_dense):
+    args, res = served_dense
+    cfg = get_smoke_config(args.arch)
+    assert args.arch in DENSE_ARCHS and len(res["outputs"]) == 5
+    assert res["prefills"] == res["server"]["batches"] >= 3
+    assert res["kernel_launches"] == {"flash_attention": 0, "ssd_scan": 0}  # CPU
+    for out in res["outputs"]:
+        assert out.shape == (args.gen,) and 0 <= out.min() and out.max() < cfg.vocab_size
+
+
+def test_serve_dense_tokens_equal_a_jax_greedy_loop(served_dense):
+    args, res = served_dense
     expect = _jax_greedy(args.arch, res["prompts"], args.gen)
     np.testing.assert_array_equal(np.stack(res["outputs"]), expect)
