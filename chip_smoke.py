@@ -22,7 +22,16 @@ Phases, each of which must pass (any failure exits non-zero):
      be rejected (at every model's prefill too, with "causal mask applied"
      for "non-causal" at whisper's encoder); the f32 scalar kernel is timed
      there too, and the other models' prefills are timed beside SDPA on K/V
-     repeated over the group (non-causal for the encoder);
+     repeated over the group (non-causal for the encoder); then the contract
+     past the models' head dims and dtype (``check_flash_contract``): head
+     dims 72, 80, 96, 112, 160 and 256 x {float32, bfloat16, float16} x
+     causal / non-causal at 300 rows, V = identity at 80, 96 and 256, and
+     the prefills of ``FA_CONTRACT`` (phi-2's hd 80, Phi-3-mini's 96,
+     Gemma-2-2B's 256, qwen2.5-3b's in float16 (tolerance 5e-3 / 2.5e-3), hd
+     112 padded to 128 at qwen's heads, and the first three in float32) on
+     the model's views (uncopied) and on contiguous inputs, causal and
+     non-causal, with both faults planted each way, every launch and pad
+     counted, timed beside SDPA with the wrapper's host cost;
    * the SSD scan over the kernel test shapes x {float32, bfloat16}
      (tolerance 5e-4 / 3e-2 on y and the final state, plus a per-step
      relative L2 limit on y), over bf16 shapes at the tensor-core kernel's
@@ -32,7 +41,14 @@ Phases, each of which must pass (any failure exits non-zero):
      output), and at mamba2-130m's serving prefill geometry, where three
      planted faults must be rejected; timed there by both methods, with
      the wrapper's host cost, the f32 kernel and batch 8 beside it, and
-     timed at hymba's prefill;
+     timed at hymba's prefill; then the contract past 128 and bf16
+     (``check_ssd_contract``): (N, chunk) of ``SSD_CONTRACT_SWEEP`` in three
+     dtypes at 300 steps, and mamba2-130m's prefill at chunk 256 (equal bit
+     for bit to chunk 128: its two sub-chunks), at N = 256 (two state tiles
+     and the tile sum, counted) and in float16 (the f32 kernel; tolerance
+     5e-3 / 2.5e-3), and the first two in float32 and all three together in
+     float16, on the model's views and on B/C per head, the three faults
+     planted, timed with the wrapper's host cost;
    * the tensor fingerprint, where tokens must be equal, not close: the
      kernel gives every pinned JAX token of ``FP_GOLDEN``, equals the plain
      version over byte lengths that straddle word and block edges and the
@@ -53,7 +69,9 @@ Phases, each of which must pass (any failure exits non-zero):
    on the CPU (prefill and decode logits); the full-width bf16 model
    through the kernels, block by block no further from an f32-compute run
    than the reference path is (the planted faults must fail this check
-   too); then a breakdown of the serving decode step (host time, device
+   too; qwen2.5-3b once more with float16 compute, 36 K1 launches on the
+   f16 instance, and mamba2-130m once more at mamba_ssm's chunk of 256, 24
+   K2 launches); then a breakdown of the serving decode step (host time, device
    kernel time, bound).  hymba's run is a 2048-token prefill (3 flash and
    32 SSD launches, exactly) and decode steps that write past the end of
    its local layers' 1024-slot rings, checked also at every decode step's
@@ -193,7 +211,7 @@ import torch
 ROOT = Path(__file__).resolve().parent
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, f32 CUDA cores, HBM3
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_FLOPS = {"bfloat16": 989e12, "float16": 989e12, "float32": 67e12}
 PEAK_BYTES = 3.35e12
 
 # (B, H, KV, Sq, Skv, hd, causal): the kernel test shapes of the JAX package
@@ -210,8 +228,10 @@ FA_SHAPES = [
 # (the JAX kernel sweep's tolerances), and for every query row the relative
 # L2 error over (B, H, hd) within ROW_REL_TOL, so that a fault confined to a
 # few late rows, whose outputs are small, cannot hide under the first limit.
-TOL = {"float32": 2e-4, "bfloat16": 2e-2}
-ROW_REL_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
+# float16's limits are a quarter of bfloat16's: its 10-bit mantissa rounds P
+# and the output 8x finer than bfloat16's 7 bits, the same products else
+TOL = {"float32": 2e-4, "bfloat16": 2e-2, "float16": 5e-3}
+ROW_REL_TOL = {"float32": 1e-4, "bfloat16": 1e-2, "float16": 2.5e-3}
 # hymba-1.5b's serving prefill in its three global layers: 25 q heads in 5
 # groups of 5 (an odd group), hd 64, built as the model's strided views
 FA_HYMBA = (4, 25, 5, 2048, 2048, 64, True)
@@ -253,7 +273,26 @@ FA_BF16_EDGES = [
 FA_PREFILLS = {FA_HYMBA: "hymba", FA_KIMI: "kimi", FA_WHISPER_ENC: "whisper_encoder",
                FA_WHISPER_DEC: "whisper_decoder", FA_PHI4: "phi4", FA_INTERNVL2: "internvl2",
                FA_STARCODER2: "starcoder2", FA_GRANITE: "granite"}
-FAULT_TILE = 128  # keys per K/V tile of the bf16 kernel (kRows in flash_attention.cu)
+FAULT_TILE = 128  # keys per K/V tile of the 16-bit kernel (64 at hd 256: kKeys)
+# K1's contract past the models above (``kernel.HEAD_DIMS``, ``kernel_route``):
+# public models' prefills at head dims 80, 96 and 256, qwen2.5-3b's in
+# float16, a head dim the wrapper pads (112 -> 128) at qwen's heads, and the
+# first three in float32.  (B, H, KV, S, hd) and dtype; each runs on the
+# model's views causal (timed, faults planted) and non-causal (faults) and
+# on contiguous inputs both ways
+FA_CONTRACT = {
+    "phi-2 hd 80": ((4, 32, 32, 1024, 80), torch.bfloat16),
+    "phi-3-mini hd 96": ((4, 32, 32, 1024, 96), torch.bfloat16),
+    "gemma-2-2b hd 256": ((4, 8, 4, 1024, 256), torch.bfloat16),
+    "qwen2.5-3b float16": ((4, 16, 2, 1024, 128), torch.float16),
+    "qwen heads hd 112, padded to 128": ((4, 16, 2, 1024, 112), torch.bfloat16),
+    "phi-2 hd 80 float32": ((4, 32, 32, 1024, 80), torch.float32),
+    "phi-3-mini hd 96 float32": ((4, 32, 32, 1024, 96), torch.float32),
+    "gemma-2-2b hd 256 float32": ((4, 8, 4, 1024, 256), torch.float32),
+}
+# every head dim the wrapper takes past the old four (instances and pads) x
+# {float32, bfloat16, float16} x causal / non-causal, at a ragged 300 rows
+FA_CONTRACT_HDS = (72, 80, 96, 112, 160, 256)
 # Full-width bf16 forward: over every block of FORWARD_BLOCK tokens, the
 # flash path's relative L2 distance from an f32-compute forward is at most
 # FORWARD_NOISE times the reference path's
@@ -292,8 +331,10 @@ SSD_SHAPES = [
 # final state (the JAX sweep's tolerances), and for every time step the
 # relative L2 error of y over (B, H, P), so that a fault confined to a few
 # steps (a chunk boundary, the first steps) cannot hide under the first limit
-SSD_TOL = {"float32": 5e-4, "bfloat16": 3e-2}
-SSD_STEP_REL_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
+# float16 runs the f32 kernel on widened inputs, so only y's rounding to
+# float16 differs from float32's contract: a quarter of bfloat16's limits
+SSD_TOL = {"float32": 5e-4, "bfloat16": 3e-2, "float16": 5e-3}
+SSD_STEP_REL_TOL = {"float32": 1e-4, "bfloat16": 1e-2, "float16": 2.5e-3}
 SSD_CHUNK = 128  # mamba2-130m's chunk: the model check's block of tokens
 # hymba-1.5b's serving prefill: 25 heads, N = 16 (the kernel stages 128 state
 # columns, so seven eighths of them are zero padding), B and C broadcast
@@ -307,6 +348,24 @@ SSD_BF16_EDGES = [
     (2, 256, 24, 64, 128, False),
     SSD_HYMBA,
 ]
+# K2's contract past the models above (``kernel.MAX_CHUNK``, ``MAX_STATE``):
+# mamba2-130m's prefill at mamba_ssm's default chunk of 256, at a state of
+# 256 columns (two tiles and the tile sum), and in float16, then the first
+# two and all three together in the other dtypes.  ((B, S, H, P, N), chunk,
+# dtype); each runs on the model's head-broadcast B and C (timed, faults
+# planted) and on B and C per head
+MAMBA_UPSTREAM_CHUNK = 256  # mamba_ssm's Mamba2 default chunk_size
+SSD_CONTRACT = {
+    "mamba2-130m chunk 256": ((4, 1024, 24, 64, 128), 256, torch.bfloat16),
+    "mamba2-130m N = 256": ((4, 1024, 24, 64, 256), 128, torch.bfloat16),
+    "mamba2-130m float16": ((4, 1024, 24, 64, 128), 128, torch.float16),
+    "mamba2-130m chunk 256 float32": ((4, 1024, 24, 64, 128), 256, torch.float32),
+    "mamba2-130m N = 256 float32": ((4, 1024, 24, 64, 256), 128, torch.float32),
+    "mamba2-130m chunk 256, N = 256, float16": ((4, 1024, 24, 64, 256), 256, torch.float16),
+}
+# (N, chunk) at a ragged 300 steps in every dtype: a ragged second state tile
+# (200), two tiles, and the sub-chunks at ragged lengths
+SSD_CONTRACT_SWEEP = [(128, 256), (200, 128), (200, 256), (256, 128), (256, 256)]
 # Planted faults the SSD checks must reject (each built from wrapper calls)
 SSD_FAULTS = ("state not carried across chunks", "initial state ignored",
               "final state dropped")
@@ -601,12 +660,12 @@ def check_flash(gen) -> dict:
             fail(f"flash {label} {dname}: kernel disagrees with the plain version")
         return err, ref
 
-    def faults_rejected(q, k, v, causal, ref):
+    def faults_rejected(q, k, v, causal, ref, dname="bfloat16"):
         """Each planted fault of a causal (FAULTS) or non-causal
         (NON_CAUSAL_FAULTS) call must fail ``compare``."""
         for fault in FAULTS if causal else NON_CAUSAL_FAULTS:
             bad = plant_fault(flash_attention_gqa, fault, 2)(q, k, v, causal=causal)
-            b_err, b_row, b_within, b_row_ok = compare(bad, ref, "bfloat16")
+            b_err, b_row, b_within, b_row_ok = compare(bad, ref, dname)
             verdict = lambda ok: "passed" if ok else "rejected"  # noqa: E731
             print(f"[flash] planted fault '{fault}': max_abs_err {b_err:.3e} "
                   f"({verdict(b_within)}) row rel_l2 {b_row:.3e} ({verdict(b_row_ok)})")
@@ -689,6 +748,8 @@ def check_flash(gen) -> dict:
           f"({times['flops']:.4e} FLOP, {times['bytes']} B) | f32 scalar kernel {f32_ms:.4f} ms"
           f" | wrapper host time {host_us:.1f} us a call | card only (card slept first): kernel "
           f"{times['card_ms']:.4f} ms, sdpa {times['card_library_ms']:.4f} ms")
+    del q, k, v, ref, q32, k32, v32
+    contract = check_flash_contract(contiguous, model_views, held, faults_rejected)
     return {
         "name": "flash_attention",
         "route": "cuda",
@@ -698,7 +759,79 @@ def check_flash(gen) -> dict:
         "max_abs_err": err,
         **{key: times[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
         **prefills,
+        "contract": contract,
     }
+
+
+def check_flash_contract(contiguous, model_views, held, faults_rejected) -> dict:
+    """K1 past the models' head dims and dtype (``check_flash``'s helpers):
+    every head dim of FA_CONTRACT_HDS in three dtypes at a ragged length,
+    V = identity at the new instances, then each FA_CONTRACT prefill on the
+    model's views (TMA-ready, uncopied; the launch and any pad counted)
+    causal and non-causal with the planted faults, on contiguous inputs
+    both ways, and timed as the prefills are, with the wrapper's host cost
+    and, for a padded head dim, the pad's own time."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.kernel import kernel_route, tma_ready
+
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        dname = str(dtype).split(".")[-1]
+        for hd in FA_CONTRACT_HDS:
+            for causal in (True, False):
+                shape = (2, 8, 2, 300, 300, hd, causal)
+                held(shape, dname, *contiguous(*shape[:6], dtype), causal)
+        if dtype != torch.float32:
+            for hd in (80, 96, 256):  # P read back through each new V layout
+                q, k, _ = contiguous(1, 4, 2, 128, hd, hd, dtype)
+                eye = torch.eye(hd, device="cuda", dtype=dtype).expand(1, 2, hd, hd)
+                held(f"{(1, 4, 2, 128, hd, hd, False)} V = identity", dname, q * 3, k, eye, False)
+    contract = {}
+    for name, ((B, H, KV, S, hd), dtype) in FA_CONTRACT.items():
+        dname = str(dtype).split(".")[-1]
+        kernel, width, padded = kernel_route(hd, dtype)
+        qkv = model_views(B, H, KV, S, S, hd, dtype)
+        if dtype != torch.float32 and not all(tma_ready(t) for t in qkv):
+            fail(f"{name}: the model's strided views would be copied before the kernel")
+        n0, pads0 = fa_ops.launch_count, fa_ops.pad_count
+        err, ref = held(f"{name} {(B, H, KV, S, hd)} model views causal", dname, *qkv, True)
+        if (fa_ops.launch_count - n0, fa_ops.pad_count - pads0) != (1, int(padded)):
+            fail(f"{name}: {fa_ops.launch_count - n0} launches and {fa_ops.pad_count - pads0} "
+                 f"pads for one call (padded: {padded})")
+        faults_rejected(*qkv, True, ref, dname)
+        _, ref = held(f"{name} {(B, H, KV, S, hd)} model views non-causal", dname, *qkv, False)
+        faults_rejected(*qkv, False, ref, dname)
+        del ref
+        for causal in (True, False):
+            held(f"{name} {(B, H, KV, S, hd)} contiguous {'causal' if causal else 'non-causal'}",
+                 dname, *contiguous(B, H, KV, S, S, hd, dtype), causal)
+        t = contract[name] = {"shape": (B, H, KV, S, S, hd, True), "dtype": dname,
+                              "kernel": kernel, "instance_hd": width, "padded": padded,
+                              "max_abs_err": err, **flash_times(*qkv, causal=True),
+                              "host_us": wrapper_host_us(lambda: fa_ops.flash_attention_gqa(*qkv))}
+        pad = ""
+        if padded:
+            t["pad_ms"] = time_ms(lambda: [torch.nn.functional.pad(x, (0, width - hd))
+                                           for x in qkv])
+            pad = f" | the pad of q, k and v alone {t['pad_ms']:.4f} ms"
+        print(f"[flash] {name} ({kernel} at hd {width}): kernel {t['ms']:.4f} ms | card only "
+              f"{t['card_ms']:.4f} ms | plain {t['plain_ms']:.4f} ms | sdpa "
+              f"{t['library_ms']:.4f} ms (card only {t['card_library_ms']:.4f} ms) | bound "
+              f"{t['bound_ms']:.4f} ms ({t['bound_by']}: {t['flops']:.4e} FLOP, {t['bytes']} B) | "
+              f"wrapper host time {t['host_us']:.1f} us a call{pad}")
+        del qkv
+    return contract
+
+
+def wrapper_host_us(fn, calls: int = 100) -> float:
+    """The host's microseconds a call of ``fn`` over ``calls`` calls
+    (checks, routing, launch; the card runs behind)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t0) * 1e6 / calls
+    torch.cuda.synchronize()
+    return us
 
 
 def flash_times(q, k, v, causal: bool = True) -> dict:
@@ -844,7 +977,7 @@ def check_ssd(gen) -> dict:
             if route != ("tensor-core", "cp.async16"):
                 fail(f"hymba's prefill views take the {route} route")
             hymba = {"shape": shape, "max_abs_err": err, "route": list(route),
-                     **ssd_times(*args)}
+                     **ssd_times(*args, SSD_CHUNK)}
             print(f"[ssd] hymba prefill {shape} ({route[0]} kernel, {route[1]} loads): kernel "
                   f"{hymba['ms']:.4f} ms | card only {hymba['card_ms']:.4f} ms | plain "
                   f"{hymba['plain_ms']:.4f} ms | library none | bound {hymba['bound_ms']:.4f} ms "
@@ -878,17 +1011,10 @@ def check_ssd(gen) -> dict:
            "bfloat16", res)
     if not all(res[2:]):
         fail("ssd prefill geometry: kernel disagrees with the plain version")
-    for fault in SSD_FAULTS:
-        bad_y, bad_s = plant_ssd_fault(ssd_scan, fault)(x, a, b, c, s0, chunk=SSD_CHUNK)
-        b_err, b_step, b_within, b_step_ok = compare_ssd(bad_y, bad_s, y_ref, s_ref, "bfloat16")
-        verdict = lambda ok: "passed" if ok else "rejected"  # noqa: E731
-        print(f"[ssd] planted fault '{fault}': max_abs_err {b_err:.3e} ({verdict(b_within)}) "
-              f"step rel_l2 {b_step:.3e} ({verdict(b_step_ok)})")
-        if b_within and b_step_ok:
-            fail(f"the kernel check does not see the planted fault '{fault}'")
+    ssd_faults_rejected((x, a, b, c, s0), SSD_CHUNK, y_ref, s_ref, "bfloat16")
 
     scan = lambda: ssd_scan(x, a, b, c, s0, chunk=SSD_CHUNK)  # noqa: E731
-    times = ssd_times(x, a, b, c, s0)
+    times = ssd_times(x, a, b, c, s0, SSD_CHUNK)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(100):  # the host's cost of a call: checks, routing, launch
@@ -902,6 +1028,7 @@ def check_ssd(gen) -> dict:
     card8_ms = time_ms(lambda: ssd_scan(x8, a8, b8, c8, s08, chunk=SSD_CHUNK), card_only=True)
     del x8, a8, b8, c8, s08, x32, b32, c32
     card_ms = times["card_ms"]
+    contract = check_ssd_contract(inputs, held)
     print(f"[ssd] prefill: kernel {times['ms']:.4f} ms | plain {times['plain_ms']:.4f} ms | "
           f"library none | bound {times['bound_ms']:.4f} ms ({times['flops']:.4e} FLOP, "
           f"{times['bytes']} B) | card only (card slept first) {card_ms:.4f} ms | wrapper host "
@@ -917,19 +1044,91 @@ def check_ssd(gen) -> dict:
         **{key: times[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by")},
         "library_ms": None,
         "hymba": hymba,
+        "contract": contract,
     }
 
 
-def ssd_times(x, a, b, c, s0) -> dict:
-    """A prefill scan's times at chunk SSD_CHUNK: the kernel, with the card
-    slept first (card only), and the plain version; the bound with its FLOP
-    and bytes."""
+def ssd_faults_rejected(args, chunk: int, y_ref, s_ref, dname: str, label: str = "") -> None:
+    """Each of SSD_FAULTS, planted in ``ssd_scan`` on ``args`` (x, a, b, c,
+    s0), must fail ``compare_ssd`` against the plain version's y and state."""
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan
+
+    for fault in SSD_FAULTS:
+        bad_y, bad_s = plant_ssd_fault(ssd_scan, fault)(*args, chunk=chunk)
+        b_err, b_step, b_within, b_step_ok = compare_ssd(bad_y, bad_s, y_ref, s_ref, dname)
+        verdict = lambda ok: "passed" if ok else "rejected"  # noqa: E731
+        print(f"[ssd] {label}planted fault '{fault}': max_abs_err {b_err:.3e} "
+              f"({verdict(b_within)}) step rel_l2 {b_step:.3e} ({verdict(b_step_ok)})")
+        if b_within and b_step_ok:
+            fail(f"the kernel check does not see the planted fault '{fault}'")
+
+
+def check_ssd_contract(inputs, held) -> dict:
+    """K2 past the models' chunk, state width and dtype (``check_ssd``'s
+    helpers): SSD_CONTRACT_SWEEP in three dtypes at a ragged length, then
+    each SSD_CONTRACT prefill on the model's head-broadcast B and C (the
+    launch and any tile sum counted; a chunk of 256 equal bit for bit to
+    its two sub-chunks of 128, the same call at chunk 128) with the planted
+    faults, on B and C per head, and timed as the prefill is."""
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.kernels.ssd_scan.kernel import kernel_route, state_tiles, sub_chunks
+
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        dname = str(dtype).split(".")[-1]
+        for N, chunk in SSD_CONTRACT_SWEEP:
+            held((2, 300, 4, 64, N, chunk), dname, *inputs(2, 300, 4, 64, N, dtype), chunk)
+    contract = {}
+    for name, ((B, S, H, P, N), chunk, dtype) in SSD_CONTRACT.items():
+        dname = str(dtype).split(".")[-1]
+        x, a, b, c, s0 = inputs(B, S, H, P, N, dtype, shared_bc=True)
+        route, tiles = kernel_route(x, b, c), state_tiles(N)
+        n0, sums0 = ssd_ops.launch_count, ssd_ops.tile_sum_count
+        err = held((B, S, H, P, N, chunk, f"{name}, shared B/C"), dname, x, a, b, c, s0, chunk)
+        if (ssd_ops.launch_count - n0, ssd_ops.tile_sum_count - sums0) != (1, int(tiles > 1)):
+            fail(f"{name}: {ssd_ops.launch_count - n0} launches and "
+                 f"{ssd_ops.tile_sum_count - sums0} tile sums for one call ({tiles} tiles)")
+        if chunk > SSD_CHUNK:
+            y, sf = ssd_ops.ssd_scan(x, a, b, c, s0, chunk=chunk)
+            y128, s128 = ssd_ops.ssd_scan(x, a, b, c, s0, chunk=SSD_CHUNK)
+            same = torch.equal(y, y128) and torch.equal(sf, s128)
+            print(f"[ssd] {name}: chunk {chunk} runs as {sub_chunks(chunk)[0]} sub-chunks of "
+                  f"{sub_chunks(chunk)[1]} rows, equal to the chunk-{SSD_CHUNK} call bit for bit: "
+                  f"{same}")
+            if not same:
+                fail(f"{name}: chunk {chunk} is not its sub-chunks of {sub_chunks(chunk)[1]}")
+            del y, sf, y128, s128
+        y_ref, s_ref = ssd_plain(x, a, b, c, s0)
+        ssd_faults_rejected((x, a, b, c, s0), chunk, y_ref, s_ref, dname, f"{name} ")
+        del y_ref, s_ref
+        held((B, S, H, P, N, chunk, f"{name}, B/C per head"), dname,
+             *inputs(B, S, H, P, N, dtype), chunk)
+        scan = lambda: ssd_ops.ssd_scan(x, a, b, c, s0, chunk=chunk)  # noqa: E731
+        t = contract[name] = {"shape": (B, S, H, P, N), "chunk": chunk, "dtype": dname,
+                              "route": list(route), "state_tiles": tiles, "max_abs_err": err,
+                              **ssd_times(x, a, b, c, s0, chunk),
+                              "host_us": wrapper_host_us(scan)}
+        print(f"[ssd] {name} {(B, S, H, P, N)} chunk {chunk} ({route[0]} kernel, {tiles} state "
+              f"tile{'s' if tiles > 1 else ''}): kernel {t['ms']:.4f} ms | card only "
+              f"{t['card_ms']:.4f} ms | plain {t['plain_ms']:.4f} ms | library none | bound "
+              f"{t['bound_ms']:.4f} ms ({t['bound_by']}: {t['flops']:.4e} FLOP, {t['bytes']} B) | "
+              f"wrapper host time {t['host_us']:.1f} us a call")
+        del x, a, b, c, s0
+    return contract
+
+
+def ssd_times(x, a, b, c, s0, chunk: int) -> dict:
+    """A prefill scan's times at ``chunk``: the kernel, with the card slept
+    first (card only), and the plain version; the bound with its FLOP and
+    bytes, the FLOP those of the chunks the kernel runs (a chunk over 128
+    rows as its sub-chunks)."""
+    from repro_torch.kernels.ssd_scan.kernel import sub_chunks
     from repro_torch.kernels.ssd_scan.ops import ssd_scan
 
     B, S, H, P = x.shape
     N = b.shape[-1]
-    scan = lambda: ssd_scan(x, a, b, c, s0, chunk=SSD_CHUNK)  # noqa: E731
-    Q, n_chunks = SSD_CHUNK, -(-S // SSD_CHUNK)
+    scan = lambda: ssd_scan(x, a, b, c, s0, chunk=chunk)  # noqa: E731
+    Q = sub_chunks(chunk)[1]
+    n_chunks = -(-S // Q)
     # per chunk: C B^T, its product with X, C S^T and the state update
     flops = (2 * Q * Q * N + 2 * Q * Q * P + 2 * Q * N * P + 2 * P * Q * N) * n_chunks * B * H
     el = x.element_size()
@@ -1246,7 +1445,8 @@ def forward_check(tx, cfg, params, toks, label: str, **fwd) -> dict:
     ratio = (block_rel(out, exact, FORWARD_BLOCK) / noise).max().item()
     err = (out.float() - ref.float()).abs().max().item()
     B, S = toks.shape
-    print(f"[model] {label} full-width forward (B={B}, S={S}), bf16: flash vs reference "
+    print(f"[model] {label} full-width forward (B={B}, S={S}), {str(cfg.compute_dtype)[6:]}: "
+          f"flash vs reference "
           f"max_abs_err {err:.3e} rel_l2 {rel(out, ref):.3e} | against the f32-compute forward: "
           f"reference rel_l2 {rel(ref, exact):.3e} (blocks {noise.min().item():.3e}-"
           f"{noise.max().item():.3e}), flash rel_l2 {rel(out, exact):.3e}, worst block ratio "
@@ -1286,7 +1486,11 @@ def phase_model(fp: dict) -> tuple[dict, dict]:
     toks = torch.randint(0, cfg.vocab_size, (1, 1024), device="cuda",
                          generator=torch.Generator(device="cuda").manual_seed(1))
     forward_check(tx, cfg, params, toks, "qwen2.5-3b")
+    # float16 compute, a dtype the config takes: K1's f16 instance at hd 128
+    float16 = forward_check(tx, cfg.replace(compute_dtype=torch.float16), params, toks,
+                            "qwen2.5-3b float16")
     decode = decode_breakdown(tx, cfg, params)
+    decode["float16_forward"] = float16
     fp_detail = fingerprint_leaves(params, fp)
     del params
     torch.cuda.empty_cache()
@@ -1324,60 +1528,73 @@ def phase_model_mamba() -> dict:
             logits.append(lg[:, -1])
         return hidden, torch.stack(logits, dim=1)
 
-    pcfg = cfg.replace(attention_impl="pallas")
-    with torch.inference_mode():
-        ref = run(cfg.replace(attention_impl="reference"))
-        exact = run(cfg.replace(compute_dtype=torch.float32))
-        n0 = ssd_ops.launch_count
-        out = run(pcfg)
-        torch.cuda.synchronize()
-        n = ssd_ops.launch_count - n0
-        planted = {}
-        for fault in ("state not carried across chunks", "final state dropped"):
-            ssm.ssd_scan = plant_ssd_fault(real_scan, fault)
-            try:
-                planted[fault] = run(pcfg)
-            finally:
-                ssm.ssd_scan = real_scan
+    def kernel_path_check(c) -> dict:
+        """The kernel path at config ``c`` against its reference path, both
+        planted faults rejected, one launch a layer."""
+        chunk = c.ssm.chunk
+        pcfg = c.replace(attention_impl="pallas")
+        with torch.inference_mode():
+            ref = run(c.replace(attention_impl="reference"))
+            exact = run(c.replace(compute_dtype=torch.float32))
+            n0 = ssd_ops.launch_count
+            out = run(pcfg)
+            torch.cuda.synchronize()
+            n = ssd_ops.launch_count - n0
+            planted = {}
+            for fault in ("state not carried across chunks", "final state dropped"):
+                ssm.ssd_scan = plant_ssd_fault(real_scan, fault)
+                try:
+                    planted[fault] = run(pcfg)
+                finally:
+                    ssm.ssd_scan = real_scan
 
-    def step_rel(a, b):
-        """Relative L2 error of the logits of each decode step."""
-        return ((a.float() - b.float()).norm(dim=-1) / b.float().norm(dim=-1))[0]
+        def step_rel(a, b):
+            """Relative L2 error of the logits of each decode step."""
+            return ((a.float() - b.float()).norm(dim=-1) / b.float().norm(dim=-1))[0]
 
-    # The kernel path is held to the reference path's own distance from the
-    # f32-compute run: over every block of one chunk (prefill hidden states)
-    # and at every decode step (logits)
-    fwd_noise = block_rel(ref[0], exact[0], SSD_CHUNK)
-    dec_noise = step_rel(ref[1], exact[1])
+        # The kernel path is held to the reference path's own distance from
+        # the f32-compute run: over every block of SSD_CHUNK tokens (prefill
+        # hidden states) and at every decode step (logits)
+        fwd_noise = block_rel(ref[0], exact[0], SSD_CHUNK)
+        dec_noise = step_rel(ref[1], exact[1])
 
-    def ratios(run_out):
-        return ((block_rel(run_out[0], exact[0], SSD_CHUNK) / fwd_noise).max().item(),
-                (step_rel(run_out[1], exact[1]) / dec_noise).max().item())
+        def ratios(run_out):
+            return ((block_rel(run_out[0], exact[0], SSD_CHUNK) / fwd_noise).max().item(),
+                    (step_rel(run_out[1], exact[1]) / dec_noise).max().item())
 
-    fwd_ratio, dec_ratio = ratios(out)
-    print(f"[model] full-width prefill (B=1, S={S}) + {steps} decode steps, bf16: against the "
-          f"f32-compute run, reference rel_l2 {rel(ref[0], exact[0]):.3e} (blocks "
-          f"{fwd_noise.min().item():.3e}-{fwd_noise.max().item():.3e}, decode "
-          f"{dec_noise.min().item():.3e}-{dec_noise.max().item():.3e}), kernel rel_l2 "
-          f"{rel(out[0], exact[0]):.3e} | worst block ratio {fwd_ratio:.3f}, worst decode "
-          f"ratio {dec_ratio:.3f} (tol {FORWARD_NOISE}) | ssd_scan launches {n}")
-    if out[0].shape != (1, S, cfg.d_model) or out[1].shape != (1, steps, cfg.vocab_size):
-        fail("full-width mamba run: wrong shapes")
-    if not (bool(torch.isfinite(out[0]).all()) and bool(torch.isfinite(out[1]).all())):
-        fail("full-width mamba run: non-finite values")
-    checks = {"state not carried across chunks": "forward", "final state dropped": "decode"}
-    for fault, bad in planted.items():
-        b_fwd, b_dec = ratios(bad)
-        b_ratio = b_fwd if checks[fault] == "forward" else b_dec
-        print(f"[model] planted fault '{fault}': worst block ratio {b_fwd:.3f}, worst decode "
-              f"ratio {b_dec:.3f} -> {checks[fault]} check "
-              f"{'PASSED' if b_ratio <= FORWARD_NOISE else 'rejected'}")
-        if b_ratio <= FORWARD_NOISE:
-            fail(f"the {checks[fault]} check does not see the planted fault '{fault}'")
-    if n != cfg.num_layers or fwd_ratio > FORWARD_NOISE or dec_ratio > FORWARD_NOISE:
-        fail("full-width mamba run: kernel path disagrees with the reference")
-    del ref, exact, out, planted
+        fwd_ratio, dec_ratio = ratios(out)
+        print(f"[model] full-width prefill (B=1, S={S}) + {steps} decode steps, bf16, chunk "
+              f"{chunk}: against the f32-compute run, reference rel_l2 "
+              f"{rel(ref[0], exact[0]):.3e} (blocks {fwd_noise.min().item():.3e}-"
+              f"{fwd_noise.max().item():.3e}, decode {dec_noise.min().item():.3e}-"
+              f"{dec_noise.max().item():.3e}), kernel rel_l2 {rel(out[0], exact[0]):.3e} | worst "
+              f"block ratio {fwd_ratio:.3f}, worst decode ratio {dec_ratio:.3f} (tol "
+              f"{FORWARD_NOISE}) | ssd_scan launches {n}")
+        if out[0].shape != (1, S, c.d_model) or out[1].shape != (1, steps, c.vocab_size):
+            fail("full-width mamba run: wrong shapes")
+        if not (bool(torch.isfinite(out[0]).all()) and bool(torch.isfinite(out[1]).all())):
+            fail("full-width mamba run: non-finite values")
+        checks = {"state not carried across chunks": "forward", "final state dropped": "decode"}
+        faults = {}
+        for fault, bad in planted.items():
+            b_fwd, b_dec = ratios(bad)
+            b_ratio = faults[fault] = b_fwd if checks[fault] == "forward" else b_dec
+            print(f"[model] planted fault '{fault}': worst block ratio {b_fwd:.3f}, worst decode "
+                  f"ratio {b_dec:.3f} -> {checks[fault]} check "
+                  f"{'PASSED' if b_ratio <= FORWARD_NOISE else 'rejected'}")
+            if b_ratio <= FORWARD_NOISE:
+                fail(f"the {checks[fault]} check does not see the planted fault '{fault}'")
+        if n != c.num_layers or fwd_ratio > FORWARD_NOISE or dec_ratio > FORWARD_NOISE:
+            fail(f"full-width mamba run, chunk {chunk}: kernel path disagrees with the reference")
+        return {"chunk": chunk, "ssd_launches": n, "worst_block_ratio": fwd_ratio,
+                "worst_decode_ratio": dec_ratio, "fault_ratios": faults}
+
+    kernel_path_check(cfg)
+    # mamba_ssm's default chunk: the kernel runs each as two sub-chunks
+    upstream = kernel_path_check(
+        cfg.replace(ssm=dataclasses.replace(cfg.ssm, chunk=MAMBA_UPSTREAM_CHUNK)))
     decode = decode_breakdown(tx, cfg, params)
+    decode["chunk_256_forward"] = upstream
     del params
     torch.cuda.empty_cache()
     return decode

@@ -12,27 +12,48 @@
 // peak against 0.0113 ms at the memory rate, so the products bound it, and
 // only the tensor cores can approach that bound.
 //
-// bfloat16 inputs (the serve path's) take fa_fwd_bf16, built for that:
+// bfloat16 and float16 inputs take fa_fwd_tc, built for that, with the
+// element type as a template parameter (the wgmma operand type and the
+// tensor maps' data type follow it):
 //  * both products run on the tensor cores with wgmma (f32 accumulate):
 //    S = Q K^T with Q and K from shared memory (K stored keys x hd is the
 //    K-major B operand), then O += P V with P from registers (the S
-//    accumulator fragment, rounded to bf16, is the A fragment of the next
-//    product, so no shuffle through shared memory) and V from shared memory
-//    as an MN-major B operand (the transpose bit);
+//    accumulator fragment, rounded to the input type, is the A fragment of
+//    the next product, so no shuffle through shared memory) and V from
+//    shared memory as an MN-major B operand (the transpose bit);
 //  * the scale is applied to S in f32 after the product, folded with log2 e
-//    into exp2 (the SFU's ex2.approx): a pre-scaled Q rounded to bf16
+//    into exp2 (the SFU's ex2.approx): a pre-scaled Q rounded to 16 bits
 //    would add error;
 //  * K and V stream through a 2-stage ring filled by TMA: one producer
 //    warp issues the copies (mbarrier expect-tx completion) while two
 //    consumer warpgroups of 64 q rows each run the products on the stage
-//    before.  Q's 128-row tile is loaded once per CTA.  The producer keeps
-//    the consumers' register allotment: setmaxnreg acts on a whole
-//    warpgroup, and one warp is a quarter of one;
+//    before.  Q's 128-row tile is loaded once per CTA.  Below hd 256 the
+//    producer warp keeps the consumers' register allotment: setmaxnreg acts
+//    on a whole warpgroup, and one warp is a quarter of one;
+//  * head dims 16, 32, 64, 80, 96, 128 and 256.  A row of hd elements is
+//    cut into boxes of the widest of 64, 32 or 16 columns that divides hd,
+//    each box one swizzle span (128, 64 or 32 bytes): hd 64, 128 and 256
+//    in 64-column boxes, 96 in three of 32, 80 in five of 16.  The wgmma
+//    descriptors name the same swizzle; along hd the boxes lie a box apart
+//    (the K steps of Q K^T and the N atoms of the MN-major V);
+//  * a K/V tile is 128 keys, or 64 at hd 256: Q's 64 KB and two stages of
+//    64-key K and V tiles take 192 KB, where 128 keys would need 320 KB,
+//    and the consumer keeps 128 O and 32 S accumulators instead of 128 and
+//    64 in registers.  Even so a consumer thread spills at the 168
+//    registers a thread of a 288-thread wgmma kernel gets (registers are
+//    allotted by warpgroup).  So at hd 256 the producer is a whole
+//    warpgroup, which keeps 24 registers and hands the rest to the two
+//    consumer warpgroups (setmaxnreg: 240 each).  ptxas still compiles the
+//    consumers to 168 and spills 224 bytes a thread (its -v report), but
+//    the call ran 1.7 % faster than with a producer warp (NVIDIA H100 80GB
+//    HBM3 at 700 W, Gemma-2-2B's prefill shape; bench.py);
+//  * the branch between producer and consumers tests a warpgroup index
+//    made uniform over the warp by a shuffle, as setmaxnreg needs; at the
+//    models' prefills that alone ran no slower than testing threadIdx on
+//    the same card (9 % faster at hd 64), with the same output bit for bit;
 //  * the tensor maps are encoded on the host per call over the caller's
 //    strided views (the model's permuted q, transposed k and v), so neither
-//    the GQA broadcast nor a transpose is copied.  Tiles land with the
-//    swizzle the wgmma descriptors name: 128 B for hd 64 and 128 (hd 128 as
-//    two 64-column boxes), 64 B for hd 32, 32 B for hd 16;
+//    the GQA broadcast nor a transpose is copied;
 //  * the running max and denominator stay in registers, reduced across the
 //    four threads that share an accumulator row; K/V tiles wholly above
 //    the causal diagonal are never loaded and only diagonal and ragged
@@ -45,12 +66,15 @@
 // It is kept for its contract, full f32 within 2e-4: TF32 tensor cores keep
 // about three decimal digits and cannot meet it.  The serve path never sends
 // it f32.  The choice is by dtype; nothing falls back from one to the other.
+// A head dim with no instance here is zero-padded by the Python wrapper to
+// the next one.
 //
 // cuTensorMapEncodeTiled is a driver function, reached through the
 // runtime's entry-point query: the library links nothing beyond cudart.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -241,39 +265,72 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, int
 }
 
 // ---------------------------------------------------------------------------
-// bfloat16: wgmma + TMA kernel
+// bfloat16 and float16: wgmma + TMA kernel
 // ---------------------------------------------------------------------------
 
 namespace hopper {
 
-constexpr int kRows = 128;                // q rows per CTA, and keys per K/V tile
+constexpr int kRows = 128;                // q rows per CTA
 constexpr int kStages = 2;                // K/V ring depth
 constexpr int kConsumers = 256;           // two warpgroups of 64 q rows each
-constexpr int kThreads = kConsumers + 32; // and one producer warp
+constexpr int kSmemLimit = 232448;        // dynamic shared memory a CTA may have
+// registers a thread of the producer and of a consumer warpgroup keeps
+// where the producer is a warpgroup: 128 x 24 + 256 x 240 = 64,512 of the
+// SM's 65,536, all 384 threads' 168 at launch
+constexpr int kProducerRegs = 24;
+constexpr int kConsumerRegs = 240;
 constexpr float kLog2e = 1.4426950408889634f;
 // A wait longer than this (about 2 s at the H100's clock) is a fault (a
 // byte count that never completes); the kernel traps instead of hanging.
 constexpr long long kHangCycles = 1LL << 32;
 
-// Shared-memory geometry at head dim HD.  A tile (Q's, or a stage's K or V)
-// is 128 rows; a row of hd bf16 is split into boxes of at most 64 columns so
-// that a box row is one swizzle span (32, 64 or 128 bytes); each box holds
-// 128 rows, one after another, as TMA writes them.
+// The element types of the tensor-core kernel.  A tag's name is its wgmma
+// operand type (the instructions below are spelled from it); pack rounds
+// two f32 values to one 32-bit pair, the first in the low half.
+struct bf16 {
+  using T = __nv_bfloat16;
+  static constexpr CUtensorMapDataType kMapType = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
+    __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&h);
+  }
+};
+struct f16 {
+  using T = __half;
+  static constexpr CUtensorMapDataType kMapType = CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
+  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
+    __half2 h = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&h);
+  }
+};
+
+// Shared-memory geometry at head dim HD.  Q's tile is 128 rows, a stage's K
+// or V tile kKeys rows; a row of hd 16-bit values is split into boxes of
+// kBoxCols columns, one swizzle span (32, 64 or 128 bytes) each; each box
+// holds its tile's rows one after another, as TMA writes them.
 template <int HD>
 struct Geometry {
-  static constexpr int kBoxCols = HD < 64 ? HD : 64;
+  static constexpr int kBoxCols = HD % 64 == 0 ? 64 : HD % 32 == 0 ? 32 : 16;
   static constexpr int kBoxes = HD / kBoxCols;
   static constexpr int kRowBytes = kBoxCols * 2;
-  static constexpr int kBoxBytes = kRows * kRowBytes;
-  static constexpr int kTileBytes = kBoxes * kBoxBytes;
+  static constexpr int kKeys = HD > 128 ? 64 : 128;  // keys per K/V tile
+  // the producer: one warp, or at hd 256 a warpgroup that gives its
+  // registers to the consumers
+  static constexpr bool kRegShift = HD > 128;
+  static constexpr int kThreads = kConsumers + (kRegShift ? 128 : 32);
+  static constexpr int kQBoxBytes = kRows * kRowBytes;
+  static constexpr int kKVBoxBytes = kKeys * kRowBytes;
+  static constexpr int kQBytes = kBoxes * kQBoxBytes;
+  static constexpr int kKVBytes = kBoxes * kKVBoxBytes;
   // wgmma descriptor layout type: 1 = 128 B swizzle, 2 = 64 B, 3 = 32 B
   static constexpr uint64_t kLayout = kRowBytes == 128 ? 1 : kRowBytes == 64 ? 2 : 3;
-  static constexpr int kKOff = kTileBytes;                      // after Q
-  static constexpr int kVOff = kKOff + kStages * kTileBytes;
-  static constexpr int kBarOff = kVOff + kStages * kTileBytes;
+  static constexpr int kKOff = kQBytes;                      // after Q
+  static constexpr int kVOff = kKOff + kStages * kKVBytes;
+  static constexpr int kBarOff = kVOff + kStages * kKVBytes;
   // barriers (Q, K full x2, V full x2, empty x2) and slack to align the base
   static constexpr int kSmemBytes = kBarOff + 64 + 1024;
-  static_assert(HD % kBoxCols == 0 && kRowBytes >= 32, "head dim 16, 32, 64 or 128");
+  static_assert(HD % 16 == 0 && HD <= 256, "head dim a multiple of 16, at most 256");
+  static_assert(kSmemBytes <= kSmemLimit, "shared memory of one CTA");
 };
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -341,6 +398,17 @@ __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
 }
 
+// Registers of this thread's warpgroup from here on (every thread of the
+// warpgroup runs it): fewer for the producer, more for a consumer.
+template <int N>
+__device__ __forceinline__ void reg_dealloc() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void reg_alloc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(N));
+}
+
 // Keeps the compiler from moving reads of an accumulator across the wait.
 template <int N>
 __device__ __forceinline__ void fence_regs(float (&d)[N]) {
@@ -349,17 +417,12 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 }
 
 // 2^x by the SFU's approximation (relative error about 2^-22), flushing
-// results below 2^-126 to 0: p is rounded to bf16 next, so this is exact
+// results below 2^-126 to 0: p is rounded to 16 bits next, so this is exact
 // enough, and cheaper than exp2f's full-range path.
 __device__ __forceinline__ float fast_exp2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
   return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&h);
 }
 
 // The accumulator operands of a wgmma: WG_D<n>(0) binds d[0] .. d[n - 1]
@@ -370,59 +433,86 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
       "+f"(d[i + 6]), "+f"(d[i + 7])
 #define WG_D16(i) WG_D8(i), WG_D8(i + 8)
 #define WG_D32(i) WG_D16(i), WG_D16(i + 16)
+#define WG_D40(i) WG_D32(i), WG_D8(i + 32)
+#define WG_D48(i) WG_D32(i), WG_D16(i + 32)
 #define WG_D64(i) WG_D32(i), WG_D32(i + 32)
+#define WG_D128(i) WG_D64(i), WG_D64(i + 64)
 #define WG_R8 "%0, %1, %2, %3, %4, %5, %6, %7"
 #define WG_R16 WG_R8 ", %8, %9, %10, %11, %12, %13, %14, %15"
 #define WG_R32 WG_R16 ", %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+#define WG_R40 WG_R32 ", %32, %33, %34, %35, %36, %37, %38, %39"
+#define WG_R48 WG_R40 ", %40, %41, %42, %43, %44, %45, %46, %47"
 #define WG_R64                                                                                \
-  WG_R32 ", %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "  \
-         "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+  WG_R48 ", %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+#define WG_R128                                                                                \
+  WG_R64 ", %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "  \
+         "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "    \
+         "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, "    \
+         "%110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, " \
+         "%124, %125, %126, %127"
 
-// S = Q K^T for one 16-wide k step: m64n128k16, A and B from shared memory.
-__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint64_t db,
-                                              int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {" WG_R64 "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : WG_D64(0)
-      : "l"(da), "l"(db), "r"(accumulate));
-}
+// S = Q K^T for one 16-wide k step: m64nNk16 over the N keys of a tile into
+// NACC = N / 2 accumulators, A and B from shared memory, both K-major.  DA,
+// DB and P name Q's and K's descriptors and the accumulate flag, numbered
+// after the accumulators.
+#define WGMMA_SS(TY, N, NACC, DA, DB, P)                                                      \
+  __device__ __forceinline__ void wgmma_ss(TY, float (&d)[NACC], uint64_t da, uint64_t db,    \
+                                           int accumulate) {                                  \
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, " P ", 0;\n"                              \
+                 "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32." #TY "." #TY " {" WG_R##NACC \
+                 "}, " DA ", " DB ", p, 1, 1, 0, 0;\n}\n"                                   \
+                 : WG_D##NACC(0)                                                              \
+                 : "l"(da), "l"(db), "r"(accumulate));                                        \
+  }
+WGMMA_SS(bf16, 128, 64, "%64", "%65", "%66")
+WGMMA_SS(bf16, 64, 32, "%32", "%33", "%34")
+WGMMA_SS(f16, 128, 64, "%64", "%65", "%66")
+WGMMA_SS(f16, 64, 32, "%32", "%33", "%34")
+#undef WGMMA_SS
 
 // O += P V for one 16-key k step at head dim N: m64nNk16 into NACC = N / 2
 // accumulators, A (P) from registers, B (V) from shared memory, MN-major
 // (transpose bit set).  A, B and P name P's four registers, V's descriptor
 // and the accumulate flag, numbered after the accumulators.
-#define WGMMA_RS(N, NACC, A, B, P)                                                      \
-  __device__ __forceinline__ void wgmma_rs(float (&d)[NACC], const uint32_t (&a)[4],     \
-                                           uint64_t db) {                                \
-    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, " P ", 0;\n"                          \
-                 "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32.bf16.bf16 {" WG_R##NACC \
-                 "}, {" A "}, " B ", p, 1, 1, 1;\n}\n"                                  \
-                 : WG_D##NACC(0)                                                         \
-                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));         \
+#define WGMMA_RS(TY, N, NACC, A, B, P)                                                          \
+  __device__ __forceinline__ void wgmma_rs(TY, float (&d)[NACC], const uint32_t (&a)[4],        \
+                                           uint64_t db) {                                       \
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, " P ", 0;\n"                                \
+                 "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32." #TY "." #TY " {" WG_R##NACC   \
+                 "}, {" A "}, " B ", p, 1, 1, 1;\n}\n"                                         \
+                 : WG_D##NACC(0)                                                                \
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));                \
   }
-WGMMA_RS(16, 8, "%8, %9, %10, %11", "%12", "%13")
-WGMMA_RS(32, 16, "%16, %17, %18, %19", "%20", "%21")
-WGMMA_RS(64, 32, "%32, %33, %34, %35", "%36", "%37")
-WGMMA_RS(128, 64, "%64, %65, %66, %67", "%68", "%69")
+#define WGMMA_RS_ALL(TY)                                         \
+  WGMMA_RS(TY, 16, 8, "%8, %9, %10, %11", "%12", "%13")          \
+  WGMMA_RS(TY, 32, 16, "%16, %17, %18, %19", "%20", "%21")       \
+  WGMMA_RS(TY, 64, 32, "%32, %33, %34, %35", "%36", "%37")       \
+  WGMMA_RS(TY, 80, 40, "%40, %41, %42, %43", "%44", "%45")       \
+  WGMMA_RS(TY, 96, 48, "%48, %49, %50, %51", "%52", "%53")       \
+  WGMMA_RS(TY, 128, 64, "%64, %65, %66, %67", "%68", "%69")      \
+  WGMMA_RS(TY, 256, 128, "%128, %129, %130, %131", "%132", "%133")
+WGMMA_RS_ALL(bf16)
+WGMMA_RS_ALL(f16)
+#undef WGMMA_RS_ALL
 #undef WGMMA_RS
 
 // One CTA: 128 q rows of one (batch, head).  Warps 0-7 are two consumer
-// warpgroups (rows q0 .. q0+63 and q0+64 .. q0+127); warp 8 is the producer,
-// one thread of which issues every copy.
-template <int HD>
-__global__ void __launch_bounds__(kThreads, 1)
-fa_fwd_bf16(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
-            const __grid_constant__ CUtensorMap vmap, __nv_bfloat16* __restrict__ o, int H,
-            int group, int Sq, int Skv, Strides os, float scale, int causal) {
+// warpgroups (rows q0 .. q0+63 and q0+64 .. q0+127); warp 8 (warps 8-11 at
+// hd 256) is the producer, one thread of which issues every copy.
+template <int HD, class E>
+__global__ void __launch_bounds__(Geometry<HD>::kThreads, 1)
+fa_fwd_tc(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
+          const __grid_constant__ CUtensorMap vmap, typename E::T* __restrict__ o, int H,
+          int group, int Sq, int Skv, Strides os, float scale, int causal) {
   using G = Geometry<HD>;
+  constexpr int kKeys = G::kKeys;
   extern __shared__ unsigned char smem_raw[];
   // 1024-byte alignment: the 128 B swizzle pattern repeats every 8 rows
   const uint32_t base = (smem_addr(smem_raw) + 1023) & ~1023u;
   const uint32_t sq = base;
   const uint32_t q_bar = base + G::kBarOff;
-  auto k_tile = [&](int st) { return base + G::kKOff + st * G::kTileBytes; };
-  auto v_tile = [&](int st) { return base + G::kVOff + st * G::kTileBytes; };
+  auto k_tile = [&](int st) { return base + G::kKOff + st * G::kKVBytes; };
+  auto v_tile = [&](int st) { return base + G::kVOff + st * G::kKVBytes; };
   auto k_full = [&](int st) { return q_bar + 8 * (1 + st); };
   auto v_full = [&](int st) { return q_bar + 8 * (1 + kStages + st); };
   auto empty = [&](int st) { return q_bar + 8 * (1 + 2 * kStages + st); };
@@ -433,8 +523,11 @@ fa_fwd_bf16(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CU
   const int kvh = h / group;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kRows;  // largest q0 first
   const int kv_end = causal ? min(Skv, q0 + kRows) : Skv;
-  const int n_tiles = (kv_end + kRows - 1) / kRows;
+  const int n_tiles = (kv_end + kKeys - 1) / kKeys;
   const int tid = threadIdx.x;
+  // the thread's warpgroup (2: the producer), uniform over a warp as the
+  // compiler sees it, which setmaxnreg's register regions need
+  const int wg = __shfl_sync(0xffffffffu, tid / 128, 0);
 
   if (tid == 0) {
     mbar_init(q_bar, 1);
@@ -447,31 +540,32 @@ fa_fwd_bf16(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CU
   }
   __syncthreads();
 
-  if (tid >= kConsumers) {
+  if (wg == kConsumers / 128) {
+    if constexpr (G::kRegShift) reg_dealloc<kProducerRegs>();
     if (tid == kConsumers) {
-      mbar_expect_tx(q_bar, G::kTileBytes);
+      mbar_expect_tx(q_bar, G::kQBytes);
       for (int x = 0; x < G::kBoxes; ++x)
-        tma_load(sq + x * G::kBoxBytes, &qmap, q_bar, x * G::kBoxCols, q0, h, b);
+        tma_load(sq + x * G::kQBoxBytes, &qmap, q_bar, x * G::kBoxCols, q0, h, b);
       for (int it = 0; it < n_tiles; ++it) {
         const int st = it % kStages;
         // the stage's previous tile (it - kStages) consumed; passes at once
         // on the first round
         mbar_wait(empty(st), ((it / kStages) & 1) ^ 1);
-        mbar_expect_tx(k_full(st), G::kTileBytes);
+        mbar_expect_tx(k_full(st), G::kKVBytes);
         for (int x = 0; x < G::kBoxes; ++x)
-          tma_load(k_tile(st) + x * G::kBoxBytes, &kmap, k_full(st), x * G::kBoxCols,
-                   it * kRows, kvh, b);
-        mbar_expect_tx(v_full(st), G::kTileBytes);
+          tma_load(k_tile(st) + x * G::kKVBoxBytes, &kmap, k_full(st), x * G::kBoxCols,
+                   it * kKeys, kvh, b);
+        mbar_expect_tx(v_full(st), G::kKVBytes);
         for (int x = 0; x < G::kBoxes; ++x)
-          tma_load(v_tile(st) + x * G::kBoxBytes, &vmap, v_full(st), x * G::kBoxCols,
-                   it * kRows, kvh, b);
+          tma_load(v_tile(st) + x * G::kKVBoxBytes, &vmap, v_full(st), x * G::kBoxCols,
+                   it * kKeys, kvh, b);
       }
     }
   } else {
+    if constexpr (G::kRegShift) reg_alloc<kConsumerRegs>();
     // Consumer warpgroup wg: q rows qw .. qw+63.  Thread t holds rows
     // r0 = 16 * (t / 32) + (t % 32) / 4 and r0 + 8 of them, and columns
     // 8 j + 2 (t % 4) + {0, 1} of the S and O accumulators.
-    const int wg = tid / 128;
     const int t = tid % 128;
     const int lane = t % 32;
     const int r0 = 16 * (t / 32) + lane / 4;
@@ -491,20 +585,23 @@ fa_fwd_bf16(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CU
     for (int it = 0; it < n_tiles; ++it) {
       const int st = it % kStages;
       const uint32_t parity = (it / kStages) & 1;
-      const int k0 = it * kRows;
+      const int k0 = it * kKeys;
 
-      // S = Q K^T: 64 x 128 keys, K-major A and B, hd / 16 k steps
-      float s[64];
+      // S = Q K^T: 64 rows x kKeys keys, K-major A and B, hd / 16 k steps;
+      // a k step lies in box (16 kk / kBoxCols), 32 kk bytes into its span
+      float s[kKeys / 2];
 #pragma unroll
-      for (int i = 0; i < 64; ++i) s[i] = 0.f;
+      for (int i = 0; i < kKeys / 2; ++i) s[i] = 0.f;
       mbar_wait(k_full(st), parity);
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < HD / 16; ++kk) {
-        const uint32_t off = (kk * 16 / G::kBoxCols) * G::kBoxBytes + (kk * 32) % G::kRowBytes;
-        wgmma_ss_n128(s,
-                      smem_desc(q_rows + off, 16, 8 * G::kRowBytes, G::kLayout),
-                      smem_desc(k_tile(st) + off, 16, 8 * G::kRowBytes, G::kLayout), kk > 0);
+        const uint32_t box = kk * 16 / G::kBoxCols, span = (kk * 32) % G::kRowBytes;
+        wgmma_ss(E{}, s,
+                 smem_desc(q_rows + box * G::kQBoxBytes + span, 16, 8 * G::kRowBytes, G::kLayout),
+                 smem_desc(k_tile(st) + box * G::kKVBoxBytes + span, 16, 8 * G::kRowBytes,
+                           G::kLayout),
+                 kk > 0);
       }
       wgmma_commit();
       wgmma_wait_all();
@@ -512,10 +609,10 @@ fa_fwd_bf16(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CU
 
       // Online softmax in the exp2 domain.  Masked: keys past Skv (TMA
       // zero-filled them) and, on the diagonal tile, keys after the row.
-      const bool masked = k0 + kRows > Skv || (causal && k0 + kRows - 1 > qw);
+      const bool masked = k0 + kKeys > Skv || (causal && k0 + kKeys - 1 > qw);
       float mx0 = m0, mx1 = m1;
 #pragma unroll
-      for (int i = 0; i < 64; ++i) {
+      for (int i = 0; i < kKeys / 2; ++i) {
         float x = s[i] * c;
         if (masked) {
           const int kp = k0 + 8 * (i / 4) + 2 * (lane % 4) + (i % 2);
@@ -538,7 +635,7 @@ fa_fwd_bf16(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CU
       m1 = mx1;
       float sum0 = 0.f, sum1 = 0.f;
 #pragma unroll
-      for (int i = 0; i < 64; ++i) {
+      for (int i = 0; i < kKeys / 2; ++i) {
         if ((i / 2) % 2) {
           s[i] = fast_exp2(s[i] - b1);
           sum1 += s[i];
@@ -552,22 +649,24 @@ fa_fwd_bf16(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CU
 #pragma unroll
       for (int i = 0; i < HD / 2; ++i) acc[i] *= (i / 2) % 2 ? alpha1 : alpha0;
 
-      // P in bf16, laid out as the A fragments of the 8 k steps of P V
-      uint32_t p[8][4];
+      // P in the input type, laid out as the A fragments of the kKeys / 16
+      // k steps of P V
+      uint32_t p[kKeys / 16][4];
 #pragma unroll
-      for (int kk = 0; kk < 8; ++kk)
+      for (int kk = 0; kk < kKeys / 16; ++kk)
 #pragma unroll
-        for (int r = 0; r < 4; ++r) p[kk][r] = pack_bf16(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
+        for (int r = 0; r < 4; ++r) p[kk][r] = E::pack(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
 
       // O += P V: V (keys x hd, hd contiguous) is the MN-major B operand;
-      // 8 key rows per swizzle atom, the next 64 columns one box further
+      // 8 key rows per swizzle atom (SBO), the next kBoxCols columns one box
+      // further (LBO)
       mbar_wait(v_full(st), parity);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < 8; ++kk)
-        wgmma_rs(acc, p[kk],
-                 smem_desc(v_tile(st) + kk * 16 * G::kRowBytes, G::kBoxBytes, 8 * G::kRowBytes,
-                           G::kLayout));
+      for (int kk = 0; kk < kKeys / 16; ++kk)
+        wgmma_rs(E{}, acc, p[kk],
+                 smem_desc(v_tile(st) + kk * 16 * G::kRowBytes, G::kKVBoxBytes,
+                           8 * G::kRowBytes, G::kLayout));
       wgmma_commit();
       wgmma_wait_all();
       fence_regs(acc);
@@ -580,15 +679,15 @@ fa_fwd_bf16(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CU
     l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
     const float inv0 = 1.f / (l0 == 0.f ? 1.f : l0);  // fully masked rows
     const float inv1 = 1.f / (l1 == 0.f ? 1.f : l1);
-    __nv_bfloat16* ob = o + b * os.b + h * os.h + 2 * (lane % 4);
+    typename E::T* ob = o + b * os.b + h * os.h + 2 * (lane % 4);
 #pragma unroll
     for (int j = 0; j < HD / 8; ++j) {
       if (qp0 < Sq)
-        *reinterpret_cast<__nv_bfloat162*>(ob + qp0 * os.s + 8 * j) =
-            __floats2bfloat162_rn(acc[4 * j] * inv0, acc[4 * j + 1] * inv0);
+        *reinterpret_cast<uint32_t*>(ob + qp0 * os.s + 8 * j) =
+            E::pack(acc[4 * j] * inv0, acc[4 * j + 1] * inv0);
       if (qp1 < Sq)
-        *reinterpret_cast<__nv_bfloat162*>(ob + qp1 * os.s + 8 * j) =
-            __floats2bfloat162_rn(acc[4 * j + 2] * inv1, acc[4 * j + 3] * inv1);
+        *reinterpret_cast<uint32_t*>(ob + qp1 * os.s + 8 * j) =
+            E::pack(acc[4 * j + 2] * inv1, acc[4 * j + 3] * inv1);
     }
   }
 }
@@ -615,48 +714,48 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A 4-d map (hd, rows, heads, batch) over a strided bf16 tensor, boxes of
-// kBoxCols x 128 rows with the swizzle the descriptors expect.  Strides are
+// A 4-d map (hd, rows, heads, batch) over a strided 16-bit tensor, boxes of
+// kBoxCols x box_rows with the swizzle the descriptors expect.  Strides are
 // elements; rows past `rows` read as zeros.
-template <int HD>
-CUresult encode(EncodeTiled encode_fn, CUtensorMap* map, const void* ptr, int rows, int heads,
-                int batch, Strides st) {
+template <int HD, class E>
+CUresult encode(EncodeTiled encode_fn, CUtensorMap* map, const void* ptr, int rows, int box_rows,
+                int heads, int batch, Strides st) {
   using G = Geometry<HD>;
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(HD), static_cast<cuuint64_t>(rows),
                               static_cast<cuuint64_t>(heads), static_cast<cuuint64_t>(batch)};
   const cuuint64_t strides[3] = {static_cast<cuuint64_t>(st.s) * 2,
                                  static_cast<cuuint64_t>(st.h) * 2,
                                  static_cast<cuuint64_t>(st.b) * 2};
-  const cuuint32_t box[4] = {G::kBoxCols, kRows, 1, 1};
+  const cuuint32_t box[4] = {G::kBoxCols, static_cast<cuuint32_t>(box_rows), 1, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   const CUtensorMapSwizzle swizzle = G::kRowBytes == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
                                      : G::kRowBytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
                                                           : CU_TENSOR_MAP_SWIZZLE_32B;
-  return encode_fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
-                   box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-                   CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return encode_fn(map, E::kMapType, 4, const_cast<void*>(ptr), dims, strides, box, unit,
+                   CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
-template <int HD>
-cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, int B, int H,
-                        int KV, int Sq, int Skv, Strides qs, Strides ks, Strides vs,
-                        Strides os, float scale, int causal, cudaStream_t stream) {
+template <int HD, class E>
+cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o, int B, int H, int KV,
+                      int Sq, int Skv, Strides qs, Strides ks, Strides vs, Strides os,
+                      float scale, int causal, cudaStream_t stream) {
   using G = Geometry<HD>;
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return cudaErrorSymbolNotFound;
   CUtensorMap qmap, kmap, vmap;
   // Skv = 0 loads no tile; the maps still need a non-empty row dim
   const int kv_rows = Skv > 0 ? Skv : 1;
-  if (encode<HD>(fn, &qmap, q, Sq, H, B, qs) != CUDA_SUCCESS ||
-      encode<HD>(fn, &kmap, k, kv_rows, KV, B, ks) != CUDA_SUCCESS ||
-      encode<HD>(fn, &vmap, v, kv_rows, KV, B, vs) != CUDA_SUCCESS)
+  if (encode<HD, E>(fn, &qmap, q, Sq, kRows, H, B, qs) != CUDA_SUCCESS ||
+      encode<HD, E>(fn, &kmap, k, kv_rows, G::kKeys, KV, B, ks) != CUDA_SUCCESS ||
+      encode<HD, E>(fn, &vmap, v, kv_rows, G::kKeys, KV, B, vs) != CUDA_SUCCESS)
     return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      fa_fwd_bf16<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, G::kSmemBytes);
+      fa_fwd_tc<HD, E>, cudaFuncAttributeMaxDynamicSharedMemorySize, G::kSmemBytes);
   if (err != cudaSuccess) return err;
   const dim3 grid(B * H, (Sq + kRows - 1) / kRows);
-  fa_fwd_bf16<HD><<<grid, kThreads, G::kSmemBytes, stream>>>(
-      qmap, kmap, vmap, static_cast<__nv_bfloat16*>(o), H, H / KV, Sq, Skv, os, scale, causal);
+  fa_fwd_tc<HD, E><<<grid, G::kThreads, G::kSmemBytes, stream>>>(
+      qmap, kmap, vmap, static_cast<typename E::T*>(o), H, H / KV, Sq, Skv, os, scale, causal);
   return cudaGetLastError();
 }
 
@@ -664,23 +763,46 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, in
 
 #define REPRO_FA_ARGS q, k, v, o, B, H, KV, Sq, Skv, qs, ks, vs, os, scale, causal, stream
 
+// The instances of one kernel over the head dims the wrapper launches.
+template <template <int> class Launch>
+cudaError_t by_head_dim(int hd, const void* q, const void* k, const void* v, void* o, int B,
+                        int H, int KV, int Sq, int Skv, Strides qs, Strides ks, Strides vs,
+                        Strides os, float scale, int causal, cudaStream_t stream) {
+  switch (hd) {
+    case 16: return Launch<16>::run(REPRO_FA_ARGS);
+    case 32: return Launch<32>::run(REPRO_FA_ARGS);
+    case 64: return Launch<64>::run(REPRO_FA_ARGS);
+    case 80: return Launch<80>::run(REPRO_FA_ARGS);
+    case 96: return Launch<96>::run(REPRO_FA_ARGS);
+    case 128: return Launch<128>::run(REPRO_FA_ARGS);
+    case 256: return Launch<256>::run(REPRO_FA_ARGS);
+  }
+  return cudaErrorInvalidValue;
+}
+
+template <int HD>
+struct F32 {
+  template <class... A>
+  static cudaError_t run(A... a) { return launch_f32<HD>(a...); }
+};
+template <int HD>
+struct Bf16 {
+  template <class... A>
+  static cudaError_t run(A... a) { return hopper::launch_tc<HD, hopper::bf16>(a...); }
+};
+template <int HD>
+struct F16 {
+  template <class... A>
+  static cudaError_t run(A... a) { return hopper::launch_tc<HD, hopper::f16>(a...); }
+};
+
 cudaError_t dispatch(int dtype, int hd, const void* q, const void* k, const void* v, void* o,
                      int B, int H, int KV, int Sq, int Skv, Strides qs, Strides ks, Strides vs,
                      Strides os, float scale, int causal, cudaStream_t stream) {
-  if (dtype == 0) {
-    switch (hd) {
-      case 16: return launch_f32<16>(REPRO_FA_ARGS);
-      case 32: return launch_f32<32>(REPRO_FA_ARGS);
-      case 64: return launch_f32<64>(REPRO_FA_ARGS);
-      case 128: return launch_f32<128>(REPRO_FA_ARGS);
-    }
-  } else if (dtype == 1) {
-    switch (hd) {
-      case 16: return hopper::launch_bf16<16>(REPRO_FA_ARGS);
-      case 32: return hopper::launch_bf16<32>(REPRO_FA_ARGS);
-      case 64: return hopper::launch_bf16<64>(REPRO_FA_ARGS);
-      case 128: return hopper::launch_bf16<128>(REPRO_FA_ARGS);
-    }
+  switch (dtype) {
+    case 0: return by_head_dim<F32>(hd, REPRO_FA_ARGS);
+    case 1: return by_head_dim<Bf16>(hd, REPRO_FA_ARGS);
+    case 2: return by_head_dim<F16>(hd, REPRO_FA_ARGS);
   }
   return cudaErrorInvalidValue;
 }
@@ -690,10 +812,11 @@ cudaError_t dispatch(int dtype, int hd, const void* q, const void* k, const void
 }  // namespace
 
 // q (B, H, Sq, hd), k and v (B, KV, Skv, hd), o (B, H, Sq, hd), each with
-// the element strides given for its first three dims and a dense head dim.
-// dtype: 0 = float32, 1 = bfloat16; a bfloat16 pointer is 16-byte aligned
-// and its strides are multiples of 8 elements (TMA's terms).  Returns a
-// cudaError_t (0 = launched).
+// the element strides given for its first three dims and a dense head dim;
+// hd is 16, 32, 64, 80, 96, 128 or 256.  dtype: 0 = float32, 1 = bfloat16,
+// 2 = float16; a 16-bit pointer is 16-byte aligned and its strides are
+// multiples of 8 elements (TMA's terms).  Returns a cudaError_t (0 =
+// launched).
 extern "C" int repro_fa_fwd(const void* q, const void* k, const void* v,
                             void* o, int dtype, int B, int H, int KV, int Sq,
                             int Skv, int hd, long long q_sb, long long q_sh,

@@ -2,9 +2,12 @@
 
 The kernel is CUDA C++ (``csrc/flash_attention.cu``) compiled for ``sm_90a``
 by ``nvcc`` into a shared library with a plain C interface at first use
-(``kernels/_nvcc.py``), then loaded with ``ctypes``.  bfloat16 runs on the
-wgmma + TMA kernel, float32 on the scalar one.  A failed build raises: there
-is no fallback for CUDA tensors.
+(``kernels/_nvcc.py``), then loaded with ``ctypes``.  bfloat16 and float16
+run on the wgmma + TMA kernel, float32 on the scalar one, each at the head
+dims of ``HEAD_DIMS``.  ``check_contract`` and ``kernel_route`` are the
+launcher's contract as pure functions of shapes, dtypes and strides; a head
+dim without an instance is padded by the wrapper (``ops.py``).  A failed
+build raises: there is no fallback for CUDA tensors.
 """
 
 from __future__ import annotations
@@ -20,8 +23,11 @@ from repro_torch.kernels._nvcc import NVCC_FLAGS, compile_library  # noqa: F401
 _HERE = Path(__file__).resolve().parent
 SOURCE = _HERE / "csrc" / "flash_attention.cu"
 BUILD_DIR = _HERE / "build"
-HEAD_DIMS = (16, 32, 64, 128)
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: head dims with an instance of each kernel (``by_head_dim`` in the source)
+HEAD_DIMS = (16, 32, 64, 80, 96, 128, 256)
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_KERNELS = {torch.float32: "fa_fwd_f32", torch.bfloat16: "fa_fwd_tc<bf16>",
+            torch.float16: "fa_fwd_tc<f16>"}
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -53,19 +59,45 @@ def _library() -> ctypes.CDLL:
     return _lib
 
 
+def kernel_route(hd: int, dtype: torch.dtype) -> tuple[str, int, bool]:
+    """(kernel, head dim of the instance it launches, whether the wrapper
+    zero-pads the head dim up to it) for a call at head dim ``hd``: the
+    dtype picks the kernel, the least instance of at least ``hd`` its
+    width.  Over 256 (wgmma's widest N) there is none."""
+    if dtype not in _DTYPES:
+        raise TypeError(f"dtype {dtype} (need float32, bfloat16 or float16)")
+    if not 0 < hd <= HEAD_DIMS[-1]:
+        raise ValueError(f"head dim {hd}: the CUDA kernel takes 1..{HEAD_DIMS[-1]} "
+                         f"(wgmma's widest N is 256)")
+    width = next(d for d in HEAD_DIMS if d >= hd)
+    return _KERNELS[dtype], width, width != hd
+
+
+def check_contract(shapes, dtypes, last_strides) -> None:
+    """What the launcher takes, from the shapes, dtypes and last-dim strides
+    of q, k and v: one dtype of ``_DTYPES`` for all, 4-d with a dense head
+    dim, k and v alike, the batch and head dim shared, and a head dim with
+    an instance (``HEAD_DIMS``).  Raises on anything else."""
+    (qs, ks, vs), dt = shapes, dtypes[0]
+    for name, shape, dtype, last in zip("qkv", shapes, dtypes, last_strides):
+        if dtype not in _DTYPES or dtype != dt:
+            raise TypeError(f"{name}: dtype {dtype} (need float32, bfloat16 or float16, "
+                            "one for all)")
+        if len(shape) != 4 or last != 1:
+            raise ValueError(f"{name} must be 4-d with a dense head dim, got {tuple(shape)}")
+    B, H, Sq, hd = qs
+    if tuple(ks) != tuple(vs) or ks[0] != B or ks[3] != hd:
+        raise ValueError(f"shapes q {tuple(qs)}, k {tuple(ks)}, v {tuple(vs)}")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"head dim {hd} not in {HEAD_DIMS}")
+
+
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device.type != "cuda" or t.device != q.device:
             raise ValueError(f"{name} must be a CUDA tensor on {q.device}, got {t.device}")
-        if t.dtype not in _DTYPES or t.dtype != q.dtype:
-            raise TypeError(f"{name}: dtype {t.dtype} (need float32 or bfloat16, one for all)")
-        if t.dim() != 4 or t.stride(3) != 1:
-            raise ValueError(f"{name} must be 4-d with a dense head dim, got {tuple(t.shape)}")
-    B, H, Sq, hd = q.shape
-    if k.shape != v.shape or k.shape[0] != B or k.shape[3] != hd:
-        raise ValueError(f"shapes q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}")
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"head dim {hd} not in {HEAD_DIMS}")
+    check_contract([t.shape for t in (q, k, v)], [t.dtype for t in (q, k, v)],
+                   [t.stride(-1) if t.dim() else 1 for t in (q, k, v)])
 
 
 def tma_ready(t: torch.Tensor) -> bool:
@@ -79,11 +111,11 @@ def tma_ready(t: torch.Tensor) -> bool:
 
 
 def kernel_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> tuple:
-    """q, k and v as the kernel reads them.  The bfloat16 kernel loads
+    """q, k and v as the kernel reads them.  The 16-bit kernel loads
     through TMA, so an input that breaks TMA's alignment is copied to a
     contiguous tensor; strided views that keep it (the model's permuted q,
     transposed k and v) pass as they are.  float32 inputs always pass."""
-    if q.dtype != torch.bfloat16:
+    if q.dtype == torch.float32:
         return q, k, v
     return tuple(t if tma_ready(t) else t.clone(memory_format=torch.contiguous_format)
                  for t in (q, k, v))

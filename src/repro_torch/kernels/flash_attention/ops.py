@@ -5,7 +5,11 @@ layout (B, H, S, hd) for q and (B, KV, S, hd) for k and v, ``H % KV == 0``,
 and ``scale = hd**-0.5`` by default.  CPU tensors take the plain version
 (``ref.attention_ref``); CUDA tensors launch the hand-written kernel, which
 masks ragged lengths itself (no padding), or the call raises.  The kernel
-has no backward (neither has the Pallas kernel: no ``custom_vjp``), so a
+has instances at the head dims of ``kernel.HEAD_DIMS``; another head dim up
+to 256 is zero-padded to the next instance (zero columns add nothing to
+q . k, and the padded output columns, zero, are sliced off), with the scale
+still the true ``hd**-0.5``, and counted in ``pad_count``; over 256 the
+call raises.  The kernel has no backward (neither has the Pallas kernel: no ``custom_vjp``), so a
 CUDA call with an input that needs gradients raises rather than return a
 result with no ``grad_fn``.
 """
@@ -15,11 +19,13 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels._nvcc import refuse_stand_ins
-from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd
+from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd, kernel_route
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
 #: kernel launches since the count was last set to 0
 launch_count = 0
+#: launches whose q, k and v the wrapper copied to pad the head dim
+pad_count = 0
 
 
 def flash_attention_gqa(
@@ -37,7 +43,7 @@ def flash_attention_gqa(
     ``block_q``/``block_k`` are accepted for the JAX signature; the CUDA
     kernel's tiles are fixed at compile time and the plain version has none.
     """
-    global launch_count
+    global launch_count, pad_count
     refuse_stand_ins("flash_attention_gqa", q, k, v)
     B, H, Sq, hd = q.shape
     KV = k.shape[1]
@@ -54,6 +60,12 @@ def flash_attention_gqa(
         )
     if q.numel() == 0:
         return torch.empty_like(q)
+    _, width, padded = kernel_route(hd, q.dtype)
+    if padded:
+        q, k, v = (torch.nn.functional.pad(t, (0, width - hd)) for t in (q, k, v))
     out = flash_attention_fwd(q, k, v, causal=causal, scale=scale)
     launch_count += 1
+    if padded:
+        pad_count += 1
+        return out[..., :hd]
     return out

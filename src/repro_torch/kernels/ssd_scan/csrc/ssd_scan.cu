@@ -51,8 +51,11 @@
 //    are zeros, which is inert (a = 0 keeps the state, x = b = 0 adds
 //    nothing), so nothing is padded in device memory.
 //
-// float32 inputs take ssd_scan_f32, scalar f32 FMAs on the CUDA cores, kept
-// for its contract (5e-4), which TF32 tensor cores cannot meet:
+// float32 and float16 inputs take ssd_scan_f32, scalar f32 FMAs on the CUDA
+// cores, kept for its contract (5e-4), which TF32 tensor cores cannot meet
+// (float16 values are widened to f32 as they are staged and y is rounded to
+// float16 as it is stored: mma.sync cannot take f16 operands beside the
+// bf16 hi and lo halves of G o L and S):
 //  * one CTA of 256 threads per (stream b*h, 64-column P tile); the chunk
 //    loop runs inside the CTA, replacing the TPU's sequential chunk axis;
 //  * the chunk's C, B (Q x N) and X (Q x P tile) are staged in shared memory
@@ -68,8 +71,23 @@
 // The choice is by dtype; nothing falls back from one to the other.  Both
 // read B and C through the caller's strides (the model's head broadcast has
 // head stride 0, so nothing is copied per head).
+//
+// Chunks and state widths past the staging (128 rows, 128 state columns):
+//  * a chunk of Q > 128 rows (Mamba-2's upstream default is 256) runs as
+//    ceil(Q / 128) sub-chunks of ceil(Q / n) rows, in order.  In exact
+//    arithmetic the chunked scan gives the same y and final state for any
+//    chunk length, so the sub-chunks' result is the chunk's; the staging and
+//    the warp-0 cumsum stay at 128 rows;
+//  * both terms of y, (L o C B^T) X and exp(A) C S^T, are sums over the
+//    state columns n, and the state's columns update independently.  So a
+//    state wider than 128 is split over the grid (blockIdx.z) into tiles of
+//    128 columns: each CTA carries its tile of the state exactly and writes
+//    its partial y, in f32, to a workspace the wrapper allocates; a second
+//    kernel (sum_tiles) adds the tiles' partial y in order and stores y in
+//    its dtype.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -80,14 +98,36 @@ constexpr int kThreads = 256;
 constexpr int kLanes = 32;
 constexpr int kRow = 32;      // rows of a y tile; Q, N and P are padded to it
 constexpr int kPT = 64;       // P columns per CTA
-constexpr int kMaxQ = 128;    // chunk length limit (the warp-0 cumsum holds 4 per lane)
-constexpr int kMaxN = 128;    // state width limit (register block of the update)
+constexpr int kMaxQ = 256;    // chunk length limit (run as sub-chunks of kSubQ rows)
+constexpr int kMaxN = 256;    // state width limit (split into tiles of kTileN columns)
+constexpr int kSubQ = 128;    // rows of a sub-chunk (the warp-0 cumsum holds 4 per lane)
+constexpr int kTileN = 128;   // state columns of a CTA (register block of the update)
 
 
 // Element strides of the batch, sequence and head dims (the last dim is dense).
 struct Strides {
   long long b, s, h;
 };
+
+// Values of the scalar kernel's input and output types as f32, and back.
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__half v) { return __half2float(v); }
+template <class T>
+__device__ __forceinline__ T from_f32(float v);
+template <>
+__device__ __forceinline__ float from_f32<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ __half from_f32<__half>(float v) { return __float2half_rn(v); }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
+  return __float2bfloat16(v);
+}
+
+// The offset of element (b, t, h, 0) in the dense (B, S, H, P) workspace of
+// a partial y, one per state tile.
+__device__ __forceinline__ long long work_row(int bi, int t, int h, int S, int H, int P) {
+  return ((static_cast<long long>(bi) * S + t) * H + h) * P;
+}
 
 __host__ __device__ constexpr int pad32(int n) { return (n + kRow - 1) / kRow * kRow; }
 
@@ -136,11 +176,14 @@ __device__ __forceinline__ void g_tile(const float* sC, const float* sB,
   }
 }
 
-template <int PC, int NC>
+// One CTA of 256 threads per (stream b*h, 64-column P tile, 128-column state
+// tile).  T is the type of x, b, c and y (float or __half); y_work, when
+// not null, takes this state tile's partial y in f32 instead of y.
+template <int PC, int NC, class T>
 __global__ void __launch_bounds__(kThreads)
-ssd_scan_f32(const float* __restrict__ x, const float* __restrict__ a,
-             const float* __restrict__ b, const float* __restrict__ c,
-             const float* __restrict__ s0, float* __restrict__ y,
+ssd_scan_f32(const T* __restrict__ x, const float* __restrict__ a,
+             const T* __restrict__ b, const T* __restrict__ c,
+             const float* __restrict__ s0, T* __restrict__ y, float* __restrict__ y_work,
              float* __restrict__ s_out, int H, int S, int Q, int P, int N,
              Strides xs, Strides as, Strides bs, Strides cs, Strides ys) {
   constexpr int Pp = kLanes * PC;   // P tile as staged (zero columns past P)
@@ -162,22 +205,27 @@ ssd_scan_f32(const float* __restrict__ x, const float* __restrict__ a,
   const int h = bh - bi * H;
   const int p0 = blockIdx.y * kPT;
   const int PT = min(kPT, P - p0);  // live columns of this CTA
+  const int n0 = blockIdx.z * kTileN;
+  const int NT = min(kTileN, N - n0);  // live state columns of this CTA
   const int tid = threadIdx.x;
   const int ty = tid / kLanes;
   const int tx = tid - ty * kLanes;
 
-  const float* xb = x + bi * xs.b + h * xs.h + p0;
+  const T* xb = x + bi * xs.b + h * xs.h + p0;
   const float* ab = a + bi * as.b + h * as.h;
-  const float* bb = b + bi * bs.b + h * bs.h;
-  const float* cb = c + bi * cs.b + h * cs.h;
-  float* yb = y + bi * ys.b + h * ys.h + p0;
-  const float* s0b = s0 + (static_cast<long long>(bh) * P + p0) * N;
-  float* sob = s_out + (static_cast<long long>(bh) * P + p0) * N;
+  const T* bb = b + bi * bs.b + h * bs.h + n0;
+  const T* cb = c + bi * cs.b + h * cs.h + n0;
+  T* yb = y + bi * ys.b + h * ys.h + p0;
+  float* yw = y_work == nullptr
+                  ? nullptr
+                  : y_work + static_cast<long long>(blockIdx.z) * gridDim.x * S * P + p0;
+  const float* s0b = s0 + (static_cast<long long>(bh) * P + p0) * N + n0;
+  float* sob = s_out + (static_cast<long long>(bh) * P + p0) * N + n0;
 
   for (int k = tid; k < Pp * Np; k += kThreads) {
     const int p = k / Np;
     const int n = k - p * Np;
-    sS[p * ldn + n] = p < PT && n < N ? s0b[p * N + n] : 0.f;
+    sS[p * ldn + n] = p < PT && n < NT ? s0b[p * N + n] : 0.f;
   }
 
   const int n_chunks = (S + Q - 1) / Q;
@@ -189,15 +237,15 @@ ssd_scan_f32(const float* __restrict__ x, const float* __restrict__ a,
     for (int k = tid; k < Qp * Np; k += kThreads) {
       const int r = k / Np;
       const int n = k - r * Np;
-      const bool live = r < rows && n < N;
+      const bool live = r < rows && n < NT;
       const long long t = t0 + r;
-      sC[r * ldn + n] = live ? cb[t * cs.s + n] : 0.f;
-      sB[r * ldn + n] = live ? bb[t * bs.s + n] : 0.f;
+      sC[r * ldn + n] = live ? to_f32(cb[t * cs.s + n]) : 0.f;
+      sB[r * ldn + n] = live ? to_f32(bb[t * bs.s + n]) : 0.f;
     }
     for (int k = tid; k < Qp * Pp; k += kThreads) {
       const int r = k / Pp;
       const int p = k - r * Pp;
-      sX[k] = r < rows && p < PT ? xb[(t0 + r) * xs.s + p] : 0.f;
+      sX[k] = r < rows && p < PT ? to_f32(xb[(t0 + r) * xs.s + p]) : 0.f;
     }
     if (ty == 0) {  // inclusive cumsum of a: 4 steps per lane, then a warp scan
       float v[4];
@@ -275,8 +323,13 @@ ssd_scan_f32(const float* __restrict__ x, const float* __restrict__ a,
 #pragma unroll
           for (int pc = 0; pc < PC; ++pc) {
             const int p = tx + kLanes * pc;
-            if (p < PT)
-              yb[(t0 + i) * ys.s + p] = fmaf(decay, off[r][pc], acc[r][pc]);
+            if (p < PT) {
+              const float yv = fmaf(decay, off[r][pc], acc[r][pc]);
+              if (yw != nullptr)
+                yw[work_row(bi, t0 + i, h, S, H, P) + p] = yv;
+              else
+                yb[(t0 + i) * ys.s + p] = from_f32<T>(yv);
+            }
           }
         }
       }
@@ -315,54 +368,86 @@ ssd_scan_f32(const float* __restrict__ x, const float* __restrict__ a,
   }
   __syncthreads();
 
-  for (int k = tid; k < PT * N; k += kThreads) {
-    const int p = k / N;
-    const int n = k - p * N;
-    sob[k] = sS[p * ldn + n];
+  for (int k = tid; k < PT * NT; k += kThreads) {
+    const int p = k / NT;
+    const int n = k - p * NT;
+    sob[p * N + n] = sS[p * ldn + n];
   }
 }
 
-template <int PC, int NC>
-cudaError_t launch_f32(const void* x, const float* a, const void* b, const void* c,
-                       const float* s0, void* y, float* s_out, int B, int S, int H, int P, int N,
-                       int Q, Strides xs, Strides as, Strides bs, Strides cs, Strides ys,
-                       cudaStream_t stream) {
-  const int smem =
-      smem_floats(pad32(Q), kLanes * NC, kLanes * PC) * static_cast<int>(sizeof(float));
-  cudaError_t err = cudaFuncSetAttribute(
-      ssd_scan_f32<PC, NC>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(B * H, (P + kPT - 1) / kPT);
-  ssd_scan_f32<PC, NC><<<grid, kThreads, smem, stream>>>(
-      static_cast<const float*>(x), a, static_cast<const float*>(b),
-      static_cast<const float*>(c), s0, static_cast<float*>(y), s_out, H, S, Q, P, N,
-      xs, as, bs, cs, ys);
+// y = the sum of the state tiles' partial y (tile 0 first), in y's type and
+// strides; the workspace is dense (tiles, B, S, H, P).
+template <class T>
+__global__ void __launch_bounds__(kThreads)
+sum_tiles(const float* __restrict__ y_work, T* __restrict__ y, int tiles, int S, int H, int P,
+          long long total, Strides ys) {
+  for (long long e = blockIdx.x * static_cast<long long>(kThreads) + threadIdx.x; e < total;
+       e += static_cast<long long>(gridDim.x) * kThreads) {
+    float v = y_work[e];
+    for (int z = 1; z < tiles; ++z) v += y_work[z * total + e];
+    const int p = static_cast<int>(e % P);
+    const long long row = e / P;
+    const int h = static_cast<int>(row % H);
+    const int t = static_cast<int>(row / H % S);
+    const long long bi = row / H / S;
+    y[bi * ys.b + t * ys.s + h * ys.h + p] = from_f32<T>(v);
+  }
+}
+
+template <class T>
+cudaError_t launch_sum_tiles(const float* y_work, void* y, int tiles, int B, int S, int H, int P,
+                             Strides ys, cudaStream_t stream) {
+  const long long total = static_cast<long long>(B) * S * H * P;
+  const long long blocks = (total + kThreads - 1) / kThreads;
+  sum_tiles<T><<<static_cast<int>(blocks < 132 * 8 ? blocks : 132 * 8), kThreads, 0, stream>>>(
+      y_work, static_cast<T*>(y), tiles, S, H, P, total, ys);
   return cudaGetLastError();
 }
 
-#define REPRO_SSD_ARGS x, a, b, c, s0, y, s_out, B, S, H, P, N, Q, xs, as, bs, cs, ys, stream
+template <int PC, int NC, class T>
+cudaError_t launch_f32(const void* x, const float* a, const void* b, const void* c,
+                       const float* s0, void* y, float* y_work, float* s_out, int B, int S,
+                       int H, int P, int N, int Q, Strides xs, Strides as, Strides bs,
+                       Strides cs, Strides ys, cudaStream_t stream) {
+  const int smem =
+      smem_floats(pad32(Q), kLanes * NC, kLanes * PC) * static_cast<int>(sizeof(float));
+  cudaError_t err = cudaFuncSetAttribute(
+      ssd_scan_f32<PC, NC, T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(B * H, (P + kPT - 1) / kPT, (N + kTileN - 1) / kTileN);
+  ssd_scan_f32<PC, NC, T><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(x), a, static_cast<const T*>(b), static_cast<const T*>(c), s0,
+      static_cast<T*>(y), y_work, s_out, H, S, Q, P, N, xs, as, bs, cs, ys);
+  return cudaGetLastError();
+}
 
-template <int PC>
+#define REPRO_SSD_ARGS \
+  x, a, b, c, s0, y, y_work, s_out, B, S, H, P, N, Q, xs, as, bs, cs, ys, stream
+
+template <int PC, class T>
 cudaError_t dispatch_f32_n(int nc, const void* x, const float* a, const void* b, const void* c,
-                           const float* s0, void* y, float* s_out, int B, int S, int H, int P,
-                           int N, int Q, Strides xs, Strides as, Strides bs, Strides cs,
-                           Strides ys, cudaStream_t stream) {
+                           const float* s0, void* y, float* y_work, float* s_out, int B, int S,
+                           int H, int P, int N, int Q, Strides xs, Strides as, Strides bs,
+                           Strides cs, Strides ys, cudaStream_t stream) {
   switch (nc) {
-    case 1: return launch_f32<PC, 1>(REPRO_SSD_ARGS);
-    case 2: return launch_f32<PC, 2>(REPRO_SSD_ARGS);
-    case 3: return launch_f32<PC, 3>(REPRO_SSD_ARGS);
-    case 4: return launch_f32<PC, 4>(REPRO_SSD_ARGS);
+    case 1: return launch_f32<PC, 1, T>(REPRO_SSD_ARGS);
+    case 2: return launch_f32<PC, 2, T>(REPRO_SSD_ARGS);
+    case 3: return launch_f32<PC, 3, T>(REPRO_SSD_ARGS);
+    case 4: return launch_f32<PC, 4, T>(REPRO_SSD_ARGS);
     default: return cudaErrorInvalidValue;
   }
 }
 
+// The scalar kernel for x, b, c and y of type T: its column blocks cover
+// the P tile and the widest state tile.
+template <class T>
 cudaError_t dispatch_f32(const void* x, const float* a, const void* b, const void* c,
-                         const float* s0, void* y, float* s_out, int B, int S, int H, int P,
-                         int N, int Q, Strides xs, Strides as, Strides bs, Strides cs,
-                         Strides ys, cudaStream_t stream) {
-  const int nc = pad32(N) / kLanes;
-  if (P > kLanes) return dispatch_f32_n<2>(nc, REPRO_SSD_ARGS);
-  return dispatch_f32_n<1>(nc, REPRO_SSD_ARGS);
+                         const float* s0, void* y, float* y_work, float* s_out, int B, int S,
+                         int H, int P, int N, int Q, Strides xs, Strides as, Strides bs,
+                         Strides cs, Strides ys, cudaStream_t stream) {
+  const int nc = pad32(N < kTileN ? N : kTileN) / kLanes;
+  if (P > kLanes) return dispatch_f32_n<2, T>(nc, REPRO_SSD_ARGS);
+  return dispatch_f32_n<1, T>(nc, REPRO_SSD_ARGS);
 }
 
 // ---------------------------------------------------------------------------
@@ -373,8 +458,8 @@ namespace tc {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kQ = 128;              // chunk rows as staged (kMaxQ)
-constexpr int kN = 128;              // state columns as staged (kMaxN)
+constexpr int kQ = kSubQ;            // chunk rows as staged
+constexpr int kN = kTileN;           // state columns as staged
 constexpr int kLdN = kN + 8;         // C, B and S rows: +16 bytes against bank conflicts
 constexpr int kLdX = kPT + 8;        // X rows
 constexpr int kWarps = kThreads / 32;
@@ -511,16 +596,17 @@ __device__ __forceinline__ void split(float v0, float v1, uint32_t& hi, uint32_t
   lo = pack(v0 - h.x, v1 - h.y);
 }
 
-// One CTA of 8 warps per (stream b*h, 64-column P tile).  Each warp owns 16
-// chunk rows (G o L, y) and the state block of rows 16 (w % 4) .. and
-// columns 64 (w / 4) .. (the update).
+// One CTA of 8 warps per (stream b*h, 64-column P tile, 128-column state
+// tile).  Each warp owns 16 chunk rows (G o L, y) and the state block of
+// rows 16 (w % 4) .. and columns 64 (w / 4) .. (the update).  y_work, when
+// not null, takes this state tile's partial y in f32 instead of y.
 template <bool kVec>
 __global__ void __launch_bounds__(kThreads, 1)
 ssd_scan_bf16(const bf16* __restrict__ x, const float* __restrict__ a,
               const bf16* __restrict__ b, const bf16* __restrict__ c,
-              const float* __restrict__ s0, bf16* __restrict__ y, float* __restrict__ s_out,
-              int H, int S, int Q, int P, int N, Strides xs, Strides as, Strides bs, Strides cs,
-              Strides ys) {
+              const float* __restrict__ s0, bf16* __restrict__ y, float* __restrict__ y_work,
+              float* __restrict__ s_out, int H, int S, int Q, int P, int N, Strides xs,
+              Strides as, Strides bs, Strides cs, Strides ys) {
   extern __shared__ __align__(16) unsigned char tc_smem[];
   unsigned char* smem = tc_smem;
   const uint32_t sbase = smem_addr(smem);
@@ -534,19 +620,24 @@ ssd_scan_bf16(const bf16* __restrict__ x, const float* __restrict__ a,
   const int h = bh - bi * H;
   const int p0 = blockIdx.y * kPT;
   const int PT = min(kPT, P - p0);  // live columns of this CTA
+  const int n0 = blockIdx.z * kN;
+  const int NT = min(kN, N - n0);   // live state columns of this CTA
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
 
   const bf16* xb = x + bi * xs.b + h * xs.h + p0;
   const float* ab = a + bi * as.b + h * as.h;
-  const bf16* bb = b + bi * bs.b + h * bs.h;
-  const bf16* cb = c + bi * cs.b + h * cs.h;
+  const bf16* bb = b + bi * bs.b + h * bs.h + n0;
+  const bf16* cb = c + bi * cs.b + h * cs.h + n0;
   bf16* yb = y + bi * ys.b + h * ys.h + p0;
-  const float* s0b = s0 + (static_cast<long long>(bh) * P + p0) * N;
-  float* sob = s_out + (static_cast<long long>(bh) * P + p0) * N;
+  float* yw = y_work == nullptr
+                  ? nullptr
+                  : y_work + static_cast<long long>(blockIdx.z) * gridDim.x * S * P + p0;
+  const float* s0b = s0 + (static_cast<long long>(bh) * P + p0) * N + n0;
+  float* sob = s_out + (static_cast<long long>(bh) * P + p0) * N + n0;
 
-  const int nk = (N + 15) / 16;      // k steps over the state width
+  const int nk = (NT + 15) / 16;     // k steps over the state tile
   const int sm0 = 16 * (warp & 3);   // this warp's state rows (p) ...
   const int sn0 = 64 * (warp >> 2);  // ... and columns (n)
   // this warp's 16 chunk rows: warps w and w + 4 share a scheduler and get
@@ -562,7 +653,7 @@ ssd_scan_bf16(const bf16* __restrict__ x, const float* __restrict__ a,
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int p = sm0 + g + 8 * (e >> 1), n = sn0 + 8 * nt + 2 * t + (e & 1);
-      st[nt][e] = p < PT && n < N ? s0b[p * N + n] : 0.f;
+      st[nt][e] = p < PT && n < NT ? s0b[p * N + n] : 0.f;
     }
   auto store_state = [&]() {
 #pragma unroll
@@ -581,8 +672,8 @@ ssd_scan_bf16(const bf16* __restrict__ x, const float* __restrict__ a,
   const int n_chunks = (S + Q - 1) / Q;
   auto issue = [&](int ch) {  // chunk ch's C, B, X and a into buffer ch % 2
     const int t0 = ch * Q, rows = min(Q, S - t0), buf = (ch & 1) * kBufBytes;
-    load_rows<kVec, kN / 8>(smem, buf + kOffC, kLdN, cb + t0 * cs.s, cs.s, rows, N, tid);
-    load_rows<kVec, kN / 8>(smem, buf + kOffB, kLdN, bb + t0 * bs.s, bs.s, rows, N, tid);
+    load_rows<kVec, kN / 8>(smem, buf + kOffC, kLdN, cb + t0 * cs.s, cs.s, rows, NT, tid);
+    load_rows<kVec, kN / 8>(smem, buf + kOffB, kLdN, bb + t0 * bs.s, bs.s, rows, NT, tid);
     load_rows<kVec, kPT / 8>(smem, buf + kOffX, kLdX, xb + t0 * xs.s, xs.s, rows, PT, tid);
     load_a<kVec>(reinterpret_cast<float*>(smem + buf + kOffRawA), ab + t0 * as.s, as.s, rows,
                  tid);
@@ -721,7 +812,15 @@ ssd_scan_bf16(const bf16* __restrict__ x, const float* __restrict__ a,
 #pragma unroll
       for (int hf = 0; hf < 2; ++hf) {
         const int i = r0 + g + 8 * hf;
-        if (i < rows) {
+        if (i < rows && yw != nullptr) {
+          float* wr = yw + work_row(bi, t0 + i, h, S, H, P);
+#pragma unroll
+          for (int pt = 0; pt < 8; ++pt) {
+            const int p = 8 * pt + 2 * t;
+            if (p < PT) wr[p] = acc[pt][2 * hf];
+            if (p + 1 < PT) wr[p + 1] = acc[pt][2 * hf + 1];
+          }
+        } else if (i < rows) {
           bf16* yr = yb + (t0 + i) * ys.s;
 #pragma unroll
           for (int pt = 0; pt < 8; ++pt) {
@@ -743,7 +842,7 @@ ssd_scan_bf16(const bf16* __restrict__ x, const float* __restrict__ a,
     for (int nt = 0; nt < 8; ++nt)
 #pragma unroll
       for (int e = 0; e < 4; ++e) st[nt][e] *= decay;
-    if (sn0 < N) {
+    if (sn0 < NT) {
       const int nq = (rows + 15) / 16;
 #pragma unroll
       for (int ks = 0; ks < kQ / 16; ++ks) {
@@ -777,22 +876,22 @@ ssd_scan_bf16(const bf16* __restrict__ x, const float* __restrict__ a,
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int p = sm0 + g + 8 * (e >> 1), n = sn0 + 8 * nt + 2 * t + (e & 1);
-      if (p < PT && n < N) sob[p * N + n] = st[nt][e];
+      if (p < PT && n < NT) sob[p * N + n] = st[nt][e];
     }
 }
 
 cudaError_t launch_bf16(int load_mode, const void* x, const float* a, const void* b, const void* c,
-                        const float* s0, void* y, float* s_out, int B, int S, int H, int P, int N,
-                        int Q, Strides xs, Strides as, Strides bs, Strides cs, Strides ys,
-                        cudaStream_t stream) {
+                        const float* s0, void* y, float* y_work, float* s_out, int B, int S, int H,
+                        int P, int N, int Q, Strides xs, Strides as, Strides bs, Strides cs,
+                        Strides ys, cudaStream_t stream) {
   const auto kernel = load_mode == 1 ? ssd_scan_bf16<true> : ssd_scan_bf16<false>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
   if (err != cudaSuccess) return err;
-  const dim3 grid(B * H, (P + kPT - 1) / kPT);
+  const dim3 grid(B * H, (P + kPT - 1) / kPT, (N + kN - 1) / kN);
   kernel<<<grid, kThreads, kSmemBytes, stream>>>(
       static_cast<const bf16*>(x), a, static_cast<const bf16*>(b), static_cast<const bf16*>(c),
-      s0, static_cast<bf16*>(y), s_out, H, S, Q, P, N, xs, as, bs, cs, ys);
+      s0, static_cast<bf16*>(y), y_work, s_out, H, S, Q, P, N, xs, as, bs, cs, ys);
   return cudaGetLastError();
 }
 
@@ -813,13 +912,16 @@ bool rows_aligned(const void* p, Strides st, int n) {
 // x (B, S, H, P), a (B, S, H) f32, b and c (B, S, H, N), y (B, S, H, P), each
 // with the element strides given for its batch, sequence and head dims and a
 // dense last dim (a head stride of 0 broadcasts b or c over heads); s0 and
-// s_out (B*H, P, N) f32, dense.  Q is the chunk length.  dtype of x, b, c, y:
-// 0 = float32 (the scalar kernel), 1 = bfloat16 (the tensor-core kernel).
+// s_out (B*H, P, N) f32, dense.  Q is the chunk length (at most kMaxQ; over
+// kSubQ it runs as sub-chunks), N at most kMaxN.  y_work: a dense f32
+// (ceil(N / kTileN), B, S, H, P) workspace when N > kTileN, else null.
+// dtype of x, b, c, y: 0 = float32 (the scalar kernel), 1 = bfloat16 (the
+// tensor-core kernel), 2 = float16 (the scalar kernel, f32 inside).
 // load_mode (bfloat16 only): 1 = 16-byte cp.async, which needs every row of
 // x, b and c 16-byte aligned (refused otherwise, never rerouted), 0 = element
 // by element.  Returns a cudaError_t (0 = launched).
 extern "C" int repro_ssd_scan(const void* x, const float* a, const void* b,
-                              const void* c, const float* s0, void* y,
+                              const void* c, const float* s0, void* y, float* y_work,
                               float* s_out, int dtype, int load_mode, int B, int S,
                               int H, int P, int N, int Q, long long x_sb,
                               long long x_ss, long long x_sh, long long a_sb,
@@ -830,19 +932,36 @@ extern "C" int repro_ssd_scan(const void* x, const float* a, const void* b,
   if (B <= 0 || H <= 0 || S < 0 || P <= 0 || N <= 0 || N > kMaxN || Q <= 0 ||
       Q > kMaxQ)
     return static_cast<int>(cudaErrorInvalidValue);
+  const int tiles = (N + kTileN - 1) / kTileN;
+  if (tiles > 1 && S > 0 && y_work == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  const int n_sub = (Q + kSubQ - 1) / kSubQ;
+  const int Qs = (Q + n_sub - 1) / n_sub;  // rows of a sub-chunk: what the kernels run
   const Strides xs{x_sb, x_ss, x_sh}, as{a_sb, a_ss, a_sh};
   const Strides bs{b_sb, b_ss, b_sh}, cs{c_sb, c_ss, c_sh}, ys{y_sb, y_ss, y_sh};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return static_cast<int>(
-        dispatch_f32(x, a, b, c, s0, y, s_out, B, S, H, P, N, Q, xs, as, bs, cs, ys, st));
-  if (dtype != 1 || (load_mode != 0 && load_mode != 1))
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (load_mode == 1 && !(tc::rows_aligned(x, xs, P) && tc::rows_aligned(b, bs, N) &&
-                          tc::rows_aligned(c, cs, N)))
-    return static_cast<int>(cudaErrorMisalignedAddress);
-  return static_cast<int>(tc::launch_bf16(load_mode, x, a, b, c, s0, y, s_out, B, S, H, P, N, Q,
-                                          xs, as, bs, cs, ys, st));
+  cudaError_t err;
+  if (dtype == 0) {
+    err = dispatch_f32<float>(x, a, b, c, s0, y, y_work, s_out, B, S, H, P, N, Qs, xs, as, bs,
+                              cs, ys, st);
+  } else if (dtype == 2) {
+    err = dispatch_f32<__half>(x, a, b, c, s0, y, y_work, s_out, B, S, H, P, N, Qs, xs, as, bs,
+                               cs, ys, st);
+  } else {
+    if (dtype != 1 || (load_mode != 0 && load_mode != 1))
+      return static_cast<int>(cudaErrorInvalidValue);
+    if (load_mode == 1 && !(tc::rows_aligned(x, xs, P) && tc::rows_aligned(b, bs, N) &&
+                            tc::rows_aligned(c, cs, N)))
+      return static_cast<int>(cudaErrorMisalignedAddress);
+    err = tc::launch_bf16(load_mode, x, a, b, c, s0, y, y_work, s_out, B, S, H, P, N, Qs, xs, as,
+                          bs, cs, ys, st);
+  }
+  if (err != cudaSuccess || tiles == 1 || S == 0) return static_cast<int>(err);
+  switch (dtype) {
+    case 0: return static_cast<int>(launch_sum_tiles<float>(y_work, y, tiles, B, S, H, P, ys, st));
+    case 1:
+      return static_cast<int>(launch_sum_tiles<__nv_bfloat16>(y_work, y, tiles, B, S, H, P, ys, st));
+    default: return static_cast<int>(launch_sum_tiles<__half>(y_work, y, tiles, B, S, H, P, ys, st));
+  }
 }
 
 extern "C" const char* repro_ssd_error_string(int err) {

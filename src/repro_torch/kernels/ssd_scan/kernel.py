@@ -6,10 +6,14 @@ The kernel is CUDA C++ (``csrc/ssd_scan.cu``) compiled for ``sm_90a`` by
 there is no fallback for CUDA tensors.
 
 The kernel is chosen by dtype (``kernel_route``): bfloat16 runs on the
-tensor-core kernel, float32 on the scalar one.  The tensor-core kernel loads
-with 16-byte ``cp.async`` when every row of x, b and c starts on a 16-byte
-boundary (the model's views do), else element by element; the C side
-refuses a 16-byte load it cannot make, so nothing is rerouted there.
+tensor-core kernel, float32 and float16 on the scalar one (float16 widened
+to f32 as it is staged).  The tensor-core kernel loads with 16-byte
+``cp.async`` when every row of x, b and c starts on a 16-byte boundary (the
+model's views do), else element by element; the C side refuses a 16-byte
+load it cannot make, so nothing is rerouted there.  A chunk over 128 rows
+runs as sub-chunks (``sub_chunks``) and a state over 128 columns as tiles
+over the grid whose partial y a second kernel adds (``state_tiles``);
+``check_contract`` is the launcher's contract as a pure function.
 """
 
 from __future__ import annotations
@@ -25,9 +29,11 @@ from repro_torch.kernels._nvcc import compile_library
 _HERE = Path(__file__).resolve().parent
 SOURCE = _HERE / "csrc" / "ssd_scan.cu"
 BUILD_DIR = _HERE / "build"
-MAX_CHUNK = 128  # kMaxQ in ssd_scan.cu
-MAX_STATE = 128  # kMaxN
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+MAX_CHUNK = 256  # kMaxQ in ssd_scan.cu
+MAX_STATE = 256  # kMaxN
+SUB_CHUNK = 128  # kSubQ: rows a kernel stages
+TILE_N = 128     # kTileN: state columns of a CTA
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -49,7 +55,7 @@ def _library() -> ctypes.CDLL:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
             vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-            lib.repro_ssd_scan.argtypes = [vp] * 7 + [i32] * 8 + [i64] * 15 + [vp]
+            lib.repro_ssd_scan.argtypes = [vp] * 8 + [i32] * 8 + [i64] * 15 + [vp]
             lib.repro_ssd_scan.restype = i32
             lib.repro_ssd_error_string.argtypes = [i32]
             lib.repro_ssd_error_string.restype = ctypes.c_char_p
@@ -57,26 +63,52 @@ def _library() -> ctypes.CDLL:
     return _lib
 
 
+def sub_chunks(chunk: int) -> tuple[int, int]:
+    """(sub-chunks, rows of each) a chunk of ``chunk`` rows runs as: one of
+    its own length up to SUB_CHUNK, else ceil(chunk / SUB_CHUNK) of equal
+    length (``n_sub`` and ``Qs`` in ``repro_ssd_scan``)."""
+    n = -(-chunk // SUB_CHUNK)
+    return n, -(-chunk // n)
+
+
+def state_tiles(N: int) -> int:
+    """CTAs a stream's state of width N is split over (blockIdx.z); past one,
+    the partial y go to an f32 workspace and a second kernel adds them."""
+    return -(-N // TILE_N)
+
+
+def check_contract(shapes, dtypes, last_strides, s0_contiguous: bool, chunk: int) -> None:
+    """What the launcher takes, from the shapes, dtypes and last-dim strides
+    of x, a, b, c and s0: x, b and c of one dtype of ``_DTYPES``, 4-d with a
+    dense last dim; a and s0 float32; a (B, S, H), b and c (B, S, H, N), s0
+    dense (B*H, P, N); N and the chunk in 1..256.  Raises on anything else."""
+    (xs, as_, bs, cs, ss), (xd, ad, bd, cd, sd) = shapes, dtypes
+    for name, shape, dtype, last in zip("xbc", (xs, bs, cs), (xd, bd, cd),
+                                        (last_strides[0], *last_strides[2:4])):
+        if dtype not in _DTYPES or dtype != xd:
+            raise TypeError(f"{name}: dtype {dtype} (need float32, bfloat16 or float16, "
+                            "one for all)")
+        if len(shape) != 4 or last != 1:
+            raise ValueError(f"{name} must be 4-d with a dense last dim, got {tuple(shape)}")
+    if ad != torch.float32 or sd != torch.float32:
+        raise TypeError(f"a and s0 must be float32, got {ad} and {sd}")
+    B, S, H, P = xs
+    N = bs[3]
+    if tuple(as_) != (B, S, H) or tuple(bs) != (B, S, H, N) or tuple(cs) != tuple(bs):
+        raise ValueError(f"shapes x {tuple(xs)}, a {tuple(as_)}, b {tuple(bs)}, c {tuple(cs)}")
+    if tuple(ss) != (B * H, P, N) or not s0_contiguous:
+        raise ValueError(f"s0 must be dense (B*H, P, N) = {(B * H, P, N)}, got {tuple(ss)}")
+    if not 0 < N <= MAX_STATE or not 0 < chunk <= MAX_CHUNK:
+        raise ValueError(f"state width {N} and chunk {chunk} must be in 1..{MAX_STATE}")
+
+
 def _check(x, a, b, c, s0, chunk: int) -> None:
     for name, t in (("x", x), ("a", a), ("b", b), ("c", c), ("s0", s0)):
         if t.device.type != "cuda" or t.device != x.device:
             raise ValueError(f"{name} must be a CUDA tensor on {x.device}, got {t.device}")
-    for name, t in (("x", x), ("b", b), ("c", c)):
-        if t.dtype not in _DTYPES or t.dtype != x.dtype:
-            raise TypeError(f"{name}: dtype {t.dtype} (need float32 or bfloat16, one for all)")
-        if t.dim() != 4 or t.stride(3) != 1:
-            raise ValueError(f"{name} must be 4-d with a dense last dim, got {tuple(t.shape)}")
-    if a.dtype != torch.float32 or s0.dtype != torch.float32:
-        raise TypeError(f"a and s0 must be float32, got {a.dtype} and {s0.dtype}")
-    B, S, H, P = x.shape
-    N = b.shape[3]
-    if a.shape != (B, S, H) or b.shape != (B, S, H, N) or c.shape != b.shape:
-        raise ValueError(f"shapes x {tuple(x.shape)}, a {tuple(a.shape)}, "
-                         f"b {tuple(b.shape)}, c {tuple(c.shape)}")
-    if s0.shape != (B * H, P, N) or not s0.is_contiguous():
-        raise ValueError(f"s0 must be dense (B*H, P, N) = {(B * H, P, N)}, got {tuple(s0.shape)}")
-    if not 0 < N <= MAX_STATE or not 0 < chunk <= MAX_CHUNK:
-        raise ValueError(f"state width {N} and chunk {chunk} must be in 1..{MAX_STATE}")
+    ts = (x, a, b, c, s0)
+    check_contract([t.shape for t in ts], [t.dtype for t in ts],
+                   [t.stride(-1) if t.dim() else 1 for t in ts], s0.is_contiguous(), chunk)
 
 
 def rows_aligned(t: torch.Tensor) -> bool:
@@ -89,8 +121,9 @@ def rows_aligned(t: torch.Tensor) -> bool:
 
 def kernel_route(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> tuple[str, str]:
     """(kernel, loads) for these inputs: ("tensor-core", "cp.async16" or
-    "elementwise") for bfloat16, ("scalar", "elementwise") for float32."""
-    if x.dtype == torch.float32:
+    "elementwise") for bfloat16, ("scalar", "elementwise") for float32 and
+    float16."""
+    if x.dtype != torch.bfloat16:
         return "scalar", "elementwise"
     aligned = all(rows_aligned(t) for t in (x, b, c))
     return "tensor-core", "cp.async16" if aligned else "elementwise"
@@ -119,18 +152,24 @@ def ssd_scan_fwd(
 
     Returns y (B, S, H, P) in x's dtype and the final state (B*H, P, N) in
     float32.  Inputs are read through their strides (the last dim dense).
+    A state wider than TILE_N also launches the tile sum, into y from an f32
+    workspace of the tiles' partial y.
     """
     _check(x, a, b, c, s0, chunk)
     B, S, H, P = x.shape
     N = b.shape[3]
     y = torch.empty((B, S, H, P), dtype=x.dtype, device=x.device)
     s_out = torch.empty_like(s0)
+    tiles = state_tiles(N)
+    work = (torch.empty((tiles, B, S, H, P), dtype=torch.float32, device=x.device)
+            if tiles > 1 and y.numel() else None)
     lib = _library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.repro_ssd_scan(
             x.data_ptr(), a.data_ptr(), b.data_ptr(), c.data_ptr(), s0.data_ptr(),
-            y.data_ptr(), s_out.data_ptr(), *kernel_args(x, a, b, c, y, chunk), stream,
+            y.data_ptr(), None if work is None else work.data_ptr(), s_out.data_ptr(),
+            *kernel_args(x, a, b, c, y, chunk), stream,
         )
     if err != 0:
         msg = lib.repro_ssd_error_string(err).decode()

@@ -9,9 +9,10 @@ tensors launch the hand-written kernel, or the call raises.  The kernel reads
 x, a, b and c through their strides, so the model's head-broadcast views of
 b and c (head stride 0) are not copied, and it masks the ragged tail of S
 itself, where the JAX wrapper pads with (inert) zeros.  On CUDA, x, b and c
-need a dense last dim.  The kernel has no backward (neither has the Pallas
-kernel), so a CUDA call with an input that needs gradients raises rather
-than return a result with no ``grad_fn``.
+need a dense last dim and one dtype of float32, bfloat16 and float16, and
+the chunk and the state width are at most 256.  The kernel has no backward
+(neither has the Pallas kernel), so a CUDA call with an input that needs
+gradients raises rather than return a result with no ``grad_fn``.
 """
 
 from __future__ import annotations
@@ -19,11 +20,13 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels._nvcc import refuse_stand_ins
-from repro_torch.kernels.ssd_scan.kernel import ssd_scan_fwd
+from repro_torch.kernels.ssd_scan.kernel import ssd_scan_fwd, state_tiles
 from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
 
 #: kernel launches since the count was last set to 0
 launch_count = 0
+#: launches of the tile sum that follows the kernel at a state over 128 wide
+tile_sum_count = 0
 
 
 def ssd_scan(
@@ -36,7 +39,7 @@ def ssd_scan(
     chunk: int = 128,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Returns (y (B,S,H,P), final_state (B,H,P,N) float32)."""
-    global launch_count
+    global launch_count, tile_sum_count
     refuse_stand_ins("ssd_scan", x, a, b, c, initial_state)
     B, S, H, P = x.shape
     N = b.shape[-1]
@@ -60,4 +63,5 @@ def ssd_scan(
     else:
         y, s_final = ssd_scan_fwd(x, a.float(), b, c, s0.contiguous(), chunk=Q)
         launch_count += 1
+        tile_sum_count += int(state_tiles(N) > 1 and S > 0)
     return y, s_final.reshape(B, H, P, N)

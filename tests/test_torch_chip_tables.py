@@ -84,3 +84,58 @@ def test_every_decoder_only_arch_is_trained_card_against_cpu():
     """Phase 4c: mamba2-130m by its own step, the other eight here."""
     decoders = {a for a in list_archs() if not get_config(a).is_encdec} - {"mamba2-130m"}
     assert set(chip_smoke.TRAIN_CHECK_ARCHS) == decoders
+
+
+@pytest.mark.parametrize("name", list(chip_smoke.FA_CONTRACT))
+def test_flash_contract_cases_take_the_instance_they_name(name):
+    """Each K1 contract case runs a head dim and dtype the CUDA wrapper
+    takes: an instance of its own at 80, 96 and 256, the f16 instance at
+    qwen2.5-3b's shape, and the pad to 128 at qwen's heads for 112."""
+    from repro_torch.kernels.flash_attention.kernel import HEAD_DIMS, kernel_route
+
+    (B, H, KV, S, hd), dtype = chip_smoke.FA_CONTRACT[name]
+    kernel, width, padded = kernel_route(hd, dtype)
+    assert (B, S) == (4, 1024) and H % KV == 0 and width in HEAD_DIMS
+    assert padded == ("padded" in name) and (width == 128 if padded else width == hd)
+    assert (kernel == "fa_fwd_f32") == (dtype == torch.float32)
+    qwen = get_config("qwen2.5-3b")
+    if "qwen" in name:
+        assert (H, KV) == (qwen.num_heads, qwen.num_kv_heads)
+        assert hd == (112 if padded else qwen.head_dim)
+
+
+@pytest.mark.parametrize("name", list(chip_smoke.SSD_CONTRACT))
+def test_ssd_contract_cases_are_mamba2s_prefill_past_the_old_limits(name):
+    """Each K2 contract case is mamba2-130m's serving prefill (batch 4,
+    1024 steps, its heads and head dim) at a chunk or state width over 128
+    or in float16, inside the launcher's contract."""
+    from repro_torch.kernels.ssd_scan.kernel import check_contract
+
+    (B, S, H, P, N), chunk, dtype = chip_smoke.SSD_CONTRACT[name]
+    cfg = get_config("mamba2-130m")
+    assert (B, S, H, P) == (4, 1024, cfg.ssm.n_heads(cfg.d_model), cfg.ssm.head_dim)
+    assert N in (cfg.ssm.d_state, 256) and chunk in (cfg.ssm.chunk, 256)
+    assert max(N, chunk) > 128 or dtype == torch.float16
+    f32 = torch.float32
+    check_contract([(B, S, H, P), (B, S, H), (B, S, H, N), (B, S, H, N), (B * H, P, N)],
+                   [dtype, f32, dtype, dtype, f32], (1,) * 5, True, chunk)
+    assert chip_smoke.MAMBA_UPSTREAM_CHUNK == 256
+
+
+def test_float16_limits_are_no_looser_than_bfloat16s():
+    for table in (chip_smoke.TOL, chip_smoke.ROW_REL_TOL, chip_smoke.SSD_TOL,
+                  chip_smoke.SSD_STEP_REL_TOL):
+        assert table["float16"] <= table["bfloat16"]
+
+
+def test_flash_bench_times_the_models_prefills():
+    """The K1 source comparison (``kernels/flash_attention/bench.py``) runs
+    at the prefill shapes the card check times, and Gemma-2-2B's hd 256."""
+    from repro_torch.kernels.flash_attention import bench
+
+    checked = {(B, H, KV, S, hd, causal)
+               for (B, H, KV, S, _, hd, causal) in chip_smoke.FA_PREFILLS}
+    checked.add((4, 16, 2, 1024, 128, True))  # qwen2.5-3b's, check_flash's last block
+    (B, H, KV, S, hd), _ = chip_smoke.FA_CONTRACT["gemma-2-2b hd 256"]
+    checked.add((B, H, KV, S, hd, True))
+    assert set(bench.PREFILLS.values()) == checked

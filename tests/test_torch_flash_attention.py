@@ -4,8 +4,12 @@ The port's plain version (``ref.attention_ref``) and its wrapper on CPU
 tensors (``ops.flash_attention_gqa``) take the same numpy inputs as the JAX
 oracle and the JAX Pallas kernel (interpret mode, as the JAX tests run it).
 Tolerances are the JAX kernel sweep's: 2e-4 in float32, 2e-2 in bfloat16
-(one bf16 rounding of outputs near 1).  The CUDA kernel itself is held
-against the plain version on the card by ``chip_smoke.py``.
+(one bf16 rounding of outputs near 1); float16, which the sweep does not
+run, 5e-3 (chip_smoke's TOL: a quarter of bfloat16's, for a mantissa of 10
+bits, not 7).  The CUDA kernel itself is held against the plain version on
+the card by ``chip_smoke.py``; here ``meta`` tensors show what the wrapper
+hands its launcher (the head-dim pad, the dtype) and the pure functions
+``kernel_route`` and ``check_contract`` state what the launcher takes.
 """
 
 from __future__ import annotations
@@ -35,6 +39,11 @@ FA_SHAPES = [
 ]
 DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
 TOL = {"float32": 2e-4, "bfloat16": 2e-2}
+# the kernel's contract past the sweep: head dims with an instance (80, 96,
+# 256) and padded ones (72 -> 80), each in three dtypes
+CONTRACT_HDS = [72, 80, 96, 256]
+CONTRACT_DTYPES = {**DTYPES, "float16": (jnp.float16, torch.float16)}
+CONTRACT_TOL = {**TOL, "float16": 5e-3}
 
 
 def _inputs(shape, seed=0):
@@ -47,7 +56,7 @@ def _inputs(shape, seed=0):
 
 
 def _both(arrs, dname):
-    jdt, tdt = DTYPES[dname]
+    jdt, tdt = CONTRACT_DTYPES[dname]
     return ([jnp.asarray(a).astype(jdt) for a in arrs],
             [torch.from_numpy(a).to(tdt) for a in arrs])
 
@@ -122,8 +131,17 @@ def test_kernel_source_targets_hopper():
     src = fa_kernel.SOURCE.read_text()
     assert 'extern "C" int repro_fa_fwd' in src
     assert "arch=compute_90a,code=sm_90a" in fa_kernel.NVCC_FLAGS
-    assert fa_kernel.HEAD_DIMS == (16, 32, 64, 128)
-    assert "wgmma.mma_async" in src and ".m64n128k16.f32.bf16.bf16" in src
+    assert fa_kernel.HEAD_DIMS == (16, 32, 64, 80, 96, 128, 256)
+    # the wgmma instructions are spelled from the element type's tag: both
+    # products in bf16 and f16, S = Q K^T over 128- and 64-key tiles, P V at
+    # every head dim
+    assert "wgmma.mma_async" in src and '"k16.f32." #TY "." #TY' in src
+    for tag in ("bf16", "f16"):
+        assert f"WGMMA_SS({tag}, 128, 64," in src and f"WGMMA_SS({tag}, 64, 32," in src
+        assert f"WGMMA_RS_ALL({tag})" in src
+    for hd in fa_kernel.HEAD_DIMS:
+        assert f"case {hd}: return Launch<{hd}>::run" in src
+        assert f"WGMMA_RS(TY, {hd}, {hd // 2}," in src
     assert "cp.async.bulk.tensor.4d" in src and "mbarrier.arrive.expect_tx" in src
     # the tensor-map encoder comes from the driver through the runtime, so
     # the library is built with the flags every kernel shares
@@ -141,7 +159,8 @@ def _model_views(B, H, KV, S, hd, dtype, device="cpu"):
     return q.permute(0, 2, 3, 1, 4).reshape(B, H, S, hd), kv.transpose(1, 2), kv.transpose(1, 2)
 
 
-@pytest.mark.parametrize("dtype, code", [(torch.bfloat16, 1), (torch.float32, 0)])
+@pytest.mark.parametrize("dtype, code", [(torch.bfloat16, 1), (torch.float32, 0),
+                                         (torch.float16, 2)])
 @pytest.mark.parametrize("device", ["cpu", "meta"])
 def test_kernel_args_route_by_dtype_and_keep_model_strides(dtype, code, device):
     """What reaches ``repro_fa_fwd``: the dtype code picks the kernel
@@ -270,3 +289,160 @@ def test_library_name_hashes_source_and_shared_flags(kernel_name, tmp_path):
     want = tmp_path / f"lib{kernel_name}_{digest.hexdigest()[:16]}.so"
     want.write_bytes(b"")
     assert _nvcc.compile_library(mod.SOURCE, tmp_path, kernel_name) == (want, "")
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dname", list(CONTRACT_DTYPES))
+@pytest.mark.parametrize("hd", CONTRACT_HDS)
+def test_wrapper_on_cpu_matches_jax_kernel_at_every_head_dim_and_dtype(hd, dname, causal):
+    """The head dims and dtypes the CUDA wrapper now takes, against the JAX
+    kernel (interpret mode), which takes them all."""
+    shape = (1, 4, 2, 40, 40, hd, causal)
+    (jq, jk, jv), (tq, tk, tv) = _both(_inputs(shape, seed=hd), dname)
+    fa_ops.launch_count = fa_ops.pad_count = 0
+    out = fa_ops.flash_attention_gqa(tq, tk, tv, causal=causal)
+    ref = jax_flash(jq, jk, jv, causal=causal, block_q=64, block_k=64)
+    assert out.shape == tuple(ref.shape) and out.dtype == CONTRACT_DTYPES[dname][1]
+    _close(out, ref, CONTRACT_TOL[dname])
+    assert fa_ops.launch_count == fa_ops.pad_count == 0  # the plain version pads nothing
+
+
+@pytest.mark.parametrize("hd, width", [(8, 16), (40, 64), (72, 80), (112, 128), (160, 256)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_zero_padded_head_dim_keeps_the_result(hd, width, causal):
+    """What the wrapper does for a head dim without an instance: zeros past
+    hd add nothing to q . k, the padded output columns are zero and sliced
+    off, and the scale stays the true hd**-0.5."""
+    (q, k, v) = (torch.from_numpy(a) for a in _inputs((1, 4, 2, 33, 33, hd, causal), seed=5))
+    pad = lambda t: torch.nn.functional.pad(t, (0, width - hd))  # noqa: E731
+    padded = attention_ref(pad(q), pad(k), pad(v), causal=causal, scale=hd**-0.5)
+    assert bool((padded[..., hd:] == 0).all())
+    torch.testing.assert_close(padded[..., :hd], attention_ref(q, k, v, causal=causal),
+                               rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("hd, dtype, want", [
+    (16, torch.bfloat16, ("fa_fwd_tc<bf16>", 16, False)),
+    (64, torch.float16, ("fa_fwd_tc<f16>", 64, False)),
+    (80, torch.bfloat16, ("fa_fwd_tc<bf16>", 80, False)),
+    (96, torch.float16, ("fa_fwd_tc<f16>", 96, False)),
+    (128, torch.float32, ("fa_fwd_f32", 128, False)),
+    (256, torch.bfloat16, ("fa_fwd_tc<bf16>", 256, False)),
+    (1, torch.float32, ("fa_fwd_f32", 16, True)),
+    (72, torch.float16, ("fa_fwd_tc<f16>", 80, True)),
+    (88, torch.bfloat16, ("fa_fwd_tc<bf16>", 96, True)),
+    (112, torch.float32, ("fa_fwd_f32", 128, True)),
+    (129, torch.bfloat16, ("fa_fwd_tc<bf16>", 256, True)),
+], ids=str)
+def test_kernel_route_names_the_instance_and_the_pad(hd, dtype, want):
+    """The dtype picks the kernel, the least instance of at least hd its
+    head dim; every head dim up to 256 has one."""
+    assert fa_kernel.kernel_route(hd, dtype) == want
+    assert want[1] in fa_kernel.HEAD_DIMS
+
+
+@pytest.mark.parametrize("hd, dtype, err", [(257, torch.bfloat16, ValueError),
+                                            (512, torch.float32, ValueError),
+                                            (0, torch.float16, ValueError),
+                                            (64, torch.float64, TypeError)], ids=str)
+def test_kernel_route_refuses_past_the_contract(hd, dtype, err):
+    """Over 256 (wgmma's widest N) there is no instance, and no dtype but
+    float32, bfloat16 and float16 has a kernel."""
+    with pytest.raises(err, match="256|dtype"):
+        fa_kernel.kernel_route(hd, dtype)
+
+
+@pytest.mark.parametrize("hd", fa_kernel.HEAD_DIMS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+def test_check_contract_takes_every_instance(hd, dtype):
+    fa_kernel.check_contract([(2, 8, 100, hd), (2, 2, 100, hd), (2, 2, 100, hd)],
+                             [dtype] * 3, (1, 1, 1))
+
+
+@pytest.mark.parametrize("case, err", [
+    ("head dim without an instance", ValueError),
+    ("mixed dtypes", TypeError),
+    ("float64", TypeError),
+    ("strided head dim", ValueError),
+    ("k and v differ", ValueError),
+    ("3-d q", ValueError),
+])
+def test_check_contract_refuses(case, err):
+    """The launcher's contract, read without a card: a padded head dim must
+    be padded before the launcher, and the rest as before."""
+    q, k, v = (2, 8, 100, 64), (2, 2, 100, 64), (2, 2, 100, 64)
+    dts, last = [torch.bfloat16] * 3, [1, 1, 1]
+    if case == "head dim without an instance":
+        q, k, v = (2, 8, 100, 72), (2, 2, 100, 72), (2, 2, 100, 72)
+    elif case == "mixed dtypes":
+        dts[2] = torch.float16
+    elif case == "float64":
+        dts = [torch.float64] * 3
+    elif case == "strided head dim":
+        last[1] = 2
+    elif case == "k and v differ":
+        v = (2, 2, 99, 64)
+    else:
+        q = (2, 8, 64)
+    with pytest.raises(err):
+        fa_kernel.check_contract([q, k, v], dts, last)
+
+
+@pytest.mark.parametrize("hd, dtype", [(80, torch.bfloat16), (96, torch.float16),
+                                       (256, torch.bfloat16), (128, torch.float16)], ids=str)
+def test_new_instances_take_the_model_views_uncopied(monkeypatch, hd, dtype):
+    """At a head dim with an instance the model's permuted q and transposed
+    k and v reach the launcher as they are (TMA-ready at hd 80, 96 and 256
+    too), with the true scale; nothing is padded."""
+    seen = {}
+
+    def launcher(q, k, v, *, causal, scale):
+        seen.update(q=q, k=k, v=v, scale=scale)
+        return torch.empty_like(q)
+
+    monkeypatch.setattr(fa_ops, "flash_attention_fwd", launcher)
+    q, k, v = _model_views(1, 4, 2, 16, hd, dtype, "meta")
+    assert all(fa_kernel.tma_ready(t) for t in (q, k, v))
+    assert fa_kernel.kernel_inputs(q, k, v) == (q, k, v)
+    fa_ops.launch_count = fa_ops.pad_count = 0
+    out = fa_ops.flash_attention_gqa(q, k, v)
+    assert (fa_ops.launch_count, fa_ops.pad_count) == (1, 0) and out.shape == q.shape
+    assert seen["q"] is q and seen["k"] is k and seen["v"] is v and seen["scale"] == hd**-0.5
+    out_args = fa_kernel.kernel_args(q, k, v, torch.empty_like(q))
+    assert out_args[0] == fa_kernel._DTYPES[dtype] and out_args[6] == hd
+
+
+@pytest.mark.parametrize("hd, width", [(72, 80), (112, 128), (200, 256)])
+def test_padded_head_dims_reach_the_launcher_padded(monkeypatch, hd, width):
+    """A head dim without an instance reaches the launcher zero-padded to
+    the next one, dense (so TMA-ready), with the scale of the true head dim;
+    the output comes back at hd and the pad is counted."""
+    seen = {}
+
+    def launcher(q, k, v, *, causal, scale):
+        seen.update(q=q, k=k, v=v, scale=scale)
+        return torch.empty_like(q)
+
+    monkeypatch.setattr(fa_ops, "flash_attention_fwd", launcher)
+    q, k, v = _model_views(1, 4, 2, 16, hd, torch.bfloat16, "meta")
+    fa_ops.launch_count = fa_ops.pad_count = 0
+    out = fa_ops.flash_attention_gqa(q, k, v)
+    assert (fa_ops.launch_count, fa_ops.pad_count) == (1, 1)
+    assert out.shape == q.shape and seen["scale"] == hd**-0.5
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        got = seen[name]
+        assert got.shape == (*t.shape[:3], width) and got.is_contiguous()
+        assert fa_kernel.tma_ready(got)
+
+
+def test_head_dims_over_256_raise_before_the_launcher(monkeypatch):
+    launched = []
+    monkeypatch.setattr(fa_ops, "flash_attention_fwd",
+                        lambda q, k, v, **kw: launched.append(1) or torch.empty_like(q))
+    q, k, v = _model_views(1, 4, 2, 16, 288, torch.bfloat16, "meta")
+    fa_ops.launch_count = fa_ops.pad_count = 0
+    with pytest.raises(ValueError, match="256"):
+        fa_ops.flash_attention_gqa(q, k, v)
+    assert launched == [] and fa_ops.launch_count == fa_ops.pad_count == 0
+    cpu = [torch.zeros(t.shape) for t in (q, k, v)]
+    assert fa_ops.flash_attention_gqa(*cpu).shape == q.shape  # the plain version takes any hd

@@ -15,11 +15,17 @@ tolerance is the JAX in-model kernel test's 3e-3.  Greedy tokens must be
 identical.  hymba's prompts (24 tokens) are longer than its window, and its
 decode runs long enough that every local layer's ring cache wraps.  The
 MoE archs' aux loss, ``loss_fn`` with it, and the gradients are held to
-the JAX package's too.
+the JAX package's too.  Two configs reach the kernels' wider contract:
+mamba2-130m at mamba_ssm's default chunk of 256 with prompts of 300 steps
+(the SSD kernel's sub-chunks), and qwen2.5-3b with float16 compute (the
+flash kernel's f16 instance), held at 1e-2: float16 activations of a few
+units round at 2^-10 relative at every cast, and the two frameworks round
+in other places.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import uuid
 
@@ -46,6 +52,7 @@ HYBRID = ["hymba-1.5b"]
 MOE = ["kimi-k2-1t-a32b", "deepseek-v2-lite-16b"]
 TOL = dict(rtol=1e-4, atol=1e-4)
 KERNEL_TOL = dict(rtol=3e-3, atol=3e-3)
+F16_TOL = dict(rtol=1e-2, atol=1e-2)
 B, S, GEN = 2, 24, 4
 
 
@@ -657,3 +664,55 @@ def test_to_tensor_resolves_a_proxy_of_the_ports_store():
         store.connector.clear()
         store.close()
         unregister_store("torch-bridge")
+
+
+@pytest.mark.parametrize("path", ["forward", "prefill"])
+def test_mamba_at_chunk_256_matches_jax_through_the_kernel_path(path):
+    """mamba_ssm's default chunk of 256 over prompts of 300 steps, with
+    ``pallas`` on both sides: the JAX kernel (interpret mode) at chunk 256
+    in the forward, the port's kernel path (its plain version here) against
+    the JAX reference prefill from the cache's zero state."""
+    jcfg, tcfg, jp, tp = _setup("mamba2-130m", "pallas")
+    jcfg = jcfg.replace(ssm=dataclasses.replace(jcfg.ssm, chunk=256), attention_impl="pallas")
+    tcfg = tcfg.replace(ssm=dataclasses.replace(tcfg.ssm, chunk=256))
+    assert tcfg.ssm.chunk == 256
+    toks = _tokens(jcfg, seed=3, shape=(B, 300))
+    ssd_ops.launch_count = 0
+    if path == "forward":
+        jout, _, _ = jtx.forward(jcfg, jp, jnp.asarray(toks))
+        tout, _, _ = tx.forward(tcfg, tp, torch.from_numpy(toks).long())
+        _close(tout, jout)
+    else:
+        jl, jcache = jtx.prefill(jcfg, jp, jnp.asarray(toks), jtx.init_cache(jcfg, B, 308))
+        tcache = tx.init_cache(tcfg, B, 308, device="cpu")
+        tl, tcache = tx.prefill(tcfg, tp, torch.from_numpy(toks).long(), tcache)
+        _close(tl, jl)
+        for name in ("conv", "state"):
+            _close(tcache["layers"][name], jcache["layers"][name])
+    assert ssd_ops.launch_count == 0  # CPU: the plain version
+
+
+@pytest.mark.parametrize("path", ["forward", "prefill"])
+def test_qwen_in_float16_matches_jax_through_the_flash_path(path):
+    """float16 compute with ``pallas`` on both sides: the JAX flash kernel
+    (interpret mode) in float16 against the port's flash path (its plain
+    version here); the prefill's cache too."""
+    jcfg, tcfg, jp, tp = _setup("qwen2.5-3b", "pallas")
+    jcfg = jcfg.replace(compute_dtype=jnp.float16, attention_impl="pallas")
+    tcfg = tcfg.replace(compute_dtype=torch.float16)
+    toks = _tokens(jcfg, seed=4)
+    fa_ops.launch_count = 0
+    if path == "forward":
+        jout, _, _ = jtx.forward(jcfg, jp, jnp.asarray(toks))
+        tout, _, _ = tx.forward(tcfg, tp, torch.from_numpy(toks).long())
+        assert tout.dtype == torch.float16 and jout.dtype == jnp.float16
+        _close(tout, jout, **F16_TOL)
+    else:
+        jl, jcache = jtx.prefill(jcfg, jp, jnp.asarray(toks), jtx.init_cache(jcfg, B, S + 8))
+        tcache = tx.init_cache(tcfg, B, S + 8, device="cpu")
+        tl, tcache = tx.prefill(tcfg, tp, torch.from_numpy(toks).long(), tcache)
+        _close(tl, jl, **F16_TOL)
+        for name in ("k", "v"):
+            assert tcache["layers"][name].dtype == torch.float16
+            _close(tcache["layers"][name], jcache["layers"][name], **F16_TOL)
+    assert fa_ops.launch_count == 0

@@ -5,9 +5,13 @@ tensors (``ops.ssd_scan``) take the same numpy inputs as the JAX oracle and
 the JAX Pallas kernel (interpret mode, as the JAX tests run it).  Tolerances
 are the JAX kernel sweep's: 5e-4 in float32 (the chunked form and the
 sequential recurrence sum in other orders), 3e-2 in bfloat16 (one bf16
-rounding of outputs of a few units).  The CUDA kernel itself is held against
-the plain version on the card by ``chip_smoke.py``; here the ``meta`` device
-stands in for a non-CPU tensor, to show what the wrapper hands the launcher.
+rounding of outputs of a few units); float16, which the sweep does not run,
+5e-3 (chip_smoke's SSD_TOL: a quarter of bfloat16's, for a mantissa of 10
+bits, not 7).  The CUDA kernel itself is held against the plain version on
+the card by ``chip_smoke.py``; here the ``meta`` device stands in for a
+non-CPU tensor, to show what the wrapper hands the launcher, and the pure
+functions ``check_contract``, ``sub_chunks`` and ``state_tiles`` state what
+the launcher takes and how it splits a chunk and a state.
 """
 
 from __future__ import annotations
@@ -35,6 +39,15 @@ SSD_SHAPES = [
 ]
 DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
 TOL = {"float32": 5e-4, "bfloat16": 3e-2}
+# the kernel's contract past the sweep: a chunk of 256 (mamba_ssm's default)
+# at a ragged S = 300, a state of 256 columns, both, each in three dtypes
+CONTRACT_SHAPES = [
+    (1, 300, 2, 16, 16, 256),
+    (1, 64, 2, 16, 256, 32),
+    (1, 300, 2, 16, 256, 256),
+]
+CONTRACT_DTYPES = {**DTYPES, "float16": (jnp.float16, torch.float16)}
+CONTRACT_TOL = {**TOL, "float16": 5e-3}
 
 
 def _inputs(shape, seed=0):
@@ -51,7 +64,7 @@ def _inputs(shape, seed=0):
 
 def _both(arrs, dname):
     """The first four inputs in the working dtype, s0 in float32."""
-    jdt, tdt = DTYPES[dname]
+    jdt, tdt = CONTRACT_DTYPES[dname]
     j = [jnp.asarray(v).astype(jdt) for v in arrs[:4]] + [jnp.asarray(arrs[4])]
     t = [torch.from_numpy(v).to(tdt) for v in arrs[:4]] + [torch.from_numpy(arrs[4])]
     return j, t
@@ -157,7 +170,8 @@ def test_head_broadcast_views_equal_contiguous_copies():
 
 
 @pytest.mark.parametrize("S, chunk, expect", [(1024, 128, 128), (40, 128, 64), (5, 128, 8),
-                                              (100, 32, 32)])
+                                              (100, 32, 32), (1024, 256, 256), (300, 256, 256),
+                                              (200, 256, 256), (100, 256, 128)])
 def test_non_cpu_tensors_go_to_the_launcher(monkeypatch, S, chunk, expect):
     """A tensor off the CPU goes to the kernel launcher with the clamped
     chunk, the head-broadcast views uncopied and s0 flattened; the launch is
@@ -341,3 +355,121 @@ def test_rounding_study_chunked_form_matches_the_recurrence(chunk):
                                     *rounding.CONFIGS["P and S hi/lo (the kernel)"], chunk=chunk)
     _close(y_k, y_ref.float().numpy(), TOL["bfloat16"])
     _close(state_k.reshape(B * H, P, N), s_ref.numpy(), TOL["bfloat16"])
+
+
+@pytest.mark.parametrize("shape", CONTRACT_SHAPES, ids=str)
+@pytest.mark.parametrize("dname", list(CONTRACT_DTYPES))
+def test_wrapper_on_cpu_matches_jax_kernel_past_128(shape, dname):
+    """The chunk, state width and dtype the CUDA wrapper now takes, against
+    the JAX kernel (interpret mode), which takes them all."""
+    chunk = shape[-1]
+    (jx, ja, jb, jc, js), (tx, ta, tb, tc, ts) = _both(_inputs(shape, seed=8), dname)
+    ssd_ops.launch_count = ssd_ops.tile_sum_count = 0
+    y, sf = ssd_ops.ssd_scan(tx, ta, tb, tc, ts, chunk=chunk)
+    yr, sr = jax_scan(jx, ja, jb, jc, js, chunk=chunk)
+    assert y.shape == tuple(yr.shape) and y.dtype == CONTRACT_DTYPES[dname][1]
+    assert sf.dtype == torch.float32
+    _close(y, yr, CONTRACT_TOL[dname])
+    _close(sf, sr, CONTRACT_TOL[dname])
+    assert ssd_ops.launch_count == ssd_ops.tile_sum_count == 0
+
+
+@pytest.mark.parametrize("chunk, want", [(8, (1, 8)), (100, (1, 100)), (128, (1, 128)),
+                                         (129, (2, 65)), (200, (2, 100)), (256, (2, 128))])
+def test_a_chunk_over_128_runs_as_sub_chunks(chunk, want):
+    """The kernel stages 128 rows: a longer chunk runs as equal sub-chunks,
+    256 as two of 128 (``n_sub`` and ``Qs`` of ``repro_ssd_scan``)."""
+    assert ssd_kernel.sub_chunks(chunk) == want
+    n, rows = want
+    assert rows <= ssd_kernel.SUB_CHUNK and n * rows >= chunk > (n - 1) * rows
+
+
+def test_sub_chunks_give_the_chunks_result():
+    """Why the split is exact: the chunked scan's result does not depend on
+    the chunk, so the JAX kernel at 256 equals itself at 128 (sub-chunks) up
+    to the order of its f32 sums."""
+    shape = (1, 300, 2, 16, 16, 256)
+    (jx, ja, jb, jc, js), _ = _both(_inputs(shape, seed=9), "float32")
+    y256, s256 = jax_scan(jx, ja, jb, jc, js, chunk=256)
+    y128, s128 = jax_scan(jx, ja, jb, jc, js, chunk=ssd_kernel.sub_chunks(256)[1])
+    np.testing.assert_allclose(np.asarray(y256), np.asarray(y128), rtol=5e-4, atol=5e-4)
+    np.testing.assert_allclose(np.asarray(s256), np.asarray(s128), rtol=5e-4, atol=5e-4)
+
+
+@pytest.mark.parametrize("N, tiles", [(8, 1), (128, 1), (129, 2), (200, 2), (256, 2)])
+def test_a_state_over_128_splits_into_tiles(N, tiles):
+    assert ssd_kernel.state_tiles(N) == tiles
+
+
+def _contract_shapes(B=2, S=40, H=3, P=16, N=16):
+    return [(B, S, H, P), (B, S, H), (B, S, H, N), (B, S, H, N), (B * H, P, N)]
+
+
+@pytest.mark.parametrize("N, chunk", [(16, 256), (256, 128), (256, 256), (200, 1)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+def test_check_contract_takes_chunk_and_state_up_to_256(N, chunk, dtype):
+    f32 = torch.float32
+    ssd_kernel.check_contract(_contract_shapes(N=N), [dtype, f32, dtype, dtype, f32],
+                              (1, 1, 1, 1, 1), True, chunk)
+
+
+@pytest.mark.parametrize("case, err", [
+    ("chunk 257", ValueError),
+    ("N = 257", ValueError),
+    ("mixed dtypes", TypeError),
+    ("float64", TypeError),
+    ("a in bfloat16", TypeError),
+    ("strided last dim", ValueError),
+    ("s0 not dense", ValueError),
+    ("c differs", ValueError),
+])
+def test_check_contract_refuses(case, err):
+    f32, bf = torch.float32, torch.bfloat16
+    shapes, dts, last, dense, chunk = _contract_shapes(), [bf, f32, bf, bf, f32], [1] * 5, True, 128
+    if case == "chunk 257":
+        chunk = 257
+    elif case == "N = 257":
+        shapes = _contract_shapes(N=257)
+    elif case == "mixed dtypes":
+        dts[3] = torch.float16
+    elif case == "float64":
+        dts = [torch.float64, f32, torch.float64, torch.float64, f32]
+    elif case == "a in bfloat16":
+        dts[1] = bf
+    elif case == "strided last dim":
+        last[2] = 2
+    elif case == "s0 not dense":
+        dense = False
+    else:
+        shapes[3] = (2, 40, 3, 8)
+    with pytest.raises(err):
+        ssd_kernel.check_contract(shapes, dts, last, dense, chunk)
+
+
+@pytest.mark.parametrize("N, chunk, dtype", [(256, 128, torch.bfloat16), (128, 256, torch.float16),
+                                             (256, 256, torch.float32)], ids=str)
+def test_wide_states_and_long_chunks_reach_the_launcher(monkeypatch, N, chunk, dtype):
+    """A state of 256 and a chunk of 256 reach the launcher as they are (the
+    kernel splits them); a state over 128 also counts the tile sum."""
+    seen = {}
+
+    def launcher(x, a, b, c, s0, *, chunk):
+        seen.update(x=x, b=b, chunk=chunk)
+        return torch.empty_like(x), torch.empty_like(s0)
+
+    monkeypatch.setattr(ssd_ops, "ssd_scan_fwd", launcher)
+    x, a, b, c = _model_views(2, 1024, 3, 16, N, dtype)
+    ssd_ops.launch_count = ssd_ops.tile_sum_count = 0
+    y, sf = ssd_ops.ssd_scan(x, a, b, c, chunk=chunk)
+    assert (ssd_ops.launch_count, ssd_ops.tile_sum_count) == (1, int(N > 128))
+    assert seen["chunk"] == chunk and seen["x"] is x and seen["b"].stride() == b.stride()
+    assert y.shape == x.shape and sf.shape == (2, 3, 16, N)
+
+
+def test_float16_takes_the_scalar_kernel():
+    """float16 has no tensor-core instance: it runs the f32 kernel, which
+    widens it as it stages (dtype code 2, element-by-element loads)."""
+    x, a, b, c = _model_views(1, 40, 2, 16, 16, torch.float16)
+    assert ssd_kernel.kernel_route(x, b, c) == ("scalar", "elementwise")
+    assert ssd_kernel.kernel_args(x, a, b, c, torch.empty_like(x), 256)[:8] == (
+        2, 0, 1, 40, 2, 16, 16, 256)
