@@ -24,14 +24,16 @@ Phases, each of which must pass (any failure exits non-zero):
      there too, and the other models' prefills are timed beside SDPA on K/V
      repeated over the group (non-causal for the encoder); then the contract
      past the models' head dims and dtype (``check_flash_contract``): head
-     dims 72, 80, 96, 112, 160 and 256 x {float32, bfloat16, float16} x
-     causal / non-causal at 300 rows, V = identity at 80, 96 and 256, and
-     the prefills of ``FA_CONTRACT`` (phi-2's hd 80, Phi-3-mini's 96,
-     Gemma-2-2B's 256, qwen2.5-3b's in float16 (tolerance 5e-3 / 2.5e-3), hd
-     112 padded to 128 at qwen's heads, and the first three in float32) on
-     the model's views (uncopied) and on contiguous inputs, causal and
-     non-causal, with both faults planted each way, every launch and pad
-     counted, timed beside SDPA with the wrapper's host cost;
+     dims 72, 80, 96, 112, 160, 256, 300, 320, 384 and 512 x {float32,
+     bfloat16, float16} x causal / non-causal at 300 rows, V = identity at
+     80, 96, 256, 300 and 512, and the prefills of ``FA_CONTRACT`` (phi-2's
+     hd 80, Phi-3-mini's 96, Gemma-2-2B's 256, qwen2.5-3b's in float16
+     (tolerance 5e-3 / 2.5e-3), hd 112 padded to 128 at qwen's heads, the
+     first three in float32, and the wide kernel at Gemma-2-2B's heads with
+     hd 300, 320, 384 and 512 in all three dtypes) on the model's views
+     (uncopied) and on contiguous inputs, causal and non-causal, with both
+     faults planted each way, every launch and pad counted, timed beside
+     SDPA (naming the backend that served it) with the wrapper's host cost;
    * the SSD scan over the kernel test shapes x {float32, bfloat16}
      (tolerance 5e-4 / 3e-2 on y and the final state, plus a per-step
      relative L2 limit on y), over bf16 shapes at the tensor-core kernel's
@@ -46,9 +48,12 @@ Phases, each of which must pass (any failure exits non-zero):
      dtypes at 300 steps, and mamba2-130m's prefill at chunk 256 (equal bit
      for bit to chunk 128: its two sub-chunks), at N = 256 (two state tiles
      and the tile sum, counted) and in float16 (the f32 kernel; tolerance
-     5e-3 / 2.5e-3), and the first two in float32 and all three together in
-     float16, on the model's views and on B/C per head, the three faults
-     planted, timed with the wrapper's host cost;
+     5e-3 / 2.5e-3), the first two in float32 and all three together in
+     float16, and at chunk 512 and N = 320 and 384 in all three dtypes, on
+     the model's views and on B/C per head, the three faults planted, timed
+     with the wrapper's host cost; the f32 kernel at chunk 512 is held to a
+     float64 run of the plain version, no further than 1.25x the plain
+     chunked form in f32 at that chunk (``ssd_f64_check``);
    * the tensor fingerprint, where tokens must be equal, not close: the
      kernel gives every pinned JAX token of ``FP_GOLDEN``, equals the plain
      version over byte lengths that straddle word and block edges and the
@@ -186,6 +191,15 @@ Phases, each of which must pass (any failure exits non-zero):
    card, proxied through the store; the same candidates and scores as the
    same loop on the CPU).
 
+7. The data plane (``phase_data_plane``): a 16 MB bfloat16 tensor on the
+   card and on the host, and the same values in float32, through
+   ``serialize``/``deserialize``: an ``nd`` leaf of token "bfloat16" whose
+   buffer is the host tensor's bytes (its own memory on the CPU), decoded
+   as a CPU ``torch.bfloat16`` tensor equal bit for bit; host microseconds
+   beside ``pickle_serializer``'s; through a shared-memory ``ResultStore``,
+   copies per byte equal to float32's at the same bytes, decoded over the
+   store's mapping.
+
 Each part prints its own seconds and the run's so far.  The last lines
 are the ``kernels`` JSON object (launches summed over the serve paths), the
 card's name and power limit, and ``{"ok": true, "device": {...}}``.  Needs the repository's
@@ -202,6 +216,7 @@ import math
 import subprocess
 import sys
 import time
+import warnings
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -289,10 +304,16 @@ FA_CONTRACT = {
     "phi-2 hd 80 float32": ((4, 32, 32, 1024, 80), torch.float32),
     "phi-3-mini hd 96 float32": ((4, 32, 32, 1024, 96), torch.float32),
     "gemma-2-2b hd 256 float32": ((4, 8, 4, 1024, 256), torch.float32),
+    # past 256, the wide kernel (``fa_fwd_wide``) at Gemma-2-2B's heads: head
+    # dims 320, 384 and 512 and a ragged 300, in every dtype
+    **{f"gemma-2-2b heads hd {hd} {str(dtype).split('.')[-1]}": ((4, 8, 4, 1024, hd), dtype)
+       for hd in (300, 320, 384, 512)
+       for dtype in (torch.bfloat16, torch.float16, torch.float32)},
 }
-# every head dim the wrapper takes past the old four (instances and pads) x
-# {float32, bfloat16, float16} x causal / non-causal, at a ragged 300 rows
-FA_CONTRACT_HDS = (72, 80, 96, 112, 160, 256)
+# every head dim the wrapper takes past the old four (instances, pads and
+# the wide kernel) x {float32, bfloat16, float16} x causal / non-causal, at
+# a ragged 300 rows
+FA_CONTRACT_HDS = (72, 80, 96, 112, 160, 256, 300, 320, 384, 512)
 # Full-width bf16 forward: over every block of FORWARD_BLOCK tokens, the
 # flash path's relative L2 distance from an f32-compute forward is at most
 # FORWARD_NOISE times the reference path's
@@ -348,10 +369,12 @@ SSD_BF16_EDGES = [
     (2, 256, 24, 64, 128, False),
     SSD_HYMBA,
 ]
-# K2's contract past the models above (``kernel.MAX_CHUNK``, ``MAX_STATE``):
-# mamba2-130m's prefill at mamba_ssm's default chunk of 256, at a state of
-# 256 columns (two tiles and the tile sum), and in float16, then the first
-# two and all three together in the other dtypes.  ((B, S, H, P, N), chunk,
+# K2's contract past the models above (``kernel.sub_chunks``,
+# ``state_tiles``): mamba2-130m's prefill at mamba_ssm's default chunk of
+# 256, at a state of 256 columns (two tiles and the tile sum), and in
+# float16, then the first two and all three together in the other dtypes;
+# past 256, a chunk of 512 (four sub-chunks) and states of 320 and 384
+# columns (three tiles), each in every dtype.  ((B, S, H, P, N), chunk,
 # dtype); each runs on the model's head-broadcast B and C (timed, faults
 # planted) and on B and C per head
 MAMBA_UPSTREAM_CHUNK = 256  # mamba_ssm's Mamba2 default chunk_size
@@ -362,10 +385,24 @@ SSD_CONTRACT = {
     "mamba2-130m chunk 256 float32": ((4, 1024, 24, 64, 128), 256, torch.float32),
     "mamba2-130m N = 256 float32": ((4, 1024, 24, 64, 256), 128, torch.float32),
     "mamba2-130m chunk 256, N = 256, float16": ((4, 1024, 24, 64, 256), 256, torch.float16),
+    **{f"mamba2-130m {what} {str(dtype).split('.')[-1]}": ((4, 1024, 24, 64, N), chunk, dtype)
+       for what, N, chunk in (("chunk 512", 128, 512), ("N = 320", 320, 128),
+                              ("N = 384", 384, 128))
+       for dtype in (torch.bfloat16, torch.float32, torch.float16)},
 }
 # (N, chunk) at a ragged 300 steps in every dtype: a ragged second state tile
-# (200), two tiles, and the sub-chunks at ragged lengths
-SSD_CONTRACT_SWEEP = [(128, 256), (200, 128), (200, 256), (256, 128), (256, 256)]
+# (200), two tiles, the sub-chunks at ragged lengths, and past 256
+SSD_CONTRACT_SWEEP = [(128, 256), (200, 128), (200, 256), (256, 128), (256, 256),
+                      (128, 512), (320, 128), (384, 512)]
+# the f32 kernel at a chunk of 512 against a float64 run of the plain
+# version: no further from it than F64_NOISE times the plain chunked form in
+# f32 at that chunk (``rounding.chunked``: the JAX kernel's arithmetic at
+# the call's chunk).  The sequential f32 recurrence is several times closer
+# to the float64 run than any chunked form, the JAX kernel's included
+# (scripts/ssd_chunk_error.py), so it bounds no chunked kernel; its distance
+# and the chunked form's at the kernel's 128-row sub-chunks are printed beside
+SSD_F64_CASE = "mamba2-130m chunk 512 float32"
+F64_NOISE = 1.25
 # Planted faults the SSD checks must reject (each built from wrapper calls)
 SSD_FAULTS = ("state not carried across chunks", "initial state ignored",
               "final state dropped")
@@ -520,6 +557,10 @@ ROOFLINE_FLOOR = 0.95        # a measured step at least this share of its roofli
 DRYRUN_TIMEOUT = 600
 ARG_BYTES_TOL = 0.01         # predicted argument bytes against the allocator's growth
 PHASE5_SECONDS = 120
+# phase 7: the data plane's tensor, 16 MB in bfloat16, and the calls each
+# host time is the mean of
+DATA_PLANE_SHAPE = (4096, 2048)
+DATA_PLANE_CALLS = 10
 # the active-learning example on the card against the CPU: the same f32
 # products summed in another order, so the scores' rounding is absolute
 EXAMPLE_SCORE_RTOL, EXAMPLE_SCORE_ATOL = 1e-5, 1e-5
@@ -772,7 +813,7 @@ def check_flash_contract(contiguous, model_views, held, faults_rejected) -> dict
     both ways, and timed as the prefills are, with the wrapper's host cost
     and, for a padded head dim, the pad's own time."""
     from repro_torch.kernels.flash_attention import ops as fa_ops
-    from repro_torch.kernels.flash_attention.kernel import kernel_route, tma_ready
+    from repro_torch.kernels.flash_attention.kernel import kernel_inputs, kernel_route
 
     for dtype in (torch.float32, torch.bfloat16, torch.float16):
         dname = str(dtype).split(".")[-1]
@@ -781,7 +822,8 @@ def check_flash_contract(contiguous, model_views, held, faults_rejected) -> dict
                 shape = (2, 8, 2, 300, 300, hd, causal)
                 held(shape, dname, *contiguous(*shape[:6], dtype), causal)
         if dtype != torch.float32:
-            for hd in (80, 96, 256):  # P read back through each new V layout
+            # P read back through each new V layout, and through the wide kernel
+            for hd in (80, 96, 256, 300, 512):
                 q, k, _ = contiguous(1, 4, 2, 128, hd, hd, dtype)
                 eye = torch.eye(hd, device="cuda", dtype=dtype).expand(1, 2, hd, hd)
                 held(f"{(1, 4, 2, 128, hd, hd, False)} V = identity", dname, q * 3, k, eye, False)
@@ -790,7 +832,7 @@ def check_flash_contract(contiguous, model_views, held, faults_rejected) -> dict
         dname = str(dtype).split(".")[-1]
         kernel, width, padded = kernel_route(hd, dtype)
         qkv = model_views(B, H, KV, S, S, hd, dtype)
-        if dtype != torch.float32 and not all(tma_ready(t) for t in qkv):
+        if any(x is not y for x, y in zip(kernel_inputs(*qkv), qkv)):
             fail(f"{name}: the model's strided views would be copied before the kernel")
         n0, pads0 = fa_ops.launch_count, fa_ops.pad_count
         err, ref = held(f"{name} {(B, H, KV, S, hd)} model views causal", dname, *qkv, True)
@@ -807,7 +849,8 @@ def check_flash_contract(contiguous, model_views, held, faults_rejected) -> dict
         t = contract[name] = {"shape": (B, H, KV, S, S, hd, True), "dtype": dname,
                               "kernel": kernel, "instance_hd": width, "padded": padded,
                               "max_abs_err": err, **flash_times(*qkv, causal=True),
-                              "host_us": wrapper_host_us(lambda: fa_ops.flash_attention_gqa(*qkv))}
+                              "host_us": wrapper_host_us(lambda: fa_ops.flash_attention_gqa(*qkv)),
+                              "sdpa_backend": sdpa_backend(*qkv, causal=True)}
         pad = ""
         if padded:
             t["pad_ms"] = time_ms(lambda: [torch.nn.functional.pad(x, (0, width - hd))
@@ -815,11 +858,33 @@ def check_flash_contract(contiguous, model_views, held, faults_rejected) -> dict
             pad = f" | the pad of q, k and v alone {t['pad_ms']:.4f} ms"
         print(f"[flash] {name} ({kernel} at hd {width}): kernel {t['ms']:.4f} ms | card only "
               f"{t['card_ms']:.4f} ms | plain {t['plain_ms']:.4f} ms | sdpa "
-              f"{t['library_ms']:.4f} ms (card only {t['card_library_ms']:.4f} ms) | bound "
+              f"{t['library_ms']:.4f} ms (card only {t['card_library_ms']:.4f} ms; served by "
+              f"{t['sdpa_backend']}) | bound "
               f"{t['bound_ms']:.4f} ms ({t['bound_by']}: {t['flops']:.4e} FLOP, {t['bytes']} B) | "
               f"wrapper host time {t['host_us']:.1f} us a call{pad}")
         del qkv
     return contract
+
+
+def sdpa_backend(q, k, v, causal: bool) -> str:
+    """The backend SDPA dispatches these inputs to (K/V repeated over the
+    group, as ``flash_times`` calls it): the first of PyTorch's priority
+    order that takes them."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    G = q.shape[1] // k.shape[1]
+    k, v = (t.repeat_interleave(G, dim=1) for t in (k, v))
+    order = getattr(torch._C, "_get_sdp_priority_order", lambda: [1, 2, 0])()
+    for code in order:
+        backend = SDPBackend(code)
+        try:
+            with sdpa_kernel(backend), warnings.catch_warnings():
+                warnings.simplefilter("ignore")  # each refusal warns its reason
+                torch.nn.functional.scaled_dot_product_attention(q, k, v, is_causal=causal)
+        except RuntimeError:
+            continue
+        return backend.name
+    return "none"
 
 
 def wrapper_host_us(fn, calls: int = 100) -> float:
@@ -1100,6 +1165,7 @@ def check_ssd_contract(inputs, held) -> dict:
         y_ref, s_ref = ssd_plain(x, a, b, c, s0)
         ssd_faults_rejected((x, a, b, c, s0), chunk, y_ref, s_ref, dname, f"{name} ")
         del y_ref, s_ref
+        f64 = ssd_f64_check(x, a, b, c, s0, chunk) if name == SSD_F64_CASE else None
         held((B, S, H, P, N, chunk, f"{name}, B/C per head"), dname,
              *inputs(B, S, H, P, N, dtype), chunk)
         scan = lambda: ssd_ops.ssd_scan(x, a, b, c, s0, chunk=chunk)  # noqa: E731
@@ -1107,6 +1173,8 @@ def check_ssd_contract(inputs, held) -> dict:
                               "route": list(route), "state_tiles": tiles, "max_abs_err": err,
                               **ssd_times(x, a, b, c, s0, chunk),
                               "host_us": wrapper_host_us(scan)}
+        if f64:
+            t["float64"] = f64
         print(f"[ssd] {name} {(B, S, H, P, N)} chunk {chunk} ({route[0]} kernel, {tiles} state "
               f"tile{'s' if tiles > 1 else ''}): kernel {t['ms']:.4f} ms | card only "
               f"{t['card_ms']:.4f} ms | plain {t['plain_ms']:.4f} ms | library none | bound "
@@ -1114,6 +1182,47 @@ def check_ssd_contract(inputs, held) -> dict:
               f"wrapper host time {t['host_us']:.1f} us a call")
         del x, a, b, c, s0
     return contract
+
+
+def ssd_f64_check(x, a, b, c, s0, chunk: int) -> dict:
+    """The f32 kernel at ``chunk`` against a float64 run of the plain
+    version, beside the plain version's own f32 runs: the sequential
+    recurrence, and the chunked form (``rounding.chunked``, unrounded) at
+    the sub-chunk the kernel runs and at ``chunk``.  Distance: the relative
+    L2 error over y and the final state (max abs printed beside).  The
+    kernel must be no further than F64_NOISE times the chunked form at
+    ``chunk``, the JAX kernel's arithmetic."""
+    from repro_torch.kernels.ssd_scan.kernel import sub_chunks
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan
+    from repro_torch.kernels.ssd_scan.rounding import CONFIGS, chunked
+
+    y64, s64 = ssd_plain(*(t.double() for t in (x, a, b, c, s0)))
+    ref = torch.cat([y64.reshape(-1), s64.reshape(-1)])
+
+    def dist(y, s):
+        d = torch.cat([y.double().reshape(-1), s.double().reshape(-1)]) - ref
+        return {"rel_l2": (d.norm() / ref.norm()).item(), "max_abs": d.abs().max().item()}
+
+    exact = CONFIGS["exact"]
+    sub = sub_chunks(chunk)[1]
+    runs = {"kernel": dist(*ssd_scan(x, a, b, c, s0, chunk=chunk)),
+            "plain sequential": dist(*ssd_plain(x, a, b, c, s0))}
+    for q in (sub, chunk):
+        runs[f"plain chunked {q}"] = dist(*chunked(x, a, b, c, s0, *exact, chunk=q,
+                                                   round_y=exact[0]))
+    for label, d in runs.items():
+        print(f"[ssd] float64 run against the f32 {label} at chunk {chunk}: rel_l2 "
+              f"{d['rel_l2']:.4e} max_abs {d['max_abs']:.4e}")
+    ratios = {label: runs["kernel"]["rel_l2"] / d["rel_l2"] for label, d in runs.items()
+              if label != "kernel"}
+    ratio = ratios[f"plain chunked {chunk}"]
+    print(f"[ssd] kernel / plain chunked {chunk}: {ratio:.3f} (limit {F64_NOISE}); beside it, "
+          + ", ".join(f"kernel / {label} {r:.3f}" for label, r in ratios.items()
+                      if label != f"plain chunked {chunk}"))
+    if ratio > F64_NOISE:
+        fail(f"ssd chunk {chunk} float32: the kernel is {ratio:.3f}x as far from the float64 run "
+             f"as the plain chunked form at chunk {chunk}")
+    return {**runs, "ratios": ratios}
 
 
 def ssd_times(x, a, b, c, s0, chunk: int) -> dict:
@@ -3372,6 +3481,109 @@ def phase_roofline(gpu: str, counted: dict) -> dict:
         (r["arch"], r["shape"], r["mesh"]) for r in slower], "checks": checks}
 
 
+def phase_data_plane() -> dict:
+    """Phase 7: a 16 MB bfloat16 tensor on the zero-copy data path, on the
+    card and on the host, beside the same values in float32 and beside
+    ``pickle_serializer``: the header token, the buffer's bytes (the CPU
+    tensor's own memory), the decoded dtype, device and bits, and, through
+    a shared-memory store, copies per byte equal to float32's at the same
+    bytes with the decoded tensor over the store's mapping."""
+    import msgpack
+
+    from repro_torch.core.serialize import (CopyCounter, deserialize, pickle_serializer,
+                                            serialize)
+    from repro_torch.runtime.transfer import ResultStore
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    bf_cuda = torch.randn(DATA_PLANE_SHAPE, generator=gen, device="cuda").to(torch.bfloat16)
+    bf_cpu = bf_cuda.cpu()
+    f32_cuda = bf_cuda.float()
+    f32_cpu = f32_cuda.cpu()
+    raw = lambda t: t.reshape(-1).view(torch.uint8).numpy()  # noqa: E731
+
+    def mean_us(fn, calls: int = DATA_PLANE_CALLS) -> float:
+        fn()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        return (time.perf_counter() - t0) * 1e6 / calls
+
+    times = {}
+    for label, t, host in (("bfloat16 cpu", bf_cpu, bf_cpu), ("bfloat16 cuda", bf_cuda, bf_cpu),
+                           ("float32 cpu", f32_cpu, f32_cpu), ("float32 cuda", f32_cuda, f32_cpu)):
+        so = serialize(t)
+        header = msgpack.unpackb(so.header)
+        leaf = header["leaves"][0]
+        token = "bfloat16" if t.dtype == torch.bfloat16 else "<f4"
+        if (header["kind"], leaf["k"], leaf["dt"], leaf["sh"], len(so.buffers)) != (
+                "tree", "nd", token, list(t.shape), 1):
+            fail(f"data plane {label}: header {header['kind']} {leaf} with {len(so.buffers)} "
+                 f"buffers, not one 'nd' leaf of {token}")
+        buf = np.frombuffer(so.buffers[0], np.uint8)
+        if not np.array_equal(buf, raw(host)):
+            fail(f"data plane {label}: the buffer's bytes are not the tensor's")
+        if t.device.type == "cpu" and buf.ctypes.data != t.data_ptr():
+            fail(f"data plane {label}: the buffer is a copy, not the tensor's memory")
+        back = deserialize(so.frames())
+        if t.dtype == torch.bfloat16:
+            ok = (isinstance(back, torch.Tensor) and back.dtype == torch.bfloat16
+                  and back.device.type == "cpu" and np.array_equal(raw(back), raw(host)))
+        else:
+            ok = isinstance(back, np.ndarray) and np.array_equal(back, host.numpy())
+        if not ok:
+            fail(f"data plane {label}: decoded {type(back).__name__} "
+                 f"{getattr(back, 'dtype', '')} is not the tensor bit for bit")
+        pk = pickle_serializer(t)
+        times[label] = {
+            "token": token, "nbytes": buf.nbytes,
+            "serialize_us": mean_us(lambda: serialize(t)),
+            "deserialize_us": mean_us(lambda: deserialize(so.frames())),
+            "pickle_serialize_us": mean_us(lambda: pickle_serializer(t)),
+            "pickle_deserialize_us": mean_us(lambda: deserialize(pk.frames())),
+        }
+        r = times[label]
+        print(f"[data plane] {label} {tuple(t.shape)} ({r['nbytes']} B, token {token!r}, decodes "
+              f"as a CPU {type(back).__name__}): serialize {r['serialize_us']:.1f} us, "
+              f"deserialize {r['deserialize_us']:.1f} us | pickle_serializer "
+              f"{r['pickle_serialize_us']:.1f} us, its deserialize "
+              f"{r['pickle_deserialize_us']:.1f} us")
+        del so, back, pk
+
+    # through a shared-memory store: publish, fetch by reference, decode
+    name = f"dp{time.time_ns() % 10**8}"
+    rs = ResultStore({"name": name, "connector": {"connector_type": "shm", "prefix": name},
+                      "serializer": "default", "cache_size": 0})
+    copies = {}
+    try:
+        half = f32_cpu[:, :DATA_PLANE_SHAPE[1] // 2].contiguous()  # bf_cpu's bytes in float32
+        for label, t in (("bfloat16", bf_cpu), ("float32", half)):
+            so = serialize(t)
+            ref = rs.publish(label, so)
+            cc = CopyCounter()
+            bundle = rs.fetch(ref, so.nbytes, copies=cc)
+            back = deserialize(bundle)
+            addr = back.data_ptr() if isinstance(back, torch.Tensor) else back.ctypes.data
+            spans = [(np.frombuffer(f, np.uint8).ctypes.data, f.nbytes) for f in bundle.frames]
+            mapped = any(lo <= addr < lo + n for lo, n in spans)
+            same = np.array_equal(raw(back) if isinstance(back, torch.Tensor)
+                                  else back.reshape(-1).view(np.uint8), raw(t))
+            snap = cc.snapshot()
+            copies[label] = {**snap, "decoded_over_the_mapping": mapped}
+            print(f"[data plane] shm store {label} ({so.nbytes} B): copies_per_byte "
+                  f"{snap['copies_per_byte']} ({snap['bytes_copied']} of {snap['bytes_moved']} B "
+                  f"moved copied), decoded over the store's mapping: {mapped}, bits equal: {same}")
+            if not (mapped and same):
+                fail(f"data plane {label}: the shm fetch did not decode in place, bit for bit")
+            del back, bundle
+            rs.evict(ref)
+    finally:
+        rs.close()
+    if copies["bfloat16"]["copies_per_byte"] != copies["float32"]["copies_per_byte"]:
+        fail(f"data plane: bfloat16 copies {copies['bfloat16']['copies_per_byte']} per byte, "
+             f"float32 {copies['float32']['copies_per_byte']}")
+    return {"times": times, "copies": copies}
+
+
 def phase_examples() -> dict:
     """Phase 6: the four examples, as a user runs them, on the card.  The
     quickstart's sums and products are held to numpy's on the host; the
@@ -3502,6 +3714,8 @@ def main() -> int:
     distribution["seconds"] = done("phase 5 distribution")
     examples = phase_examples()
     examples["seconds"] = done("phase 6 examples")
+    data_plane = phase_data_plane()
+    data_plane["seconds"] = done("phase 7 data plane")
 
     result = {"kernels": [fa, ssd, fp]}
     out_dir = ROOT / "chiprun_out"
@@ -3510,7 +3724,8 @@ def main() -> int:
         {**result, "serve": served, "decode": decode, "moe_models": moe_models,
          "dense_models": dense_models, "whisper": whisper,
          "fingerprint": fp_detail, "prefill_kernels": prefill_kernels, "train": trained,
-         "distribution": distribution, "examples": examples, "gpu": gpu}, indent=1))
+         "distribution": distribution, "examples": examples, "data_plane": data_plane,
+         "gpu": gpu}, indent=1))
     print(json.dumps(result))
     print(gpu)
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

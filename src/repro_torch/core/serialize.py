@@ -8,8 +8,12 @@ module implements the same design for the PyTorch world:
   header metadata plus their raw data buffer -- the buffer is a
   ``memoryview`` of the original array (a CPU tensor through
   ``tensor.numpy()``), so serialization performs **zero copies**.  A CUDA
-  tensor pays one device-to-host copy; dtypes numpy cannot hold (bfloat16)
-  take the pickle path.  Tensor leaves decode as ndarrays.
+  tensor pays one device-to-host copy.  A bfloat16 tensor, which numpy
+  cannot hold, goes out as its raw 16-bit words under the token
+  ``"bfloat16"``, the bytes the JAX package sends for a bfloat16 array;
+  it decodes as a CPU ``torch.bfloat16`` tensor over the received bytes
+  (no ``ml_dtypes`` needed), every other dtype as an ndarray.  Other
+  dtypes numpy cannot hold take the pickle path.
 * Nested dicts, lists and tuples are flattened into leaves plus a pickled
   structure; array leaves take the fast path and everything else falls
   back to pickle protocol 5 with out-of-band buffers.
@@ -307,8 +311,14 @@ def _is_proxy(x: Any) -> bool:
     return is_proxy(x)
 
 
-def _as_ndarray(x: Any) -> np.ndarray | None:
-    """Return ``x`` as an ndarray view if it is array-like, else None.
+#: the dtype token of a bfloat16 leaf (the name ml_dtypes gives the dtype,
+#: as the JAX package writes it)
+_BF16 = "bfloat16"
+
+
+def _as_array(x: Any) -> tuple[np.ndarray, str] | None:
+    """Return ``x`` as (ndarray view, dtype token) if it is array-like, else
+    None.  A bfloat16 tensor comes back as a uint16 view of its bits.
 
     Proxies are *never* treated as arrays here: a proxy must serialize as
     its factory (cheap reference), not resolve into its target bytes.
@@ -316,13 +326,18 @@ def _as_ndarray(x: Any) -> np.ndarray | None:
     if _is_proxy(x):
         return None
     if isinstance(x, np.ndarray) and x.dtype != object:
-        return x
+        return x, _dtype_token(x.dtype)
     if _is_torch_tensor(x):
+        torch = sys.modules["torch"]
+        # CPU: a zero-copy view; CUDA: device -> host, one copy
+        t = x.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).numpy().view(np.uint16), _BF16
         try:
-            # CPU: a zero-copy view; CUDA: device -> host, one copy
-            return x.detach().cpu().numpy()
-        except TypeError:  # bfloat16 and other dtypes numpy cannot hold
+            arr = t.numpy()
+        except TypeError:  # float8 and other dtypes numpy cannot hold
             return None
+        return arr, _dtype_token(arr.dtype)
     return None
 
 
@@ -341,6 +356,34 @@ def _np_dtype(token: str) -> np.dtype:
         return np.dtype(token)
 
 
+def _array(buf: Any, token: str, shape: list[int]) -> Any:
+    """The array a leaf's bytes hold, over those bytes.  A bfloat16 leaf is
+    a CPU ``torch.bfloat16`` tensor; like the ndarrays, which are read-only,
+    it must not be written to (it may alias a received frame)."""
+    if token != _BF16:
+        return np.frombuffer(buf, dtype=_np_dtype(token)).reshape(shape)
+    import torch
+
+    bits = np.frombuffer(buf, dtype=np.int16).reshape(shape)
+    if bits.size == 0:
+        return torch.empty(shape, dtype=torch.bfloat16)
+    # torch takes no read-only array (it warns, then aliases it anyway):
+    # hand it the same memory through an interface that does not say so
+    iface = dict(bits.__array_interface__, data=(bits.ctypes.data, False))
+    view = np.asarray(_Words(bits, iface))
+    return torch.from_numpy(view).view(torch.bfloat16)
+
+
+class _Words:
+    """Keeps a read-only array alive behind a writable array interface."""
+
+    __slots__ = ("base", "__array_interface__")
+
+    def __init__(self, base: np.ndarray, iface: dict[str, Any]):
+        self.base = base
+        self.__array_interface__ = iface
+
+
 def _raw_view(arr: np.ndarray) -> memoryview:
     """Zero-copy byte view, including non-buffer-protocol ml_dtypes."""
     try:
@@ -349,25 +392,19 @@ def _raw_view(arr: np.ndarray) -> memoryview:
         return memoryview(arr.reshape(-1).view(np.uint8))
 
 
+def _encode_array(arr: np.ndarray, token: str, buffers: list[memoryview]) -> dict[str, Any]:
+    if not arr.flags.c_contiguous:
+        arr = np.ascontiguousarray(arr)
+    if arr.nbytes < _SMALL_LEAF_BYTES:
+        return {"k": "nds", "dt": token, "sh": list(arr.shape), "b": arr.tobytes()}
+    buffers.append(_raw_view(arr))
+    return {"k": "nd", "dt": token, "sh": list(arr.shape), "i": len(buffers) - 1}
+
+
 def _encode_leaf(x: Any, buffers: list[memoryview]) -> dict[str, Any]:
-    arr = _as_ndarray(x)
-    if arr is not None:
-        if not arr.flags.c_contiguous:
-            arr = np.ascontiguousarray(arr)
-        if arr.nbytes < _SMALL_LEAF_BYTES:
-            return {
-                "k": "nds",
-                "dt": _dtype_token(arr.dtype),
-                "sh": list(arr.shape),
-                "b": arr.tobytes(),
-            }
-        buffers.append(_raw_view(arr))
-        return {
-            "k": "nd",
-            "dt": _dtype_token(arr.dtype),
-            "sh": list(arr.shape),
-            "i": len(buffers) - 1,
-        }
+    found = _as_array(x)
+    if found is not None:
+        return _encode_array(*found, buffers)
     # Fallback: pickle-5. Out-of-band buffers keep large picklable objects
     # copy-free as well.
     oob: list[pickle.PickleBuffer] = []
@@ -384,10 +421,9 @@ def _encode_leaf(x: Any, buffers: list[memoryview]) -> dict[str, Any]:
 def _decode_leaf(leaf: dict[str, Any], buffers: Sequence[memoryview]) -> Any:
     kind = leaf["k"]
     if kind == "nds":
-        return np.frombuffer(leaf["b"], dtype=_np_dtype(leaf["dt"])).reshape(leaf["sh"])
+        return _array(leaf["b"], leaf["dt"], leaf["sh"])
     if kind == "nd":
-        buf = buffers[leaf["i"]]
-        return np.frombuffer(buf, dtype=_np_dtype(leaf["dt"])).reshape(leaf["sh"])
+        return _array(buffers[leaf["i"]], leaf["dt"], leaf["sh"])
     if kind == "py":
         return pickle.loads(leaf["b"])
     if kind == "pb":
@@ -475,9 +511,9 @@ def serialize(obj: Any) -> SerializedObject:
         buffers.append(memoryview(payload))
         return _pack({"kind": "pickle", "n": 1}, buffers)
 
-    arr = _as_ndarray(obj)
-    if arr is not None:
-        leaf = _encode_leaf(arr, buffers)
+    found = _as_array(obj)
+    if found is not None:
+        leaf = _encode_array(*found, buffers)
         return _pack({"kind": "tree", "treedef": None, "leaves": [leaf]}, buffers)
 
     if isinstance(obj, (bytes, bytearray, memoryview)):
@@ -488,8 +524,13 @@ def serialize(obj: Any) -> SerializedObject:
         leaves: list = []
         treedef = _tree_flatten(obj, leaves)
         # Only take the tree path when it pays: at least one array leaf.
-        if any(_as_ndarray(leaf) is not None for leaf in leaves):
-            encoded = [_encode_leaf(leaf, buffers) for leaf in leaves]
+        # (Each leaf is probed once: a CUDA tensor's probe is its one copy.)
+        arrays = [_as_array(leaf) for leaf in leaves]
+        if any(found is not None for found in arrays):
+            encoded = [
+                _encode_array(*found, buffers) if found is not None else _encode_leaf(leaf, buffers)
+                for leaf, found in zip(leaves, arrays)
+            ]
             return _pack(
                 {
                     "kind": "tree",

@@ -66,8 +66,19 @@
 // It is kept for its contract, full f32 within 2e-4: TF32 tensor cores keep
 // about three decimal digits and cannot meet it.  The serve path never sends
 // it f32.  The choice is by dtype; nothing falls back from one to the other.
-// A head dim with no instance here is zero-padded by the Python wrapper to
-// the next one.
+// A head dim with no instance here, up to 256, is zero-padded by the Python
+// wrapper to the next one.
+//
+// A head dim over 256 (wgmma's widest N, so no tensor-core instance) takes
+// fa_fwd_wide in every dtype: scalar f32 FMAs, the head dim given at run
+// time.  Each CTA owns 64 q rows and 128 of O's columns (blockIdx.z); it
+// sums S = Q K^T over 64-column slabs of Q and K staged as f32 in shared
+// memory and adds P V for its own columns, so its block of O stays in
+// registers at any hd, and each of a q tile's ceil(hd / 128) CTAs computes
+// S again.  At Gemma-2-2B's heads with hd 512 (B = 4, H = 8, KV = 4,
+// S = 1024, causal) it runs about 9.1e10 FLOP on the CUDA cores for the
+// 3.4e10 the attention needs: this route is right first, not fast (loads
+// element by element, no tensor cores).
 //
 // cuTensorMapEncodeTiled is a driver function, reached through the
 // runtime's entry-point query: the library links nothing beyond cudart.
@@ -84,6 +95,10 @@ namespace {
 struct Strides {
   long long b, h, s;
 };
+
+// The widest instance of the two kernels below; a head dim over it takes the
+// wide kernel, in every dtype.
+constexpr int kWidestInstance = 256;
 
 // ---------------------------------------------------------------------------
 // float32: scalar kernel
@@ -761,7 +776,204 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o, int 
 
 }  // namespace hopper
 
+// ---------------------------------------------------------------------------
+// head dims over 256, every dtype: the wide kernel
+// ---------------------------------------------------------------------------
+
+namespace wide {
+
+constexpr int kBQ = 64;                        // q rows per CTA
+constexpr int kBK = 64;                        // keys per kv tile
+constexpr int kSlab = 64;                      // head-dim columns of Q and K staged at once
+constexpr int kCols = 128;                     // O columns per CTA (blockIdx.z)
+constexpr int kThreads = 128;
+constexpr int kRQ = kBQ / (kThreads / kTX);    // q rows per thread (4)
+constexpr int kCK = kBK / kTX;                 // key columns per thread (8)
+constexpr int kDC = kCols / kTX;               // O columns per thread (16)
+constexpr int kLd = kSlab + 1;                 // padded rows: conflict-free column walks
+constexpr int kPd = kBK + 1;
+constexpr int kSmemBytes =
+    (kBQ * kLd + kBK * kLd + kBK * kCols + kBQ * kPd) * static_cast<int>(sizeof(float));
+constexpr int kMaxGridYZ = 65535;              // gridDim.y (q tiles) and gridDim.z (O slabs)
+static_assert(kBK == kBQ, "one loop stages a slab of Q and of K");
+
+__device__ __forceinline__ float widen(float x) { return x; }
+__device__ __forceinline__ float widen(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float widen(__half x) { return __half2float(x); }
+template <class E>
+__device__ __forceinline__ E narrow(float x);
+template <>
+__device__ __forceinline__ float narrow<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 narrow<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+template <>
+__device__ __forceinline__ __half narrow<__half>(float x) { return __float2half_rn(x); }
+
+// One CTA per (b*h, 64 q rows, 128 of O's columns), for any head dim hd.
+// Per kv tile of 64 keys, S = (scale * Q) K^T is summed over the head dim in
+// slabs of 64 columns, each staged as f32 in shared memory; then the online
+// softmax (the f32 kernel's, per row group of 8 threads) and O[:, cols] +=
+// P V[:, cols].  Each of the ceil(hd / 128) CTAs of a q tile computes S
+// again: the price of keeping a thread's O block (4 rows x 16 columns) in
+// registers at any hd.
+template <class E>
+__global__ void __launch_bounds__(kThreads)
+fa_fwd_wide(const E* __restrict__ q, const E* __restrict__ k, const E* __restrict__ v,
+            E* __restrict__ o, int H, int group, int Sq, int Skv, int hd, Strides qs,
+            Strides ks, Strides vs, Strides os, float scale, int causal) {
+  extern __shared__ float smem[];
+  float* sq = smem;              // [kBQ][kLd] a slab of scale * Q
+  float* sk = sq + kBQ * kLd;    // [kBK][kLd] the same slab of K
+  float* sv = sk + kBK * kLd;    // [kBK][kCols] V at this CTA's columns
+  float* sp = sv + kBK * kCols;  // [kBQ][kPd] probabilities of this tile
+
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const int kvh = h / group;
+  const int q0 = blockIdx.y * kBQ;
+  const int c0 = blockIdx.z * kCols;
+  const int tid = threadIdx.x;
+  const int ty = tid / kTX;
+  const int tx = tid - ty * kTX;
+
+  const E* qb = q + b * qs.b + h * qs.h;
+  const E* kb = k + b * ks.b + kvh * ks.h;
+  const E* vb = v + b * vs.b + kvh * vs.h;
+  E* ob = o + b * os.b + h * os.h;
+
+  float m[kRQ], l[kRQ], acc[kRQ][kDC];
+#pragma unroll
+  for (int r = 0; r < kRQ; ++r) {
+    m[r] = kNegInf;
+    l[r] = 0.f;
+#pragma unroll
+    for (int j = 0; j < kDC; ++j) acc[r][j] = 0.f;
+  }
+
+  // Causal: a key past the tile's last row is masked for every row.
+  const int kv_end = causal ? min(Skv, q0 + kBQ) : Skv;
+  for (int k0 = 0; k0 < kv_end; k0 += kBK) {
+    float s[kRQ][kCK];
+#pragma unroll
+    for (int r = 0; r < kRQ; ++r)
+#pragma unroll
+      for (int c = 0; c < kCK; ++c) s[r][c] = 0.f;
+
+    for (int d0 = 0; d0 < hd; d0 += kSlab) {
+      __syncthreads();  // the previous slab, or the previous tile's P V, is consumed
+      for (int i = tid; i < kBQ * kSlab; i += kThreads) {
+        const int r = i / kSlab;
+        const int c = i - r * kSlab;
+        const int qp = q0 + r;
+        sq[r * kLd + c] =
+            qp < Sq && d0 + c < hd ? widen(qb[qp * qs.s + d0 + c]) * scale : 0.f;
+        const int kp = k0 + r;  // kBK == kBQ: the same loop stages K
+        sk[r * kLd + c] = kp < Skv && d0 + c < hd ? widen(kb[kp * ks.s + d0 + c]) : 0.f;
+      }
+      if (d0 == 0) {
+        for (int i = tid; i < kBK * kCols; i += kThreads) {
+          const int r = i / kCols;
+          const int c = i - r * kCols;
+          const int kp = k0 + r;
+          sv[r * kCols + c] = kp < Skv && c0 + c < hd ? widen(vb[kp * vs.s + c0 + c]) : 0.f;
+        }
+      }
+      __syncthreads();
+#pragma unroll 8
+      for (int d = 0; d < kSlab; ++d) {
+        float qv[kRQ], kv[kCK];
+#pragma unroll
+        for (int r = 0; r < kRQ; ++r) qv[r] = sq[(ty * kRQ + r) * kLd + d];
+#pragma unroll
+        for (int c = 0; c < kCK; ++c) kv[c] = sk[(tx + c * kTX) * kLd + d];
+#pragma unroll
+        for (int r = 0; r < kRQ; ++r)
+#pragma unroll
+          for (int c = 0; c < kCK; ++c) s[r][c] = fmaf(qv[r], kv[c], s[r][c]);
+      }
+    }
+
+#pragma unroll
+    for (int r = 0; r < kRQ; ++r) {
+      const int qp = q0 + ty * kRQ + r;
+      bool live[kCK];
+      float mx = kNegInf;
+#pragma unroll
+      for (int c = 0; c < kCK; ++c) {
+        const int kp = k0 + tx + c * kTX;
+        live[c] = kp < Skv && (!causal || kp <= qp);
+        s[r][c] = live[c] ? s[r][c] : kNegInf;
+        mx = fmaxf(mx, s[r][c]);
+      }
+      const float m_new = fmaxf(m[r], row_group_max(mx));
+      const float alpha = expf(m[r] - m_new);  // rescale of the old state
+      float psum = 0.f;
+#pragma unroll
+      for (int c = 0; c < kCK; ++c) {
+        const float p = live[c] ? expf(s[r][c] - m_new) : 0.f;
+        sp[(ty * kRQ + r) * kPd + tx + c * kTX] = p;
+        psum += p;
+      }
+      l[r] = l[r] * alpha + row_group_sum(psum);
+      m[r] = m_new;
+#pragma unroll
+      for (int j = 0; j < kDC; ++j) acc[r][j] *= alpha;
+    }
+    __syncwarp();  // a row group's probabilities are written and read by one warp
+
+#pragma unroll 4
+    for (int c = 0; c < kBK; ++c) {
+      float pv[kRQ];
+#pragma unroll
+      for (int r = 0; r < kRQ; ++r) pv[r] = sp[(ty * kRQ + r) * kPd + c];
+#pragma unroll
+      for (int j = 0; j < kDC; ++j) {
+        const float vv = sv[c * kCols + tx + j * kTX];
+#pragma unroll
+        for (int r = 0; r < kRQ; ++r) acc[r][j] = fmaf(pv[r], vv, acc[r][j]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < kRQ; ++r) {
+    const int qp = q0 + ty * kRQ + r;
+    if (qp < Sq) {
+      const float den = l[r] == 0.f ? 1.f : l[r];  // fully masked rows
+#pragma unroll
+      for (int j = 0; j < kDC; ++j) {
+        const int col = c0 + tx + j * kTX;
+        if (col < hd) ob[qp * os.s + col] = narrow<E>(acc[r][j] / den);
+      }
+    }
+  }
+}
+
+template <class E>
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, int H, int KV,
+                   int Sq, int Skv, int hd, Strides qs, Strides ks, Strides vs, Strides os,
+                   float scale, int causal, cudaStream_t stream) {
+  const int q_tiles = (Sq + kBQ - 1) / kBQ;
+  const int col_tiles = (hd + kCols - 1) / kCols;
+  if (q_tiles > kMaxGridYZ || col_tiles > kMaxGridYZ) return cudaErrorInvalidConfiguration;
+  cudaError_t err = cudaFuncSetAttribute(
+      fa_fwd_wide<E>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(B * H, q_tiles, col_tiles);
+  fa_fwd_wide<E><<<grid, kThreads, kSmemBytes, stream>>>(
+      static_cast<const E*>(q), static_cast<const E*>(k), static_cast<const E*>(v),
+      static_cast<E*>(o), H, H / KV, Sq, Skv, hd, qs, ks, vs, os, scale, causal);
+  return cudaGetLastError();
+}
+
+}  // namespace wide
+
 #define REPRO_FA_ARGS q, k, v, o, B, H, KV, Sq, Skv, qs, ks, vs, os, scale, causal, stream
+#define REPRO_FA_WIDE_ARGS \
+  q, k, v, o, B, H, KV, Sq, Skv, hd, qs, ks, vs, os, scale, causal, stream
 
 // The instances of one kernel over the head dims the wrapper launches.
 template <template <int> class Launch>
@@ -799,6 +1011,14 @@ struct F16 {
 cudaError_t dispatch(int dtype, int hd, const void* q, const void* k, const void* v, void* o,
                      int B, int H, int KV, int Sq, int Skv, Strides qs, Strides ks, Strides vs,
                      Strides os, float scale, int causal, cudaStream_t stream) {
+  if (hd > kWidestInstance) {
+    switch (dtype) {
+      case 0: return wide::launch<float>(REPRO_FA_WIDE_ARGS);
+      case 1: return wide::launch<__nv_bfloat16>(REPRO_FA_WIDE_ARGS);
+      case 2: return wide::launch<__half>(REPRO_FA_WIDE_ARGS);
+    }
+    return cudaErrorInvalidValue;
+  }
   switch (dtype) {
     case 0: return by_head_dim<F32>(hd, REPRO_FA_ARGS);
     case 1: return by_head_dim<Bf16>(hd, REPRO_FA_ARGS);
@@ -808,15 +1028,16 @@ cudaError_t dispatch(int dtype, int hd, const void* q, const void* k, const void
 }
 
 #undef REPRO_FA_ARGS
+#undef REPRO_FA_WIDE_ARGS
 
 }  // namespace
 
 // q (B, H, Sq, hd), k and v (B, KV, Skv, hd), o (B, H, Sq, hd), each with
 // the element strides given for its first three dims and a dense head dim;
-// hd is 16, 32, 64, 80, 96, 128 or 256.  dtype: 0 = float32, 1 = bfloat16,
-// 2 = float16; a 16-bit pointer is 16-byte aligned and its strides are
-// multiples of 8 elements (TMA's terms).  Returns a cudaError_t (0 =
-// launched).
+// hd is 16, 32, 64, 80, 96, 128 or 256 (an instance), or any hd over 256
+// (fa_fwd_wide).  dtype: 0 = float32, 1 = bfloat16, 2 = float16; below
+// hd 256 a 16-bit pointer is 16-byte aligned and its strides are multiples
+// of 8 elements (TMA's terms).  Returns a cudaError_t (0 = launched).
 extern "C" int repro_fa_fwd(const void* q, const void* k, const void* v,
                             void* o, int dtype, int B, int H, int KV, int Sq,
                             int Skv, int hd, long long q_sb, long long q_sh,

@@ -4,10 +4,12 @@ The kernel is CUDA C++ (``csrc/flash_attention.cu``) compiled for ``sm_90a``
 by ``nvcc`` into a shared library with a plain C interface at first use
 (``kernels/_nvcc.py``), then loaded with ``ctypes``.  bfloat16 and float16
 run on the wgmma + TMA kernel, float32 on the scalar one, each at the head
-dims of ``HEAD_DIMS``.  ``check_contract`` and ``kernel_route`` are the
-launcher's contract as pure functions of shapes, dtypes and strides; a head
-dim without an instance is padded by the wrapper (``ops.py``).  A failed
-build raises: there is no fallback for CUDA tensors.
+dims of ``HEAD_DIMS``; a head dim over ``HEAD_DIMS[-1]`` runs on the wide
+kernel (``fa_fwd_wide``) in every dtype, at its own width.
+``check_contract`` and ``kernel_route`` are the launcher's contract as pure
+functions of shapes, dtypes and strides; a head dim up to 256 without an
+instance is padded by the wrapper (``ops.py``).  A failed build raises:
+there is no fallback for CUDA tensors.
 """
 
 from __future__ import annotations
@@ -28,6 +30,8 @@ HEAD_DIMS = (16, 32, 64, 80, 96, 128, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _KERNELS = {torch.float32: "fa_fwd_f32", torch.bfloat16: "fa_fwd_tc<bf16>",
             torch.float16: "fa_fwd_tc<f16>"}
+_WIDE = {torch.float32: "fa_fwd_wide<f32>", torch.bfloat16: "fa_fwd_wide<bf16>",
+         torch.float16: "fa_fwd_wide<f16>"}
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -60,15 +64,16 @@ def _library() -> ctypes.CDLL:
 
 
 def kernel_route(hd: int, dtype: torch.dtype) -> tuple[str, int, bool]:
-    """(kernel, head dim of the instance it launches, whether the wrapper
-    zero-pads the head dim up to it) for a call at head dim ``hd``: the
-    dtype picks the kernel, the least instance of at least ``hd`` its
-    width.  Over 256 (wgmma's widest N) there is none."""
+    """(kernel, head dim it launches at, whether the wrapper zero-pads the
+    head dim up to it) for a call at head dim ``hd``: up to 256 the dtype
+    picks the kernel and the least instance of at least ``hd`` its width;
+    over 256 (wgmma's widest N) the wide kernel runs at ``hd`` itself."""
     if dtype not in _DTYPES:
         raise TypeError(f"dtype {dtype} (need float32, bfloat16 or float16)")
-    if not 0 < hd <= HEAD_DIMS[-1]:
-        raise ValueError(f"head dim {hd}: the CUDA kernel takes 1..{HEAD_DIMS[-1]} "
-                         f"(wgmma's widest N is 256)")
+    if hd <= 0:
+        raise ValueError(f"head dim {hd}: need at least 1")
+    if hd > HEAD_DIMS[-1]:
+        return _WIDE[dtype], hd, False
     width = next(d for d in HEAD_DIMS if d >= hd)
     return _KERNELS[dtype], width, width != hd
 
@@ -77,7 +82,8 @@ def check_contract(shapes, dtypes, last_strides) -> None:
     """What the launcher takes, from the shapes, dtypes and last-dim strides
     of q, k and v: one dtype of ``_DTYPES`` for all, 4-d with a dense head
     dim, k and v alike, the batch and head dim shared, and a head dim with
-    an instance (``HEAD_DIMS``).  Raises on anything else."""
+    an instance (``HEAD_DIMS``) or over ``HEAD_DIMS[-1]`` (the wide kernel).
+    Raises on anything else."""
     (qs, ks, vs), dt = shapes, dtypes[0]
     for name, shape, dtype, last in zip("qkv", shapes, dtypes, last_strides):
         if dtype not in _DTYPES or dtype != dt:
@@ -88,8 +94,8 @@ def check_contract(shapes, dtypes, last_strides) -> None:
     B, H, Sq, hd = qs
     if tuple(ks) != tuple(vs) or ks[0] != B or ks[3] != hd:
         raise ValueError(f"shapes q {tuple(qs)}, k {tuple(ks)}, v {tuple(vs)}")
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"head dim {hd} not in {HEAD_DIMS}")
+    if hd not in HEAD_DIMS and hd <= HEAD_DIMS[-1]:
+        raise ValueError(f"head dim {hd}: neither in {HEAD_DIMS} nor over {HEAD_DIMS[-1]}")
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -114,8 +120,9 @@ def kernel_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> tuple:
     """q, k and v as the kernel reads them.  The 16-bit kernel loads
     through TMA, so an input that breaks TMA's alignment is copied to a
     contiguous tensor; strided views that keep it (the model's permuted q,
-    transposed k and v) pass as they are.  float32 inputs always pass."""
-    if q.dtype == torch.float32:
+    transposed k and v) pass as they are.  float32 inputs, and any input of
+    the wide kernel (element by element loads), always pass."""
+    if q.dtype == torch.float32 or q.shape[-1] > HEAD_DIMS[-1]:
         return q, k, v
     return tuple(t if tma_ready(t) else t.clone(memory_format=torch.contiguous_format)
                  for t in (q, k, v))

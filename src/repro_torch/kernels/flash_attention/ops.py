@@ -8,10 +8,11 @@ masks ragged lengths itself (no padding), or the call raises.  The kernel
 has instances at the head dims of ``kernel.HEAD_DIMS``; another head dim up
 to 256 is zero-padded to the next instance (zero columns add nothing to
 q . k, and the padded output columns, zero, are sliced off), with the scale
-still the true ``hd**-0.5``, and counted in ``pad_count``; over 256 the
-call raises.  The kernel has no backward (neither has the Pallas kernel: no ``custom_vjp``), so a
-CUDA call with an input that needs gradients raises rather than return a
-result with no ``grad_fn``.
+still the true ``hd**-0.5``, and counted in ``pad_count``; a head dim over
+256 launches the wide kernel at its own width, unpadded.  The kernel has no
+backward (neither has the Pallas kernel: no ``custom_vjp``), so a CUDA call
+with an input that needs gradients raises rather than return a result with
+no ``grad_fn``.
 """
 
 from __future__ import annotations

@@ -36,7 +36,11 @@
 //    rare elements past that limit at the serving shape (measured by
 //    rounding.py), so both are split into a bf16 hi and lo part and
 //    multiplied twice (about 16 bits kept); X o decay, the update's A
-//    operand, is rounded to bf16 once, which stays far inside the limit;
+//    operand, is rounded to bf16 once, which stays far inside the limit at
+//    N <= 128.  A wider state sums more columns' rounding into each y, and
+//    at N = 384 one rounding of X o decay took y to 0.72-0.87 of the limit
+//    (rounding.py --state 384) and past it at one element on the card; so
+//    past 128 columns X o decay is split into hi + lo too;
 //  * the state S is f32, carried in the accumulators of the state update
 //    (each warp a 16 x 64 block of the 64 x 128 state) across the chunks,
 //    and as its hi and lo bf16 halves in shared memory, the B operand of
@@ -98,10 +102,9 @@ constexpr int kThreads = 256;
 constexpr int kLanes = 32;
 constexpr int kRow = 32;      // rows of a y tile; Q, N and P are padded to it
 constexpr int kPT = 64;       // P columns per CTA
-constexpr int kMaxQ = 256;    // chunk length limit (run as sub-chunks of kSubQ rows)
-constexpr int kMaxN = 256;    // state width limit (split into tiles of kTileN columns)
 constexpr int kSubQ = 128;    // rows of a sub-chunk (the warp-0 cumsum holds 4 per lane)
 constexpr int kTileN = 128;   // state columns of a CTA (register block of the update)
+constexpr int kMaxGridYZ = 65535;  // gridDim.y (P tiles) and gridDim.z (state tiles) limit
 
 
 // Element strides of the batch, sequence and head dims (the last dim is dense).
@@ -600,7 +603,8 @@ __device__ __forceinline__ void split(float v0, float v1, uint32_t& hi, uint32_t
 // tile).  Each warp owns 16 chunk rows (G o L, y) and the state block of
 // rows 16 (w % 4) .. and columns 64 (w / 4) .. (the update).  y_work, when
 // not null, takes this state tile's partial y in f32 instead of y.
-template <bool kVec>
+// kSplitXd (a state of several tiles): X o decay as hi + lo.
+template <bool kVec, bool kSplitXd>
 __global__ void __launch_bounds__(kThreads, 1)
 ssd_scan_bf16(const bf16* __restrict__ x, const float* __restrict__ a,
               const bf16* __restrict__ b, const bf16* __restrict__ c,
@@ -851,10 +855,16 @@ ssd_scan_bf16(const bf16* __restrict__ x, const float* __restrict__ a,
           ldsm_x4_t(af, at_addr(sX, kLdX, sm0, 16 * ks, lane));
           const int j0 = 16 * ks + 2 * t, j1 = j0 + 8;  // k (step) of af[0..1] and af[2..3]
           const float d00 = sDE[j0], d01 = sDE[j0 + 1], d10 = sDE[j1], d11 = sDE[j1 + 1];
+          uint32_t al[4];  // the lo half, with kSplitXd
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
             const float2 v = unpack(af[e]);
-            af[e] = e < 2 ? pack(v.x * d00, v.y * d01) : pack(v.x * d10, v.y * d11);
+            const float v0 = v.x * (e < 2 ? d00 : d10), v1 = v.y * (e < 2 ? d01 : d11);
+            if constexpr (kSplitXd) {
+              split(v0, v1, af[e], al[e]);
+            } else {
+              af[e] = pack(v0, v1);
+            }
           }
 #pragma unroll
           for (int np = 0; np < 4; ++np) {
@@ -862,6 +872,10 @@ ssd_scan_bf16(const bf16* __restrict__ x, const float* __restrict__ a,
             ldsm_x4_t(bf, b_addr_k(sB, kLdN, sn0 + 16 * np, 16 * ks, lane));
             mma(st[2 * np], af, bf[0], bf[1]);
             mma(st[2 * np + 1], af, bf[2], bf[3]);
+            if constexpr (kSplitXd) {
+              mma(st[2 * np], al, bf[0], bf[1]);
+              mma(st[2 * np + 1], al, bf[2], bf[3]);
+            }
           }
         }
       }
@@ -884,7 +898,10 @@ cudaError_t launch_bf16(int load_mode, const void* x, const float* a, const void
                         const float* s0, void* y, float* y_work, float* s_out, int B, int S, int H,
                         int P, int N, int Q, Strides xs, Strides as, Strides bs, Strides cs,
                         Strides ys, cudaStream_t stream) {
-  const auto kernel = load_mode == 1 ? ssd_scan_bf16<true> : ssd_scan_bf16<false>;
+  const bool split_xd = N > kN;
+  const auto kernel = load_mode == 1
+                          ? (split_xd ? ssd_scan_bf16<true, true> : ssd_scan_bf16<true, false>)
+                          : (split_xd ? ssd_scan_bf16<false, true> : ssd_scan_bf16<false, false>);
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
   if (err != cudaSuccess) return err;
@@ -912,9 +929,11 @@ bool rows_aligned(const void* p, Strides st, int n) {
 // x (B, S, H, P), a (B, S, H) f32, b and c (B, S, H, N), y (B, S, H, P), each
 // with the element strides given for its batch, sequence and head dims and a
 // dense last dim (a head stride of 0 broadcasts b or c over heads); s0 and
-// s_out (B*H, P, N) f32, dense.  Q is the chunk length (at most kMaxQ; over
-// kSubQ it runs as sub-chunks), N at most kMaxN.  y_work: a dense f32
-// (ceil(N / kTileN), B, S, H, P) workspace when N > kTileN, else null.
+// s_out (B*H, P, N) f32, dense.  Q is the chunk length (over kSubQ it runs
+// as sub-chunks), N the state width (over kTileN it runs as tiles on
+// blockIdx.z); the P and state tiles are each at most kMaxGridYZ.  y_work:
+// a dense f32 (ceil(N / kTileN), B, S, H, P) workspace when N > kTileN, else
+// null.
 // dtype of x, b, c, y: 0 = float32 (the scalar kernel), 1 = bfloat16 (the
 // tensor-core kernel), 2 = float16 (the scalar kernel, f32 inside).
 // load_mode (bfloat16 only): 1 = 16-byte cp.async, which needs every row of
@@ -929,10 +948,11 @@ extern "C" int repro_ssd_scan(const void* x, const float* a, const void* b,
                               long long b_ss, long long b_sh, long long c_sb,
                               long long c_ss, long long c_sh, long long y_sb,
                               long long y_ss, long long y_sh, void* stream) {
-  if (B <= 0 || H <= 0 || S < 0 || P <= 0 || N <= 0 || N > kMaxN || Q <= 0 ||
-      Q > kMaxQ)
+  if (B <= 0 || H <= 0 || S < 0 || P <= 0 || N <= 0 || Q <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const int tiles = (N + kTileN - 1) / kTileN;
+  if (tiles > kMaxGridYZ || (P + kPT - 1) / kPT > kMaxGridYZ)
+    return static_cast<int>(cudaErrorInvalidConfiguration);
   if (tiles > 1 && S > 0 && y_work == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   const int n_sub = (Q + kSubQ - 1) / kSubQ;
   const int Qs = (Q + n_sub - 1) / n_sub;  // rows of a sub-chunk: what the kernels run

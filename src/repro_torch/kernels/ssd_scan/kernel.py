@@ -12,7 +12,8 @@ to f32 as it is staged).  The tensor-core kernel loads with 16-byte
 model's views do), else element by element; the C side refuses a 16-byte
 load it cannot make, so nothing is rerouted there.  A chunk over 128 rows
 runs as sub-chunks (``sub_chunks``) and a state over 128 columns as tiles
-over the grid whose partial y a second kernel adds (``state_tiles``);
+over the grid whose partial y a second kernel adds (``state_tiles``), so
+neither has a limit of its own beyond the grid's extents;
 ``check_contract`` is the launcher's contract as a pure function.
 """
 
@@ -29,10 +30,10 @@ from repro_torch.kernels._nvcc import compile_library
 _HERE = Path(__file__).resolve().parent
 SOURCE = _HERE / "csrc" / "ssd_scan.cu"
 BUILD_DIR = _HERE / "build"
-MAX_CHUNK = 256  # kMaxQ in ssd_scan.cu
-MAX_STATE = 256  # kMaxN
 SUB_CHUNK = 128  # kSubQ: rows a kernel stages
 TILE_N = 128     # kTileN: state columns of a CTA
+P_TILE = 64      # kPT: P columns of a CTA
+MAX_GRID_YZ = 65535  # CUDA's limit on gridDim.y (P tiles) and gridDim.z (state tiles)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 _lock = threading.Lock()
@@ -81,7 +82,8 @@ def check_contract(shapes, dtypes, last_strides, s0_contiguous: bool, chunk: int
     """What the launcher takes, from the shapes, dtypes and last-dim strides
     of x, a, b, c and s0: x, b and c of one dtype of ``_DTYPES``, 4-d with a
     dense last dim; a and s0 float32; a (B, S, H), b and c (B, S, H, N), s0
-    dense (B*H, P, N); N and the chunk in 1..256.  Raises on anything else."""
+    dense (B*H, P, N); N and the chunk at least 1, and the P and state tiles
+    within the grid's extents.  Raises on anything else."""
     (xs, as_, bs, cs, ss), (xd, ad, bd, cd, sd) = shapes, dtypes
     for name, shape, dtype, last in zip("xbc", (xs, bs, cs), (xd, bd, cd),
                                         (last_strides[0], *last_strides[2:4])):
@@ -98,8 +100,12 @@ def check_contract(shapes, dtypes, last_strides, s0_contiguous: bool, chunk: int
         raise ValueError(f"shapes x {tuple(xs)}, a {tuple(as_)}, b {tuple(bs)}, c {tuple(cs)}")
     if tuple(ss) != (B * H, P, N) or not s0_contiguous:
         raise ValueError(f"s0 must be dense (B*H, P, N) = {(B * H, P, N)}, got {tuple(ss)}")
-    if not 0 < N <= MAX_STATE or not 0 < chunk <= MAX_CHUNK:
-        raise ValueError(f"state width {N} and chunk {chunk} must be in 1..{MAX_STATE}")
+    if N <= 0 or chunk <= 0:
+        raise ValueError(f"state width {N} and chunk {chunk} must be at least 1")
+    if state_tiles(N) > MAX_GRID_YZ or -(-P // P_TILE) > MAX_GRID_YZ:
+        raise ValueError(f"state width {N} and P {P}: {state_tiles(N)} state tiles of {TILE_N} "
+                         f"and {-(-P // P_TILE)} P tiles of {P_TILE}, over the grid's extent "
+                         f"of {MAX_GRID_YZ}")
 
 
 def _check(x, a, b, c, s0, chunk: int) -> None:

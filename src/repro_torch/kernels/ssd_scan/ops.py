@@ -9,8 +9,9 @@ tensors launch the hand-written kernel, or the call raises.  The kernel reads
 x, a, b and c through their strides, so the model's head-broadcast views of
 b and c (head stride 0) are not copied, and it masks the ragged tail of S
 itself, where the JAX wrapper pads with (inert) zeros.  On CUDA, x, b and c
-need a dense last dim and one dtype of float32, bfloat16 and float16, and
-the chunk and the state width are at most 256.  The kernel has no backward
+need a dense last dim and one dtype of float32, bfloat16 and float16; any
+chunk and state width run (as sub-chunks of 128 rows and state tiles of 128
+columns).  The kernel has no backward
 (neither has the Pallas kernel), so a CUDA call with an input that needs
 gradients raises rather than return a result with no ``grad_fn``.
 """

@@ -1,6 +1,6 @@
 """Which roundings the bf16 SSD kernel can afford: a study in plain PyTorch.
 
-    python -m repro_torch.kernels.ssd_scan.rounding [--seeds 4] [--device cpu]
+    python -m repro_torch.kernels.ssd_scan.rounding [--seeds 4] [--device cpu] [--state N]
 
 The tensor-core kernel (``csrc/ssd_scan.cu``) feeds bf16 operands to its
 products.  Three of them are values it computes itself and must round: the
@@ -12,7 +12,8 @@ mamba2-130m's serving prefill shape with the inputs of ``chip_smoke``'s SSD
 check (scaled as the JAX kernel sweep scales them), and counts the elements
 of y past the check's limit, |y - y_ref| <= 3e-2 + 3e-2 |y_ref|, against the
 sequential f32 recurrence (``ref.ssd_scan_ref``), y rounded to bf16 as the
-kernel stores it.  It prints one line a seed and configuration.
+kernel stores it.  It prints one line a seed and configuration.  ``--state``
+sets N (the kernel splits X o decay too past 128 columns).
 """
 
 from __future__ import annotations
@@ -48,13 +49,15 @@ CONFIGS = {
     "S hi/lo": (_bf16, _hilo, _bf16),
     "P hi/lo": (_hilo, _bf16, _bf16),
     "P and S hi/lo (the kernel)": (_hilo, _hilo, _bf16),
+    "P, S and X o decay hi/lo (the kernel past 128 columns)": (_hilo, _hilo, _hilo),
     "exact": (_exact, _exact, _exact),
 }
 
 
-def chunked(x, a, b, c, s0, round_p, round_s, round_xd, chunk: int = CHUNK):
+def chunked(x, a, b, c, s0, round_p, round_s, round_xd, chunk: int = CHUNK, round_y=_bf16):
     """The kernel's chunked form in f32 on (B, S, H, ...) inputs, with the
-    given treatment of its three rounded operands; y rounded to bf16."""
+    given treatment of its three rounded operands; y rounded to bf16 (by
+    ``round_y``: ``_exact`` keeps f32)."""
     xf, af, bf, cf = (t.float().transpose(1, 2) for t in (x, a, b, c))  # (B, H, S, ...)
     state = s0.float().clone()
     S = x.shape[1]
@@ -71,12 +74,12 @@ def chunked(x, a, b, c, s0, round_p, round_s, round_xd, chunk: int = CHUNK):
         state = (state * torch.exp(A[..., -1])[..., None, None]
                  + round_xd(xq * decay[..., None]).transpose(-1, -2) @ bq)
         ys.append(p @ xq + y_off)
-    return _bf16(torch.cat(ys, 2).transpose(1, 2)), state
+    return round_y(torch.cat(ys, 2).transpose(1, 2)), state
 
 
-def inputs(seed: int, device):
+def inputs(seed: int, device, N: int = SHAPE[4]):
     """mamba2-130m's prefill inputs, B and C one group broadcast over heads."""
-    B, S, H, P, N = SHAPE
+    B, S, H, P, _ = SHAPE
     g = torch.Generator(device=device).manual_seed(seed)
     rn = lambda *s: torch.randn(s, generator=g, device=device)  # noqa: E731
     x = (rn(B, S, H, P) * 0.5).bfloat16()
@@ -86,11 +89,11 @@ def inputs(seed: int, device):
     return x, a, b, c, rn(B, H, P, N) * 0.2
 
 
-def study(seeds: int = 4, device: str = "cpu") -> list[dict]:
-    B, S, H, P, N = SHAPE
+def study(seeds: int = 4, device: str = "cpu", N: int = SHAPE[4]) -> list[dict]:
+    B, S, H, P, _ = SHAPE
     rows = []
     for seed in range(seeds):
-        x, a, b, c, s0 = inputs(seed, device)
+        x, a, b, c, s0 = inputs(seed, device, N)
         flat = lambda t: t.transpose(1, 2).reshape(B * H, S, *t.shape[3:])  # noqa: E731
         y_ref, s_ref = ssd_scan_ref(flat(x), flat(a), flat(b), flat(c), s0.reshape(B * H, P, N))
         y_ref = y_ref.reshape(B, H, S, P).transpose(1, 2).float()
@@ -114,8 +117,9 @@ def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seeds", type=int, default=4)
     ap.add_argument("--device", default="cpu")
+    ap.add_argument("--state", type=int, default=SHAPE[4], help="state width N")
     args = ap.parse_args(argv)
-    rows = study(args.seeds, args.device)
+    rows = study(args.seeds, args.device, args.state)
     for name in CONFIGS:
         mine = [r for r in rows if r["config"] == name]
         print(f"[rounding] {name}: {sum(r['violations'] for r in mine)} elements past the limit "

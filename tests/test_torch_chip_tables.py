@@ -90,14 +90,20 @@ def test_every_decoder_only_arch_is_trained_card_against_cpu():
 def test_flash_contract_cases_take_the_instance_they_name(name):
     """Each K1 contract case runs a head dim and dtype the CUDA wrapper
     takes: an instance of its own at 80, 96 and 256, the f16 instance at
-    qwen2.5-3b's shape, and the pad to 128 at qwen's heads for 112."""
+    qwen2.5-3b's shape, the pad to 128 at qwen's heads for 112, and the
+    wide kernel at Gemma-2-2B's heads past 256."""
     from repro_torch.kernels.flash_attention.kernel import HEAD_DIMS, kernel_route
 
     (B, H, KV, S, hd), dtype = chip_smoke.FA_CONTRACT[name]
     kernel, width, padded = kernel_route(hd, dtype)
-    assert (B, S) == (4, 1024) and H % KV == 0 and width in HEAD_DIMS
+    wide = hd > HEAD_DIMS[-1]
+    assert (B, S) == (4, 1024) and H % KV == 0 and (width in HEAD_DIMS or wide)
     assert padded == ("padded" in name) and (width == 128 if padded else width == hd)
-    assert (kernel == "fa_fwd_f32") == (dtype == torch.float32)
+    assert kernel.startswith("fa_fwd_wide") == wide
+    assert (kernel in ("fa_fwd_f32", "fa_fwd_wide<f32>")) == (dtype == torch.float32)
+    if wide:
+        gemma = chip_smoke.FA_CONTRACT["gemma-2-2b hd 256"][0]
+        assert (B, H, KV, S) == gemma[:4] and name.endswith(str(dtype).split(".")[-1])
     qwen = get_config("qwen2.5-3b")
     if "qwen" in name:
         assert (H, KV) == (qwen.num_heads, qwen.num_kv_heads)
@@ -114,7 +120,7 @@ def test_ssd_contract_cases_are_mamba2s_prefill_past_the_old_limits(name):
     (B, S, H, P, N), chunk, dtype = chip_smoke.SSD_CONTRACT[name]
     cfg = get_config("mamba2-130m")
     assert (B, S, H, P) == (4, 1024, cfg.ssm.n_heads(cfg.d_model), cfg.ssm.head_dim)
-    assert N in (cfg.ssm.d_state, 256) and chunk in (cfg.ssm.chunk, 256)
+    assert N in (cfg.ssm.d_state, 256, 320, 384) and chunk in (cfg.ssm.chunk, 256, 512)
     assert max(N, chunk) > 128 or dtype == torch.float16
     f32 = torch.float32
     check_contract([(B, S, H, P), (B, S, H), (B, S, H, N), (B, S, H, N), (B * H, P, N)],
@@ -139,3 +145,17 @@ def test_flash_bench_times_the_models_prefills():
     (B, H, KV, S, hd), _ = chip_smoke.FA_CONTRACT["gemma-2-2b hd 256"]
     checked.add((B, H, KV, S, hd, True))
     assert set(bench.PREFILLS.values()) == checked
+
+
+def test_the_contract_cases_cover_every_dtype_past_256():
+    """K1 at hd 300, 320, 384 and 512 and K2 at chunk 512 and N = 320 and
+    384 each run in float32, bfloat16 and float16; the float64 comparison
+    runs at K2's chunk-512 float32 case."""
+    dtypes = {torch.float32, torch.bfloat16, torch.float16}
+    for hd in (300, 320, 384, 512):
+        assert {dt for (shape, dt) in chip_smoke.FA_CONTRACT.values() if shape[4] == hd} == dtypes
+    for N, chunk in ((128, 512), (320, 128), (384, 128)):
+        assert {dt for (shape, q, dt) in chip_smoke.SSD_CONTRACT.values()
+                if (shape[4], q) == (N, chunk)} == dtypes
+    assert chip_smoke.SSD_CONTRACT[chip_smoke.SSD_F64_CASE][1:] == (512, torch.float32)
+    assert chip_smoke.F64_NOISE == chip_smoke.FORWARD_NOISE

@@ -341,20 +341,43 @@ def test_kernel_route_names_the_instance_and_the_pad(hd, dtype, want):
     assert want[1] in fa_kernel.HEAD_DIMS
 
 
-@pytest.mark.parametrize("hd, dtype, err", [(257, torch.bfloat16, ValueError),
-                                            (512, torch.float32, ValueError),
+@pytest.mark.parametrize("hd, dtype, err", [(-1, torch.bfloat16, ValueError),
+                                            (300, torch.float64, TypeError),
                                             (0, torch.float16, ValueError),
                                             (64, torch.float64, TypeError)], ids=str)
 def test_kernel_route_refuses_past_the_contract(hd, dtype, err):
-    """Over 256 (wgmma's widest N) there is no instance, and no dtype but
-    float32, bfloat16 and float16 has a kernel."""
-    with pytest.raises(err, match="256|dtype"):
+    """No head dim below 1 and no dtype but float32, bfloat16 and float16
+    has a kernel, over 256 (the wide kernel) as below."""
+    with pytest.raises(err, match="head dim|dtype"):
         fa_kernel.kernel_route(hd, dtype)
+
+
+@pytest.mark.parametrize("hd, dtype, want", [
+    (257, torch.bfloat16, ("fa_fwd_wide<bf16>", 257, False)),
+    (300, torch.float32, ("fa_fwd_wide<f32>", 300, False)),
+    (320, torch.float16, ("fa_fwd_wide<f16>", 320, False)),
+    (384, torch.bfloat16, ("fa_fwd_wide<bf16>", 384, False)),
+    (512, torch.float32, ("fa_fwd_wide<f32>", 512, False)),
+    (1000, torch.float16, ("fa_fwd_wide<f16>", 1000, False)),
+], ids=str)
+def test_kernel_route_sends_head_dims_over_256_to_the_wide_kernel(hd, dtype, want):
+    """Over 256 (wgmma's widest N) every dtype takes the wide kernel at its
+    own head dim, unpadded; at 256 and below nothing changes route."""
+    assert fa_kernel.kernel_route(hd, dtype) == want
+    assert fa_kernel.kernel_route(256, dtype)[0] == fa_kernel._KERNELS[dtype]
 
 
 @pytest.mark.parametrize("hd", fa_kernel.HEAD_DIMS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 def test_check_contract_takes_every_instance(hd, dtype):
+    fa_kernel.check_contract([(2, 8, 100, hd), (2, 2, 100, hd), (2, 2, 100, hd)],
+                             [dtype] * 3, (1, 1, 1))
+
+
+@pytest.mark.parametrize("hd", [257, 300, 320, 384, 512])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+def test_check_contract_takes_wide_head_dims(hd, dtype):
+    """Any head dim over 256 goes to the wide kernel as it is."""
     fa_kernel.check_contract([(2, 8, 100, hd), (2, 2, 100, hd), (2, 2, 100, hd)],
                              [dtype] * 3, (1, 1, 1))
 
@@ -366,11 +389,18 @@ def test_check_contract_takes_every_instance(hd, dtype):
     ("strided head dim", ValueError),
     ("k and v differ", ValueError),
     ("3-d q", ValueError),
+    ("wide head dim in float64", TypeError),
+    ("wide head dim, mixed dtypes", TypeError),
+    ("wide head dim, strided", ValueError),
+    ("wide head dim, k narrower than q", ValueError),
+    ("head dim 0", ValueError),
 ])
 def test_check_contract_refuses(case, err):
     """The launcher's contract, read without a card: a padded head dim must
-    be padded before the launcher, and the rest as before."""
+    be padded before the launcher, and the rest as before, at the wide
+    kernel's head dims too."""
     q, k, v = (2, 8, 100, 64), (2, 2, 100, 64), (2, 2, 100, 64)
+    wide = (2, 8, 100, 320), (2, 2, 100, 320), (2, 2, 100, 320)
     dts, last = [torch.bfloat16] * 3, [1, 1, 1]
     if case == "head dim without an instance":
         q, k, v = (2, 8, 100, 72), (2, 2, 100, 72), (2, 2, 100, 72)
@@ -382,8 +412,18 @@ def test_check_contract_refuses(case, err):
         last[1] = 2
     elif case == "k and v differ":
         v = (2, 2, 99, 64)
-    else:
+    elif case == "3-d q":
         q = (2, 8, 64)
+    elif case == "wide head dim in float64":
+        (q, k, v), dts = wide, [torch.float64] * 3
+    elif case == "wide head dim, mixed dtypes":
+        (q, k, v), dts = wide, [torch.float32, torch.float32, torch.bfloat16]
+    elif case == "wide head dim, strided":
+        (q, k, v), last = wide, [2, 1, 1]
+    elif case == "wide head dim, k narrower than q":
+        (q, _, _), k, v = wide, (2, 2, 100, 300), (2, 2, 100, 300)
+    else:
+        q, k, v = (2, 8, 100, 0), (2, 2, 100, 0), (2, 2, 100, 0)
     with pytest.raises(err):
         fa_kernel.check_contract([q, k, v], dts, last)
 
@@ -435,14 +475,70 @@ def test_padded_head_dims_reach_the_launcher_padded(monkeypatch, hd, width):
         assert fa_kernel.tma_ready(got)
 
 
-def test_head_dims_over_256_raise_before_the_launcher(monkeypatch):
-    launched = []
-    monkeypatch.setattr(fa_ops, "flash_attention_fwd",
-                        lambda q, k, v, **kw: launched.append(1) or torch.empty_like(q))
-    q, k, v = _model_views(1, 4, 2, 16, 288, torch.bfloat16, "meta")
+@pytest.mark.parametrize("hd, dtype", [(288, torch.bfloat16), (320, torch.float32),
+                                       (512, torch.float16)], ids=str)
+def test_head_dims_over_256_raise_before_the_launcher(monkeypatch, hd, dtype):
+    """Over 256 the wrapper no longer raises: the model's views reach the
+    launcher once, unpadded and uncopied (the wide kernel loads element by
+    element, so TMA's alignment does not matter), with the true scale."""
+    seen = []
+
+    def launcher(q, k, v, *, causal, scale):
+        seen.append((q, k, v, scale))
+        return torch.empty_like(q)
+
+    monkeypatch.setattr(fa_ops, "flash_attention_fwd", launcher)
+    q, k, v = _model_views(1, 4, 2, 16, hd, dtype, "meta")
     fa_ops.launch_count = fa_ops.pad_count = 0
-    with pytest.raises(ValueError, match="256"):
-        fa_ops.flash_attention_gqa(q, k, v)
-    assert launched == [] and fa_ops.launch_count == fa_ops.pad_count == 0
+    out = fa_ops.flash_attention_gqa(q, k, v)
+    assert (fa_ops.launch_count, fa_ops.pad_count) == (1, 0) and len(seen) == 1
+    got_q, got_k, got_v, scale = seen[0]
+    assert got_q is q and got_k is k and got_v is v and scale == hd**-0.5
+    assert out.shape == q.shape
     cpu = [torch.zeros(t.shape) for t in (q, k, v)]
     assert fa_ops.flash_attention_gqa(*cpu).shape == q.shape  # the plain version takes any hd
+
+
+def test_wide_inputs_off_tma_alignment_pass_uncopied():
+    """The wide kernel reads element by element: a bf16 q 2 bytes off a
+    16-byte boundary is not copied (below hd 256 it would be)."""
+    hd = 320
+    base = torch.empty(4 * 16 * hd + 1, dtype=torch.bfloat16, device="meta")
+    q = base[1:].view(1, 4, 16, hd)
+    k = v = torch.empty(1, 2, 16, hd, dtype=torch.bfloat16, device="meta")
+    assert not fa_kernel.tma_ready(q)
+    got = fa_kernel.kernel_inputs(q, k, v)
+    assert got[0] is q and got[1] is k and got[2] is v
+    args = fa_kernel.kernel_args(q, k, v, torch.empty_like(q))
+    assert args[:7] == (1, 1, 4, 2, 16, 16, hd)
+
+
+def test_kernel_source_has_the_wide_kernel():
+    """fa_fwd_wide is a hand-written kernel for every dtype, reached for any
+    head dim over the widest instance, with no library call inside."""
+    src = fa_kernel.SOURCE.read_text()
+    assert "fa_fwd_wide(const E* __restrict__ q" in src
+    assert "constexpr int kWidestInstance = 256;" in src
+    assert "if (hd > kWidestInstance)" in src
+    for t in ("float", "__nv_bfloat16", "__half"):
+        assert f"wide::launch<{t}>(REPRO_FA_WIDE_ARGS)" in src
+    for lib in ("cublas", "cudnn", "cutlass", "torch"):
+        assert lib not in src.lower()
+
+
+WIDE_HDS = [300, 320, 512]
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("hd", WIDE_HDS)
+def test_wrapper_on_cpu_matches_jax_kernel_over_256(hd, causal):
+    """The head dims over 256 that the CUDA wrapper now launches (the wide
+    kernel), against the JAX kernel in interpret mode, in float32."""
+    shape = (1, 4, 2, 40, 40, hd, causal)
+    (jq, jk, jv), (tq, tk, tv) = _both(_inputs(shape, seed=hd), "float32")
+    fa_ops.launch_count = fa_ops.pad_count = 0
+    out = fa_ops.flash_attention_gqa(tq, tk, tv, causal=causal)
+    ref = jax_flash(jq, jk, jv, causal=causal, block_q=16, block_k=16)
+    assert out.shape == tuple(ref.shape) and out.dtype == torch.float32
+    _close(out, ref, TOL["float32"])
+    assert fa_ops.launch_count == fa_ops.pad_count == 0

@@ -46,6 +46,14 @@ CONTRACT_SHAPES = [
     (1, 64, 2, 16, 256, 32),
     (1, 300, 2, 16, 256, 256),
 ]
+# past 256: a chunk of 512 at a ragged S = 600 (the JAX wrapper keeps it
+# only past S = 256), states of 320 and 384 columns (three tiles), and both
+WIDE_SHAPES = [
+    (1, 600, 2, 16, 16, 512),
+    (1, 64, 2, 16, 320, 32),
+    (1, 64, 2, 16, 384, 32),
+    (1, 600, 2, 16, 384, 512),
+]
 CONTRACT_DTYPES = {**DTYPES, "float16": (jnp.float16, torch.float16)}
 CONTRACT_TOL = {**TOL, "float16": 5e-3}
 
@@ -258,7 +266,10 @@ def test_kernel_source_targets_hopper():
     assert 'extern "C" int repro_ssd_scan' in src
     assert "repro/kernels/ssd_scan/kernel.py:96" in src
     assert "arch=compute_90a,code=sm_90a" in NVCC_FLAGS
-    assert f"kMaxQ = {ssd_kernel.MAX_CHUNK}" in src and f"kMaxN = {ssd_kernel.MAX_STATE}" in src
+    # no chunk or state limit of its own: only the grid's extents
+    assert "kMaxQ" not in src and "kMaxN" not in src
+    assert f"kMaxGridYZ = {ssd_kernel.MAX_GRID_YZ};" in src
+    assert f"kPT = {ssd_kernel.P_TILE};" in src and f"kTileN = {ssd_kernel.TILE_N};" in src
 
 
 def _model_views(B, S, H, P, N, dtype=torch.bfloat16):
@@ -357,6 +368,26 @@ def test_rounding_study_chunked_form_matches_the_recurrence(chunk):
     _close(state_k.reshape(B * H, P, N), s_ref.numpy(), TOL["bfloat16"])
 
 
+def test_the_wide_state_split_keeps_the_state_exact():
+    """Past 128 state columns the kernel splits X o decay into hi + lo too:
+    in the study's arithmetic the state then lands within 1e-4 of the
+    recurrence, where one bf16 rounding of X o decay does not."""
+    from repro_torch.kernels.ssd_scan import rounding
+
+    B, S, H, P, N = 1, 64, 2, 16, 256
+    x, a, b, c, s0 = (torch.from_numpy(v) for v in _inputs((B, S, H, P, N, 32), seed=11))
+    x, b, c = x.bfloat16(), b.bfloat16(), c.bfloat16()
+    _, s_ref = ssd_scan_ref(*(_flat(v, B, S, H) for v in (x, a, b, c)), s0.reshape(B * H, P, N))
+    cfg = rounding.CONFIGS["P, S and X o decay hi/lo (the kernel past 128 columns)"]
+    _, state = rounding.chunked(x, a, b, c, s0, *cfg, chunk=32)
+    _close(state.reshape(B * H, P, N), s_ref.numpy(), 1e-4)
+    _, state_one = rounding.chunked(x, a, b, c, s0, *rounding.CONFIGS["P and S hi/lo (the kernel)"],
+                                    chunk=32)
+    assert (state_one.reshape(B * H, P, N) - s_ref).abs().max() > 1e-4
+    src = ssd_kernel.SOURCE.read_text()
+    assert "template <bool kVec, bool kSplitXd>" in src and "const bool split_xd = N > kN;" in src
+
+
 @pytest.mark.parametrize("shape", CONTRACT_SHAPES, ids=str)
 @pytest.mark.parametrize("dname", list(CONTRACT_DTYPES))
 def test_wrapper_on_cpu_matches_jax_kernel_past_128(shape, dname):
@@ -375,7 +406,8 @@ def test_wrapper_on_cpu_matches_jax_kernel_past_128(shape, dname):
 
 
 @pytest.mark.parametrize("chunk, want", [(8, (1, 8)), (100, (1, 100)), (128, (1, 128)),
-                                         (129, (2, 65)), (200, (2, 100)), (256, (2, 128))])
+                                         (129, (2, 65)), (200, (2, 100)), (256, (2, 128)),
+                                         (300, (3, 100)), (512, (4, 128)), (1000, (8, 125))])
 def test_a_chunk_over_128_runs_as_sub_chunks(chunk, want):
     """The kernel stages 128 rows: a longer chunk runs as equal sub-chunks,
     256 as two of 128 (``n_sub`` and ``Qs`` of ``repro_ssd_scan``)."""
@@ -396,7 +428,8 @@ def test_sub_chunks_give_the_chunks_result():
     np.testing.assert_allclose(np.asarray(s256), np.asarray(s128), rtol=5e-4, atol=5e-4)
 
 
-@pytest.mark.parametrize("N, tiles", [(8, 1), (128, 1), (129, 2), (200, 2), (256, 2)])
+@pytest.mark.parametrize("N, tiles", [(8, 1), (128, 1), (129, 2), (200, 2), (256, 2),
+                                      (320, 3), (384, 3), (1000, 8)])
 def test_a_state_over_128_splits_into_tiles(N, tiles):
     assert ssd_kernel.state_tiles(N) == tiles
 
@@ -413,9 +446,19 @@ def test_check_contract_takes_chunk_and_state_up_to_256(N, chunk, dtype):
                               (1, 1, 1, 1, 1), True, chunk)
 
 
+@pytest.mark.parametrize("N, chunk", [(16, 512), (320, 128), (384, 512), (1000, 1024)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+def test_check_contract_takes_any_chunk_and_state(N, chunk, dtype):
+    f32 = torch.float32
+    ssd_kernel.check_contract(_contract_shapes(N=N), [dtype, f32, dtype, dtype, f32],
+                              (1, 1, 1, 1, 1), True, chunk)
+
+
 @pytest.mark.parametrize("case, err", [
-    ("chunk 257", ValueError),
-    ("N = 257", ValueError),
+    ("chunk 0", ValueError),
+    ("N = 0", ValueError),
+    ("state tiles past the grid", ValueError),
+    ("P tiles past the grid", ValueError),
     ("mixed dtypes", TypeError),
     ("float64", TypeError),
     ("a in bfloat16", TypeError),
@@ -426,10 +469,14 @@ def test_check_contract_takes_chunk_and_state_up_to_256(N, chunk, dtype):
 def test_check_contract_refuses(case, err):
     f32, bf = torch.float32, torch.bfloat16
     shapes, dts, last, dense, chunk = _contract_shapes(), [bf, f32, bf, bf, f32], [1] * 5, True, 128
-    if case == "chunk 257":
-        chunk = 257
-    elif case == "N = 257":
-        shapes = _contract_shapes(N=257)
+    if case == "chunk 0":
+        chunk = 0
+    elif case == "N = 0":
+        shapes = _contract_shapes(N=0)
+    elif case == "state tiles past the grid":
+        shapes = _contract_shapes(N=ssd_kernel.TILE_N * ssd_kernel.MAX_GRID_YZ + 1)
+    elif case == "P tiles past the grid":
+        shapes = _contract_shapes(P=ssd_kernel.P_TILE * ssd_kernel.MAX_GRID_YZ + 1)
     elif case == "mixed dtypes":
         dts[3] = torch.float16
     elif case == "float64":
@@ -442,12 +489,14 @@ def test_check_contract_refuses(case, err):
         dense = False
     else:
         shapes[3] = (2, 40, 3, 8)
-    with pytest.raises(err):
+    with pytest.raises(err, match="grid" if "grid" in case else None):
         ssd_kernel.check_contract(shapes, dts, last, dense, chunk)
 
 
 @pytest.mark.parametrize("N, chunk, dtype", [(256, 128, torch.bfloat16), (128, 256, torch.float16),
-                                             (256, 256, torch.float32)], ids=str)
+                                             (256, 256, torch.float32), (320, 512, torch.float32),
+                                             (384, 128, torch.bfloat16), (128, 512, torch.float16)],
+                         ids=str)
 def test_wide_states_and_long_chunks_reach_the_launcher(monkeypatch, N, chunk, dtype):
     """A state of 256 and a chunk of 256 reach the launcher as they are (the
     kernel splits them); a state over 128 also counts the tile sum."""
@@ -473,3 +522,18 @@ def test_float16_takes_the_scalar_kernel():
     assert ssd_kernel.kernel_route(x, b, c) == ("scalar", "elementwise")
     assert ssd_kernel.kernel_args(x, a, b, c, torch.empty_like(x), 256)[:8] == (
         2, 0, 1, 40, 2, 16, 16, 256)
+
+
+@pytest.mark.parametrize("shape", WIDE_SHAPES, ids=str)
+def test_wrapper_on_cpu_matches_jax_kernel_past_256(shape):
+    """The chunk and state widths over 256 that the CUDA wrapper now takes,
+    against the JAX kernel (interpret mode), in float32."""
+    chunk = shape[-1]
+    (jx, ja, jb, jc, js), (tx, ta, tb, tc, ts) = _both(_inputs(shape, seed=10), "float32")
+    ssd_ops.launch_count = ssd_ops.tile_sum_count = 0
+    y, sf = ssd_ops.ssd_scan(tx, ta, tb, tc, ts, chunk=chunk)
+    yr, sr = jax_scan(jx, ja, jb, jc, js, chunk=chunk)
+    assert y.shape == tuple(yr.shape) and sf.shape == tuple(sr.shape)
+    _close(y, yr, TOL["float32"])
+    _close(sf, sr, TOL["float32"])
+    assert ssd_ops.launch_count == ssd_ops.tile_sum_count == 0
