@@ -1,0 +1,8 @@
+"""The long-document cell's latency tail, kept beside its rate: its window
+holds too few batches for the tail to judge a change."""
+
+from chipbench.record import latency_p95_ms
+
+
+def read(run):
+    return latency_p95_ms(run)
