@@ -834,11 +834,11 @@ def check_flash_contract(contiguous, model_views, held, faults_rejected) -> dict
         qkv = model_views(B, H, KV, S, S, hd, dtype)
         if any(x is not y for x, y in zip(kernel_inputs(*qkv), qkv)):
             fail(f"{name}: the model's strided views would be copied before the kernel")
-        n0, pads0 = fa_ops.launch_count, fa_ops.pad_count
+        n0, pads0 = _counter(fa_ops.LAUNCHES), _counter(fa_ops.PADS)
         err, ref = held(f"{name} {(B, H, KV, S, hd)} model views causal", dname, *qkv, True)
-        if (fa_ops.launch_count - n0, fa_ops.pad_count - pads0) != (1, int(padded)):
-            fail(f"{name}: {fa_ops.launch_count - n0} launches and {fa_ops.pad_count - pads0} "
-                 f"pads for one call (padded: {padded})")
+        n, pads = _counter(fa_ops.LAUNCHES) - n0, _counter(fa_ops.PADS) - pads0
+        if (n, pads) != (1, int(padded)):
+            fail(f"{name}: {n} launches and {pads} pads for one call (padded: {padded})")
         faults_rejected(*qkv, True, ref, dname)
         _, ref = held(f"{name} {(B, H, KV, S, hd)} model views non-causal", dname, *qkv, False)
         faults_rejected(*qkv, False, ref, dname)
@@ -1147,11 +1147,11 @@ def check_ssd_contract(inputs, held) -> dict:
         dname = str(dtype).split(".")[-1]
         x, a, b, c, s0 = inputs(B, S, H, P, N, dtype, shared_bc=True)
         route, tiles = kernel_route(x, b, c), state_tiles(N)
-        n0, sums0 = ssd_ops.launch_count, ssd_ops.tile_sum_count
+        n0, sums0 = _counter(ssd_ops.LAUNCHES), _counter(ssd_ops.TILE_SUMS)
         err = held((B, S, H, P, N, chunk, f"{name}, shared B/C"), dname, x, a, b, c, s0, chunk)
-        if (ssd_ops.launch_count - n0, ssd_ops.tile_sum_count - sums0) != (1, int(tiles > 1)):
-            fail(f"{name}: {ssd_ops.launch_count - n0} launches and "
-                 f"{ssd_ops.tile_sum_count - sums0} tile sums for one call ({tiles} tiles)")
+        n, sums = _counter(ssd_ops.LAUNCHES) - n0, _counter(ssd_ops.TILE_SUMS) - sums0
+        if (n, sums) != (1, int(tiles > 1)):
+            fail(f"{name}: {n} launches and {sums} tile sums for one call ({tiles} tiles)")
         if chunk > SSD_CHUNK:
             y, sf = ssd_ops.ssd_scan(x, a, b, c, s0, chunk=chunk)
             y128, s128 = ssd_ops.ssd_scan(x, a, b, c, s0, chunk=SSD_CHUNK)
@@ -1402,14 +1402,14 @@ def fingerprint_leaves(params, fp: dict) -> dict:
     leaves = dict(_named_leaves(params))
     nbytes = {name: t.numel() * t.element_size() for name, t in leaves.items()}
     total = sum(nbytes.values())
-    fp_ops.launch_count = 0  # counts of this path only
+    _reset_counters(fp_ops.LAUNCHES)  # counts of this path only
     tokens, pass_ms = {}, []
     for _ in range(2):
         out, ms = events_ms(lambda: {name: fp_ops.fingerprint(t) for name, t in leaves.items()})
         pass_ms.append(ms)
         for name, h in out.items():
             tokens.setdefault(name, []).append(fp_token(h))
-    launches = fp_ops.launch_count
+    launches = _counter(fp_ops.LAUNCHES)
     if launches != 2 * len(leaves):
         fail(f"fingerprint launched {launches} times for 2 x {len(leaves)} leaves")
     unstable = [name for name, (a, b) in tokens.items() if a != b]
@@ -1531,14 +1531,14 @@ def forward_check(tx, cfg, params, toks, label: str, **fwd) -> dict:
     with torch.inference_mode():
         ref, _, _ = tx.forward(cfg.replace(attention_impl="reference"), params, toks, **fwd)
         exact, _, _ = tx.forward(cfg.replace(compute_dtype=torch.float32), params, toks, **fwd)
-        n0 = fa_ops.launch_count
+        n0 = _counter(fa_ops.LAUNCHES)
         fa_kernel.kernel_inputs = counted_inputs
         try:
             out, _, _ = tx.forward(pcfg, params, toks, **fwd)
             torch.cuda.synchronize()
         finally:
             fa_kernel.kernel_inputs = real_inputs
-        n = fa_ops.launch_count - n0
+        n = _counter(fa_ops.LAUNCHES) - n0
         planted = {}
         for fault in FAULTS:
             attention._flash = plant_fault(real_flash, fault, 1)
@@ -1645,10 +1645,10 @@ def phase_model_mamba() -> dict:
         with torch.inference_mode():
             ref = run(c.replace(attention_impl="reference"))
             exact = run(c.replace(compute_dtype=torch.float32))
-            n0 = ssd_ops.launch_count
+            n0 = _counter(ssd_ops.LAUNCHES)
             out = run(pcfg)
             torch.cuda.synchronize()
-            n = ssd_ops.launch_count - n0
+            n = _counter(ssd_ops.LAUNCHES) - n0
             planted = {}
             for fault in ("state not carried across chunks", "final state dropped"):
                 ssm.ssd_scan = plant_ssd_fault(real_scan, fault)
@@ -1784,11 +1784,11 @@ def phase_model_hymba() -> dict:
     with torch.inference_mode():
         ref = run(cfg.replace(attention_impl="reference"))
         exact = run(cfg.replace(compute_dtype=torch.float32))
-        n0 = {"flash_attention": fa_ops.launch_count, "ssd_scan": ssd_ops.launch_count}
+        n0 = {"flash_attention": _counter(fa_ops.LAUNCHES), "ssd_scan": _counter(ssd_ops.LAUNCHES)}
         out = run(pcfg)
         torch.cuda.synchronize()
-        n = {"flash_attention": fa_ops.launch_count - n0["flash_attention"],
-             "ssd_scan": ssd_ops.launch_count - n0["ssd_scan"]}
+        n = {"flash_attention": _counter(fa_ops.LAUNCHES) - n0["flash_attention"],
+             "ssd_scan": _counter(ssd_ops.LAUNCHES) - n0["ssd_scan"]}
         planted = {}
         for fault in HYMBA_FAULTS:
             module, name, stand_in = faulty[fault]
@@ -1957,10 +1957,10 @@ def phase_model_kimi() -> dict:
             free = {"reference": run("reference", rcfg, pin=False),
                     "flash": run("flash", pcfg, pin=False)}
             ref = run("reference pinned", rcfg)
-            n0 = fa_ops.launch_count
+            n0 = _counter(fa_ops.LAUNCHES)
             out = run("flash pinned", pcfg)
             torch.cuda.synchronize()
-            n = fa_ops.launch_count - n0
+            n = _counter(fa_ops.LAUNCHES) - n0
             planted = {}
             for fault in FAULTS:
                 attention._flash = plant_fault(real_flash, fault, 1)
@@ -2083,10 +2083,10 @@ def phase_model_deepseek() -> dict:
             exact = expanded(cfg.replace(compute_dtype=torch.float32), "f32", pin=False)
             free = (expanded(cfg, "expanded", pin=False), absorbed(pcfg, "absorbed", pin=False))
             ref = expanded(cfg, "expanded pinned")
-            n0 = {k: ops.launch_count for k, ops in counters.items()}
+            n0 = {k: _counter(ops.LAUNCHES) for k, ops in counters.items()}
             out = absorbed(pcfg, "absorbed pinned")
             torch.cuda.synchronize()
-            n = {k: ops.launch_count - n0[k] for k, ops in counters.items()}
+            n = {k: _counter(ops.LAUNCHES) - n0[k] for k, ops in counters.items()}
             attention._update_latent_cache = plant_latent_fault(real_update)
             try:
                 bad = absorbed(pcfg, LATENT_FAULT)
@@ -2263,10 +2263,10 @@ def phase_model_whisper() -> dict:
     with torch.inference_mode():
         ref = run(cfg.replace(attention_impl="reference"))
         exact = run(cfg.replace(compute_dtype=torch.float32))
-        n0 = fa_ops.launch_count
+        n0 = _counter(fa_ops.LAUNCHES)
         out = run(pcfg)
         torch.cuda.synchronize()
-        n = fa_ops.launch_count - n0
+        n = _counter(fa_ops.LAUNCHES) - n0
         planted = {}
         for fault in WHISPER_FAULTS:
             module, name, stand_in = faulty[fault]
@@ -2349,7 +2349,7 @@ def phase_serve_whisper() -> dict:
     counters = _kernel_counters()
     torch.cuda.synchronize()
     for ops in counters.values():
-        ops.launch_count = 0  # counts of this path only
+        _reset_counters(ops.LAUNCHES)  # counts of this path only
     prefill_s = decode_s = 0.0
     prefills, outs, latency_ms = 0, [], []
     t_start = time.perf_counter()
@@ -2373,7 +2373,7 @@ def phase_serve_whisper() -> dict:
             decode_s += time.perf_counter() - t0
             outs.extend(torch.cat(toks, dim=1).cpu().numpy())
             latency_ms += [(time.perf_counter() - t_start) * 1e3] * B
-    launches = {name: ops.launch_count for name, ops in counters.items()}
+    launches = {name: _counter(ops.LAUNCHES) for name, ops in counters.items()}
     res = {"launches": launches, "prefill_s": prefill_s,
            "decode_tok_s": n_req * (G - 1) / decode_s, "prefills": prefills,
            "latency_p50_ms": float(np.percentile(latency_ms, 50)),
@@ -2529,9 +2529,9 @@ def phase_serve(argv: list[str]) -> dict:
     args = parse_args(argv)
     cfg = get_config(args.arch)
     for ops in counters.values():
-        ops.launch_count = 0  # counts of this path only
+        _reset_counters(ops.LAUNCHES)  # counts of this path only
     res = serve(args)
-    launches = {name: ops.launch_count for name, ops in counters.items()}
+    launches = {name: _counter(ops.LAUNCHES) for name, ops in counters.items()}
     sstats = res["server"]
     print(f"[serve] {args.arch}: {res['requests']} requests, {sstats['batches']} batches, "
           f"{res['prefills']} prefills | prefill {res['prefill_s']:.4f}s | "
@@ -2559,7 +2559,21 @@ class _Tee:
         self.stream.flush()
 
 
+def _counter(name: str) -> int:
+    """A counter of the port's tracer (``repro_torch.runtime.trace``)."""
+    from repro_torch.runtime import trace
+
+    return trace.counter(name)
+
+
+def _reset_counters(*names: str) -> None:
+    from repro_torch.runtime import trace
+
+    trace.reset_counts(*names)
+
+
 def _kernel_counters() -> dict:
+    """Each kernel's wrapper module, whose ``LAUNCHES`` names its counter."""
     from repro_torch.kernels.fingerprint import ops as fp_ops
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
@@ -2600,12 +2614,12 @@ def train_driver(run_dir: str) -> dict:
     reckoned = 3 * 4 * n_params + 4
     counters = _kernel_counters()
     for ops in counters.values():
-        ops.launch_count = 0
+        _reset_counters(ops.LAUNCHES)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     out = train(args)
     secs = time.perf_counter() - t0
-    launches = {name: ops.launch_count for name, ops in counters.items()}
+    launches = {name: _counter(ops.LAUNCHES) for name, ops in counters.items()}
     peak = torch.cuda.max_memory_allocated()
     log = out["log"]
     losses = [e["loss"] for e in log]
@@ -2922,7 +2936,7 @@ def train_dense() -> dict:
                            generator=torch.Generator(device="cuda").manual_seed(3))
     counters = _kernel_counters()
     for ops in counters.values():
-        ops.launch_count = 0
+        _reset_counters(ops.LAUNCHES)
     step = make_train_step(cfg, AdamWConfig())
 
     def timed(n):
@@ -2938,7 +2952,7 @@ def train_dense() -> dict:
 
     runs = timed(steps)
     peak = torch.cuda.max_memory_allocated()
-    launches = {name: ops.launch_count for name, ops in counters.items()}
+    launches = {name: _counter(ops.LAUNCHES) for name, ops in counters.items()}
     breakdown, state = step_breakdown(f"qwen2.5-3b remat full, batch {B} x seq {S}", step,
                                       state, {"tokens": tokens}, 1)
     real = tx._run_group
@@ -2962,7 +2976,7 @@ def train_dense() -> dict:
         fail("a pallas train step on the card did not raise")
     untouched = (int(state["opt"]["step"]) == done
                  and torch.equal(state["params"]["final_norm"]["scale"], before))
-    pallas_launches = {name: ops.launch_count for name, ops in counters.items()}
+    pallas_launches = {name: _counter(ops.LAUNCHES) for name, ops in counters.items()}
     step_s = [r[0] for r in runs]
     med = float(np.median(step_s[1:]))
     print(f"[train] qwen2.5-3b full width, remat full, batch {B} x seq {S}: state "
@@ -3026,7 +3040,7 @@ def train_whisper() -> dict:
     batch = _whisper_batch(cfg, B, S, 7, "cuda")
     counters = _kernel_counters()
     for ops in counters.values():
-        ops.launch_count = 0
+        _reset_counters(ops.LAUNCHES)
     step = make_train_step(cfg, AdamWConfig())
     runs = []
     for _ in range(steps):
@@ -3036,7 +3050,7 @@ def train_whisper() -> dict:
         torch.cuda.synchronize()
         runs.append((time.perf_counter() - t0, loss, gn))
     peak = torch.cuda.max_memory_allocated()
-    launches = {name: ops.launch_count for name, ops in counters.items()}
+    launches = {name: _counter(ops.LAUNCHES) for name, ops in counters.items()}
     breakdown, state = step_breakdown(f"whisper-tiny, batch {B} x {S} tokens x "
                                       f"{cfg.encoder_seq} frames", step, state, batch, 1)
     med = float(np.median([r[0] for r in runs]))

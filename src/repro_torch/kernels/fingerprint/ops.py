@@ -27,9 +27,10 @@ from repro_torch.bridge import to_tensor
 from repro_torch.kernels._nvcc import refuse_stand_ins
 from repro_torch.kernels.fingerprint.kernel import fingerprint_fwd
 from repro_torch.kernels.fingerprint.ref import MASK, fingerprint_ref
+from repro_torch.runtime import trace
 
-#: kernel launches since the count was last set to 0
-launch_count = 0
+#: the tracer's counter of kernel launches
+LAUNCHES = "fingerprint.launch"
 
 # what ``jnp.asarray`` makes of 64-bit inputs with 64-bit types off
 NARROW = {torch.float64: torch.float32, torch.int64: torch.int32, torch.uint64: torch.uint32}
@@ -47,7 +48,6 @@ def as_bytes(x: torch.Tensor) -> torch.Tensor:
 
 def fingerprint(x: torch.Tensor) -> torch.Tensor:
     """Content fingerprint of any tensor. Returns (2,) uint32 on x's device."""
-    global launch_count
     refuse_stand_ins("fingerprint", x)
     data = as_bytes(x)
     if data.numel() == 0:
@@ -55,7 +55,7 @@ def fingerprint(x: torch.Tensor) -> torch.Tensor:
     if data.device.type == "cpu":
         return fingerprint_ref(data)
     out = fingerprint_fwd(data)
-    launch_count += 1
+    trace.count(LAUNCHES)
     return out
 
 

@@ -8,11 +8,12 @@ masks ragged lengths itself (no padding), or the call raises.  The kernel
 has instances at the head dims of ``kernel.HEAD_DIMS``; another head dim up
 to 256 is zero-padded to the next instance (zero columns add nothing to
 q . k, and the padded output columns, zero, are sliced off), with the scale
-still the true ``hd**-0.5``, and counted in ``pad_count``; a head dim over
+still the true ``hd**-0.5``, and counted in the ``PADS`` counter; a head dim over
 256 launches the wide kernel at its own width, unpadded.  The kernel has no
 backward (neither has the Pallas kernel: no ``custom_vjp``), so a CUDA call
 with an input that needs gradients raises rather than return a result with
-no ``grad_fn``.
+no ``grad_fn``.  Each launch adds 1 to the tracer's ``LAUNCHES`` counter
+(``repro_torch.runtime.trace``).
 """
 
 from __future__ import annotations
@@ -22,11 +23,12 @@ import torch
 from repro_torch.kernels._nvcc import refuse_stand_ins
 from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd, kernel_route
 from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.runtime import trace
 
-#: kernel launches since the count was last set to 0
-launch_count = 0
-#: launches whose q, k and v the wrapper copied to pad the head dim
-pad_count = 0
+#: the tracer's counter of kernel launches
+LAUNCHES = "flash_attention.launch"
+#: the tracer's counter of launches whose q, k and v the wrapper copied to pad the head dim
+PADS = "flash_attention.pad"
 
 
 def flash_attention_gqa(
@@ -44,7 +46,6 @@ def flash_attention_gqa(
     ``block_q``/``block_k`` are accepted for the JAX signature; the CUDA
     kernel's tiles are fixed at compile time and the plain version has none.
     """
-    global launch_count, pad_count
     refuse_stand_ins("flash_attention_gqa", q, k, v)
     B, H, Sq, hd = q.shape
     KV = k.shape[1]
@@ -65,8 +66,8 @@ def flash_attention_gqa(
     if padded:
         q, k, v = (torch.nn.functional.pad(t, (0, width - hd)) for t in (q, k, v))
     out = flash_attention_fwd(q, k, v, causal=causal, scale=scale)
-    launch_count += 1
+    trace.count(LAUNCHES)
     if padded:
-        pad_count += 1
+        trace.count(PADS)
         return out[..., :hd]
     return out

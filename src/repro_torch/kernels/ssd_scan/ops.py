@@ -23,11 +23,12 @@ import torch
 from repro_torch.kernels._nvcc import refuse_stand_ins
 from repro_torch.kernels.ssd_scan.kernel import ssd_scan_fwd, state_tiles
 from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
+from repro_torch.runtime import trace
 
-#: kernel launches since the count was last set to 0
-launch_count = 0
-#: launches of the tile sum that follows the kernel at a state over 128 wide
-tile_sum_count = 0
+#: the tracer's counter of kernel launches
+LAUNCHES = "ssd_scan.launch"
+#: the tracer's counter of the tile sums that follow the kernel at a state over 128 wide
+TILE_SUMS = "ssd_scan.tile_sum"
 
 
 def ssd_scan(
@@ -40,7 +41,6 @@ def ssd_scan(
     chunk: int = 128,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Returns (y (B,S,H,P), final_state (B,H,P,N) float32)."""
-    global launch_count, tile_sum_count
     refuse_stand_ins("ssd_scan", x, a, b, c, initial_state)
     B, S, H, P = x.shape
     N = b.shape[-1]
@@ -63,6 +63,7 @@ def ssd_scan(
         y = y.reshape(B, H, S, P).transpose(1, 2)
     else:
         y, s_final = ssd_scan_fwd(x, a.float(), b, c, s0.contiguous(), chunk=Q)
-        launch_count += 1
-        tile_sum_count += int(state_tiles(N) > 1 and S > 0)
+        trace.count(LAUNCHES)
+        if state_tiles(N) > 1 and S > 0:
+            trace.count(TILE_SUMS)
     return y, s_final.reshape(B, H, P, N)

@@ -34,6 +34,13 @@ bf16 params, kimi cut to 2 layers, the others at full depth.  The other
 dense archs (qwen2.5-3b, phi4-mini-3.8b, internvl2-2b) serve as configured;
 internvl2-2b's requests are tokens alone, as the JAX driver's are.
 
+The port's tracer (:mod:`repro_torch.runtime.trace`) records the run:
+``prefill_s`` is the device time of the ``prefill`` spans (their host time
+on the CPU), ``decode_tok_s`` the answer tokens over the host time of the
+``decode_step`` spans, and the kernels' launches are the tracer's counters.
+``--trace-out PATH`` writes the spans as Chrome-trace JSON, and the run
+prints the spans' summary by name.
+
 Runs on ``cuda`` unless ``--device cpu`` is given; it never falls back to the
 CPU on its own.  ``--run-dir`` serves a training run's latest checkpoint
 (``repro_torch.launch.train``): its params resolve by proxy from the run's
@@ -44,6 +51,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import json
 import time
 
 import numpy as np
@@ -59,6 +67,7 @@ from repro_torch.launch.mesh import world_mesh
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.models import transformer as tx
+from repro_torch.runtime import trace
 from repro_torch.train.checkpoint import CheckpointManager
 
 
@@ -111,7 +120,22 @@ def _sharded_step():
         yield
 
 
+def _span_seconds(spans: list) -> float:
+    """Seconds of the spans: their device time where they recorded it,
+    their host time else."""
+    total_ms = 0.0
+    for s in spans:
+        dev = s.device_ms()
+        total_ms += s.host_ms if dev is None else dev
+    return total_ms / 1e3
+
+
 def serve(args) -> dict:
+    with trace.enabled():
+        return _serve(args)
+
+
+def _serve(args) -> dict:
     cfg = (get_smoke_config if args.smoke else get_config)(
         args.arch, attention_impl="pallas"
     )
@@ -128,7 +152,11 @@ def serve(args) -> dict:
         rows = rules.batch_spec(2) if B % mesh.size(0) == 0 else (None, None)
 
     n_req = args.requests or 2 * B
-    timings = {"prefill_s": 0.0, "decode_s": 0.0, "decoded": 0, "prefills": 0}
+    t_start = time.perf_counter_ns()
+
+    def ours(name: str | None) -> list:
+        """This run's spans (of ``name`` only)."""
+        return [s for s in trace.spans(name) if s.t0 >= t_start]
 
     def sync():
         if device.type == "cuda":
@@ -142,21 +170,16 @@ def serve(args) -> dict:
         if mesh is not None:
             cache = distribute(cache, rules.cache_shardings(cache), mesh)
             tokens = distribute(tokens, rows, mesh)
-        t0 = time.perf_counter()
         logits, cache = tx.prefill(cfg, params, tokens, cache, ctx)
         sync()
-        timings["prefill_s"] += time.perf_counter() - t0
-        timings["prefills"] += 1
         tok = logits[:, -1:].argmax(-1)
         out = [tok]
-        t0 = time.perf_counter()
         for i in range(G - 1):
             pos = torch.full((B, 1), PL + i, dtype=torch.int64, device=device)
             logits, cache = tx.decode_step(cfg, params, cache, tok, pos, ctx)
             tok = logits[:, -1:].argmax(-1)
             out.append(tok)
         sync()
-        timings["decode_s"] += time.perf_counter() - t0
         return gather_full(torch.cat(out, dim=1)).to(torch.int32).cpu().numpy()
 
     # with a mesh, rank 0 serves and hands each batch to the other ranks,
@@ -174,7 +197,6 @@ def serve(args) -> dict:
             dist.broadcast_object_list([toks], src=0)
         with step_mode():
             full = run_batch(toks)
-        timings["decoded"] += k * (G - 1)
         return [full[i] for i in range(k)]
 
     if mesh is not None and dist.get_rank() != 0:
@@ -182,7 +204,7 @@ def serve(args) -> dict:
             batch = [None]
             dist.broadcast_object_list(batch, src=0)
             if batch[0] is None:
-                return {"follower": dist.get_rank(), "prefills": timings["prefills"]}
+                return {"follower": dist.get_rank(), "prefills": len(ours("prefill"))}
             with step_mode():
                 run_batch(batch[0])
 
@@ -195,7 +217,7 @@ def serve(args) -> dict:
         rng.integers(0, cfg.vocab_size, (PL,)).astype(np.int32) for _ in range(n_req)
     ]
     kernels = {"flash_attention": fa_ops, "ssd_scan": ssd_ops}
-    launches0 = {name: ops.launch_count for name, ops in kernels.items()}
+    launches0 = {name: trace.counter(ops.LAUNCHES) for name, ops in kernels.items()}
     t_wall = time.perf_counter()
     with Session(cluster=spec, name=f"serve-{args.arch}") as session:
         server = session.serve(generate)
@@ -221,17 +243,26 @@ def serve(args) -> dict:
         dist.broadcast_object_list([None], src=0)  # the followers stop
 
     assert len(outs) == n_req, f"served {len(outs)}/{n_req} requests"
-    tps = timings["decoded"] / timings["decode_s"] if timings["decode_s"] else 0.0
-    launches = {name: ops.launch_count - launches0[name] for name, ops in kernels.items()}
+    prefills = ours("prefill")
+    prefill_s = _span_seconds(prefills)
+    decode_s = sum(s.host_ms for s in ours("decode_step")) / 1e3
+    tps = n_req * (G - 1) / decode_s if decode_s else 0.0
+    launches = {name: trace.counter(ops.LAUNCHES) - launches0[name]
+                for name, ops in kernels.items()}
+    mine = ours(None)
+    summary = trace.summary(mine)
+    if args.trace_out:
+        trace.export_chrome(args.trace_out, mine)
     print(f"served {n_req} reqs in {sstats['batches']} batches "
-          f"(mean {sstats['mean_batch']:.2f}) | prefill {timings['prefill_s']:.3f}s "
+          f"(mean {sstats['mean_batch']:.2f}) | prefill {prefill_s:.3f}s "
           f"| decode {tps:,.1f} tok/s | flash launches {launches['flash_attention']} "
           f"| ssd_scan launches {launches['ssd_scan']}")
     print(f"latency p50/p99: {sstats['latency_p50_ms']:.1f}/"
           f"{sstats['latency_p99_ms']:.1f} ms | broker {hub['broker_bytes']:,}B "
           f"vs payload {hub['payload_bytes']:,}B")
+    print("spans: " + json.dumps(summary))
     return {
-        "prefill_s": timings["prefill_s"],
+        "prefill_s": prefill_s,
         "decode_tok_s": tps,
         "requests": n_req,
         "wall_s": t_wall,
@@ -239,7 +270,8 @@ def serve(args) -> dict:
         "stream": hub,
         "kernel_launches": launches,
         "flash_launches": launches["flash_attention"],
-        "prefills": timings["prefills"],
+        "prefills": len(prefills),
+        "spans": summary,
         "device": str(device),
         "prompts": prompts,
         "outputs": [outs[key] for key in keys],
@@ -262,6 +294,8 @@ def parse_args(argv=None):
                     help="restore weights from this train run's store")
     ap.add_argument("--device", default="cuda",
                     help="torch device to serve on (default: cuda)")
+    ap.add_argument("--trace-out", default="",
+                    help="write the run's spans here as Chrome-trace JSON")
     return ap.parse_args(argv)
 
 

@@ -65,6 +65,7 @@ from repro_torch.models.common import (
     write_rows,
 )
 from repro_torch.models.layers import apply_rope, normal_init
+from repro_torch.runtime import trace
 
 Params = dict[str, Any]
 
@@ -140,7 +141,7 @@ def chunked_attention(
     Skv = k.shape[1]
     hdv = v.shape[-1]
     scale = scale if scale is not None else hd**-0.5
-    if Sq <= 4 and Skv > Sq:
+    if _unchunked(Sq, Skv):
         return _decode_attention(
             q, k, v, causal=causal, window=window, q_offset=q_offset,
             kv_len=kv_len, scale=scale,
@@ -231,6 +232,12 @@ def _sharded_attention(q, k, v, *, q_offset, kv_len, **kw):
     return local(q, k, v, q_offset, kv_len)
 
 
+def _unchunked(Sq: int, Skv: int) -> bool:
+    """Whether ``chunked_attention`` takes ``_decode_attention``: a few
+    queries against a longer cache."""
+    return Sq <= 4 and Skv > Sq
+
+
 def _decode_attention(q, k, v, *, causal, window, q_offset, kv_len, scale):
     """Unchunked attention for tiny Sq against a (possibly huge) cache."""
     B, Sq, KV, G, hd = q.shape
@@ -266,21 +273,31 @@ def _flash_rows(q, k, v, *, causal):
     return out.reshape(B, KV, G, S, hd).permute(0, 3, 1, 2, 4)
 
 
-def _maybe_pallas_attention(cfg, q, k, v, *, causal, window, q_offset, kv_len):
-    """Dispatch to the flash kernel when configured and applicable."""
-    if (
+def _takes_flash(cfg, *, window, q_offset, kv_len) -> bool:
+    """Whether a cache-free attention goes to the flash kernel."""
+    return (
         cfg.attention_impl == "pallas"
         and window == 0
         and kv_len is None
         and isinstance(q_offset, int)
         and q_offset == 0
-    ):
+    )
+
+
+def _maybe_pallas_attention(cfg, q, k, v, *, causal, window, q_offset, kv_len):
+    """Dispatch to the flash kernel when configured and applicable."""
+    if _takes_flash(cfg, window=window, q_offset=q_offset, kv_len=kv_len):
         return _flash(q, k, v, causal=causal)
     return chunked_attention(
         q, k, v,
         causal=causal, window=window, q_offset=q_offset, kv_len=kv_len,
         chunk=cfg.attention_chunk,
     )
+
+
+def _impl(Sq: int, Skv: int) -> str:
+    """The ``attn.core`` span's ``impl`` for a ``chunked_attention`` call."""
+    return "decode" if _unchunked(Sq, Skv) else "chunked"
 
 
 def _out_proj(out: torch.Tensor, w_o: torch.Tensor) -> torch.Tensor:
@@ -309,37 +326,48 @@ def apply_attention(
     """``ctx.prefill`` marks a prefill into an empty cache at positions 0..S-1.
 
     With ``cross_kv = (k, v)``, each (B, T, KV, hd), only q is projected and
-    attends over all T keys (no mask, no cache, no kernel)."""
+    attends over all T keys (no mask, no cache, no kernel).
+
+    Spans: ``attn.proj`` (the q/k/v projections and RoPE, then the output
+    projection), ``attn.cache`` (the cache writes) and ``attn.core`` (the
+    attention itself, from q, k and v in the model's layout to the output
+    back in it, with the layer's ``window`` and the ``impl`` that ran it).
+    The flash kernel writes (B, H, S, hd); its output is made contiguous in
+    (B, S, H, hd) inside ``attn.core``, so the copy the output projection
+    needed anyway counts as the attention's."""
     ct = cfg.compute_dtype
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     G = H // KV
     B, S, _ = x.shape
-    x = x.to(ct)
-
-    q = torch.einsum("bsd,dhk->bshk", x, p["w_q"].to(ct))
-    if "b_q" in p:
-        q = q + p["b_q"].to(ct)
-    # keep attention batch-parallel (heads shard only when they divide TP)
-    q = shard_hint(q, ctx, ("dp", None, "tp", None))
+    with trace.span("attn.proj"):
+        x = x.to(ct)
+        q = torch.einsum("bsd,dhk->bshk", x, p["w_q"].to(ct))
+        if "b_q" in p:
+            q = q + p["b_q"].to(ct)
+        # keep attention batch-parallel (heads shard only when they divide TP)
+        q = shard_hint(q, ctx, ("dp", None, "tp", None))
+        if cross_kv is None:
+            k = torch.einsum("bsd,dhk->bshk", x, p["w_k"].to(ct))
+            v = torch.einsum("bsd,dhk->bshk", x, p["w_v"].to(ct))
+            if "b_k" in p:
+                k = k + p["b_k"].to(ct)
+                v = v + p["b_v"].to(ct)
+            k = shard_hint(k, ctx, ("dp", None, "tp", None))
+            v = shard_hint(v, ctx, ("dp", None, "tp", None))
+            if cfg.rope_theta > 0:  # 0 = learned/absolute positions (whisper)
+                q = apply_rope(q, positions, cfg.rope_theta)
+                k = apply_rope(k, positions, cfg.rope_theta)
+            q = unshard(q, (2,)).reshape(B, S, KV, G, hd)
     if cross_kv is not None:
         k, v = cross_kv
-        out = chunked_attention(
-            unshard(q, (2,)).reshape(B, S, KV, G, hd), k, v, causal=False,
-            chunk=cfg.attention_chunk,
-        ).reshape(B, S, H, -1)
-        y = _out_proj(out, p["w_o"].to(ct))
-        return shard_hint(y, ctx, ("dp", None, None)), None
-    k = torch.einsum("bsd,dhk->bshk", x, p["w_k"].to(ct))
-    v = torch.einsum("bsd,dhk->bshk", x, p["w_v"].to(ct))
-    if "b_k" in p:
-        k = k + p["b_k"].to(ct)
-        v = v + p["b_v"].to(ct)
-    k = shard_hint(k, ctx, ("dp", None, "tp", None))
-    v = shard_hint(v, ctx, ("dp", None, "tp", None))
-    if cfg.rope_theta > 0:  # 0 = learned/absolute positions (whisper)
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
-    q = unshard(q, (2,)).reshape(B, S, KV, G, hd)
+        with trace.span("attn.core", window=0, impl=_impl(S, k.shape[1])):
+            out = chunked_attention(
+                unshard(q, (2,)).reshape(B, S, KV, G, hd), k, v, causal=False,
+                chunk=cfg.attention_chunk,
+            ).reshape(B, S, H, -1)
+        with trace.span("attn.proj"):
+            y = _out_proj(out, p["w_o"].to(ct))
+            return shard_hint(y, ctx, ("dp", None, None)), None
 
     prefill = bool(getattr(ctx, "prefill", False))
     if cache is not None and window > 0 and S > 1:
@@ -347,38 +375,47 @@ def apply_attention(
         # S > window, so attend over the prompt with the window's mask and
         # keep its last `window` keys in the ring.  Before the kernel's
         # branch: the kernel has no window.
-        out = chunked_attention(
-            q, k, v, causal=True, window=window, chunk=cfg.attention_chunk
-        )
-        new_cache = _fill_ring_cache(cache, k, v)
+        with trace.span("attn.cache"):
+            new_cache = _fill_ring_cache(cache, k, v)
+        with trace.span("attn.core", window=window, impl=_impl(S, S)):
+            out = chunked_attention(
+                q, k, v, causal=True, window=window, chunk=cfg.attention_chunk
+            ).reshape(B, S, H, -1)
     elif cache is not None and prefill and cfg.attention_impl == "pallas":
         # Prompt attention of a prefill: the kernel's causal case over the S
         # new keys (see the module docstring); they land in slots [0, S).
-        _, _, new_cache, _, _, _ = _update_kv_cache(
-            cache, k, v, positions, window, aligned=cfg.aligned_decode
-        )
-        out = _flash(q, k, v, causal=True)
+        with trace.span("attn.cache"):
+            _, _, new_cache, _, _, _ = _update_kv_cache(
+                cache, k, v, positions, window, aligned=cfg.aligned_decode
+            )
+        with trace.span("attn.core", window=window, impl="flash"):
+            out = _flash(q, k, v, causal=True).reshape(B, S, H, -1).contiguous()
     elif cache is not None:
-        k, v, new_cache, kv_len, q_offset, cache_causal = _update_kv_cache(
-            cache, k, v, positions, window, aligned=cfg.aligned_decode
-        )
-        out = chunked_attention(
-            q, k, v,
-            causal=cache_causal,
-            window=0,
-            kv_len=kv_len,
-            q_offset=q_offset,
-            chunk=cfg.attention_chunk,
-        )
+        with trace.span("attn.cache"):
+            k, v, new_cache, kv_len, q_offset, cache_causal = _update_kv_cache(
+                cache, k, v, positions, window, aligned=cfg.aligned_decode
+            )
+        with trace.span("attn.core", window=window, impl=_impl(S, k.shape[1])):
+            out = chunked_attention(
+                q, k, v,
+                causal=cache_causal,
+                window=0,
+                kv_len=kv_len,
+                q_offset=q_offset,
+                chunk=cfg.attention_chunk,
+            ).reshape(B, S, H, -1)
     else:
         new_cache = None
-        out = _maybe_pallas_attention(
-            cfg, q, k, v, causal=causal, window=window, q_offset=0, kv_len=None
-        )
+        flash = _takes_flash(cfg, window=window, q_offset=0, kv_len=None)
+        with trace.span("attn.core", window=window,
+                        impl="flash" if flash else _impl(S, S)):
+            out = _maybe_pallas_attention(
+                cfg, q, k, v, causal=causal, window=window, q_offset=0, kv_len=None
+            ).reshape(B, S, H, -1).contiguous()
 
-    out = out.reshape(B, S, H, -1)
-    y = _out_proj(out, p["w_o"].to(ct))
-    return shard_hint(y, ctx, ("dp", None, None)), new_cache
+    with trace.span("attn.proj"):
+        y = _out_proj(out, p["w_o"].to(ct))
+        return shard_hint(y, ctx, ("dp", None, None)), new_cache
 
 
 def init_kv_cache(cfg, batch: int, max_len: int, window: int = 0, *, device) -> Params:
@@ -459,47 +496,54 @@ def apply_mla(
     ct = cfg.compute_dtype
     H = cfg.num_heads
     B, S, _ = x.shape
-    x = x.to(ct)
     scale = (m.qk_nope_dim + m.qk_rope_dim) ** -0.5
 
-    q = torch.einsum("bsd,dhk->bshk", x, p["w_q"].to(ct))
-    q = shard_hint(q, ctx, ("dp", None, "tp", None))
-    q_nope, q_rope = q.split([m.qk_nope_dim, m.qk_rope_dim], dim=-1)
-    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+    with trace.span("attn.proj"):
+        x = x.to(ct)
+        q = torch.einsum("bsd,dhk->bshk", x, p["w_q"].to(ct))
+        q = shard_hint(q, ctx, ("dp", None, "tp", None))
+        q_nope, q_rope = q.split([m.qk_nope_dim, m.qk_rope_dim], dim=-1)
+        q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
 
-    ckr = x @ p["w_dkv"].to(ct)  # (B, S, r + rope)
-    c, k_rope = ckr.split([m.kv_lora_rank, m.qk_rope_dim], dim=-1)
-    k_rope = apply_rope(k_rope[:, :, None, :], positions, cfg.rope_theta)[:, :, 0]
+        ckr = x @ p["w_dkv"].to(ct)  # (B, S, r + rope)
+        c, k_rope = ckr.split([m.kv_lora_rank, m.qk_rope_dim], dim=-1)
+        k_rope = apply_rope(k_rope[:, :, None, :], positions, cfg.rope_theta)[:, :, 0]
 
     if cache is None:
         # train / cache-free forward: keys and values expanded per head
-        k_nope = torch.einsum("bsr,rhk->bshk", c, p["w_uk"].to(ct))
-        vfull = torch.einsum("bsr,rhk->bshk", c, p["w_uv"].to(ct))
-        k = torch.cat([k_nope, k_rope[:, :, None, :].expand(B, S, H, m.qk_rope_dim)], dim=-1)
-        qf = torch.cat([q_nope, q_rope], dim=-1)
-        out = chunked_attention(
-            qf.reshape(B, S, H, 1, -1), k, vfull,
-            causal=True, chunk=cfg.attention_chunk, scale=scale,
-        ).reshape(B, S, H, m.v_head_dim)
+        with trace.span("attn.core", window=0, impl=_impl(S, S)):
+            k_nope = torch.einsum("bsr,rhk->bshk", c, p["w_uk"].to(ct))
+            vfull = torch.einsum("bsr,rhk->bshk", c, p["w_uv"].to(ct))
+            k = torch.cat([k_nope, k_rope[:, :, None, :].expand(B, S, H, m.qk_rope_dim)],
+                          dim=-1)
+            qf = torch.cat([q_nope, q_rope], dim=-1)
+            out = chunked_attention(
+                qf.reshape(B, S, H, 1, -1), k, vfull,
+                causal=True, chunk=cfg.attention_chunk, scale=scale,
+            ).reshape(B, S, H, m.v_head_dim)
         new_cache = None
     else:
         # absorbed form against the latent cache
-        c_all, kr_all, new_cache, length, new_len = _update_latent_cache(cache, c, k_rope)
-        q_abs = torch.einsum("bshk,rhk->bshr", q_nope, p["w_uk"].to(ct))
-        # latent "keys" = [c, k_rope]; latent "queries" = [q_abs, q_rope]
-        k_lat = torch.cat([c_all, kr_all], dim=-1)   # (B, T, r + rope)
-        q_lat = torch.cat([q_abs, q_rope], dim=-1)   # (B, S, H, r + rope)
-        out_lat = chunked_attention(
-            q_lat[:, :, None],           # (B, S, 1 kv head, H groups, dim)
-            k_lat[:, :, None],           # one shared "kv head"
-            c_all[:, :, None],           # attend into the latent values
-            causal=True, kv_len=new_len, q_offset=length,
-            chunk=cfg.attention_chunk, scale=scale,
-        ).reshape(B, S, H, m.kv_lora_rank)
-        out = torch.einsum("bshr,rhk->bshk", out_lat, p["w_uv"].to(ct))
+        with trace.span("attn.cache"):
+            c_all, kr_all, new_cache, length, new_len = _update_latent_cache(
+                cache, c, k_rope)
+        with trace.span("attn.core", window=0, impl=_impl(S, c_all.shape[1])):
+            q_abs = torch.einsum("bshk,rhk->bshr", q_nope, p["w_uk"].to(ct))
+            # latent "keys" = [c, k_rope]; latent "queries" = [q_abs, q_rope]
+            k_lat = torch.cat([c_all, kr_all], dim=-1)   # (B, T, r + rope)
+            q_lat = torch.cat([q_abs, q_rope], dim=-1)   # (B, S, H, r + rope)
+            out_lat = chunked_attention(
+                q_lat[:, :, None],           # (B, S, 1 kv head, H groups, dim)
+                k_lat[:, :, None],           # one shared "kv head"
+                c_all[:, :, None],           # attend into the latent values
+                causal=True, kv_len=new_len, q_offset=length,
+                chunk=cfg.attention_chunk, scale=scale,
+            ).reshape(B, S, H, m.kv_lora_rank)
+            out = torch.einsum("bshr,rhk->bshk", out_lat, p["w_uv"].to(ct))
 
-    y = _out_proj(out, p["w_o"].to(ct))
-    return shard_hint(y, ctx, ("dp", None, None)), new_cache
+    with trace.span("attn.proj"):
+        y = _out_proj(out, p["w_o"].to(ct))
+        return shard_hint(y, ctx, ("dp", None, None)), new_cache
 
 
 def _update_latent_cache(cache, c, k_rope):

@@ -35,6 +35,7 @@ from repro_torch.models.common import (
     unshard,
 )
 from repro_torch.models.layers import normal_init
+from repro_torch.runtime import trace
 
 Params = dict[str, Any]
 
@@ -161,80 +162,88 @@ def apply_mamba(
     d_model: int | None = None,
     ctx: Any = None,
 ) -> tuple[torch.Tensor, Params | None]:
+    """Spans: ``ssm.scan`` around the SSD scan (the kernel, the chunked form
+    or the decode recurrence) and its state's write to the cache,
+    ``ssm.mix`` around the rest: before it the input projection, the
+    convolution and the discretization, after it the skip, the gated norm
+    and the output projection."""
     s = cfg.ssm
     ct = cfg.compute_dtype
     d = d_model or cfg.d_model
     din, H, N, K = s.d_inner(d), s.n_heads(d), s.d_state, s.d_conv
     P = s.head_dim
     B, S, _ = x.shape
-    x = x.to(ct)
+    with trace.span("ssm.mix"):
+        x = x.to(ct)
 
-    # batch rows whole along the projection: where the tokens moved (a
-    # decode step), their partial sums over the data axes reduce here, once
-    zxbcdt = shard_hint(x @ p["w_in"].to(ct), ctx, ("dp", None, None))
-    z, xs, b, c, dt = torch.split(zxbcdt, [din, din, N, N, H], dim=-1)
-    conv_in = torch.cat([xs, b, c], dim=-1)  # (B, S, din + 2N)
+        # batch rows whole along the projection: where the tokens moved (a
+        # decode step), their partial sums over the data axes reduce here, once
+        zxbcdt = shard_hint(x @ p["w_in"].to(ct), ctx, ("dp", None, None))
+        z, xs, b, c, dt = torch.split(zxbcdt, [din, din, N, N, H], dim=-1)
+        conv_in = torch.cat([xs, b, c], dim=-1)  # (B, S, din + 2N)
 
-    if cache is None:
-        conv_out = F.silu(batch_local(
-            _causal_conv, conv_in, p["conv_w"].to(ct), p["conv_b"].to(ct)
-        ))
-    else:
-        # the cached conv tail stands in for the left padding
-        full = torch.cat([cache["conv"].to(ct), conv_in], dim=1)
-        w = p["conv_w"].to(ct)  # (C, K)
-        segs = [full[:, i : i + S, :] * w[:, i] for i in range(K)]
-        conv_out = F.silu(sum(segs) + p["conv_b"].to(ct))
-        copy_into(cache["conv"], full[:, -(K - 1) :, :])
+        if cache is None:
+            conv_out = F.silu(batch_local(
+                _causal_conv, conv_in, p["conv_w"].to(ct), p["conv_b"].to(ct)
+            ))
+        else:
+            # the cached conv tail stands in for the left padding
+            full = torch.cat([cache["conv"].to(ct), conv_in], dim=1)
+            w = p["conv_w"].to(ct)  # (C, K)
+            segs = [full[:, i : i + S, :] * w[:, i] for i in range(K)]
+            conv_out = F.silu(sum(segs) + p["conv_b"].to(ct))
+            copy_into(cache["conv"], full[:, -(K - 1) :, :])
 
-    xs, b, c = torch.split(conv_out, [din, N, N], dim=-1)
-    xh = unshard(xs, (2,)).reshape(B, S, H, P)
-    dt = F.softplus(dt.float() + p["dt_bias"].float())
-    a = -torch.exp(p["a_log"].float())  # (H,) negative
-    log_decay = dt * a  # (B, S, H)
-    x_dt = xh * dt[..., None].to(ct)
-    bh = b[:, :, None, :].expand(B, S, H, N).to(ct)
-    ch = c[:, :, None, :].expand(B, S, H, N).to(ct)
+        xs, b, c = torch.split(conv_out, [din, N, N], dim=-1)
+        xh = unshard(xs, (2,)).reshape(B, S, H, P)
+        dt = F.softplus(dt.float() + p["dt_bias"].float())
+        a = -torch.exp(p["a_log"].float())  # (H,) negative
+        log_decay = dt * a  # (B, S, H)
+        x_dt = xh * dt[..., None].to(ct)
+        bh = b[:, :, None, :].expand(B, S, H, N).to(ct)
+        ch = c[:, :, None, :].expand(B, S, H, N).to(ct)
 
     # the scan is independent per batch row: on DTensors each rank scans its
     # own rows (``batch_local``), the chunk loop on local shards
-    if cache is None:
-        if cfg.attention_impl == "pallas":
-            y, _ = batch_local(functools.partial(ssd_scan, chunk=s.chunk),
-                               x_dt, log_decay.float(), bh, ch, rows=4, n_out=2)
+    with trace.span("ssm.scan"):
+        if cache is None:
+            if cfg.attention_impl == "pallas":
+                y, _ = batch_local(functools.partial(ssd_scan, chunk=s.chunk),
+                                   x_dt, log_decay.float(), bh, ch, rows=4, n_out=2)
+            else:
+                y = batch_local(functools.partial(ssd_chunked, chunk=s.chunk),
+                                x_dt, log_decay, bh, ch, rows=4)
         else:
-            y = batch_local(functools.partial(ssd_chunked, chunk=s.chunk),
-                            x_dt, log_decay, bh, ch, rows=4)
-    else:
-        state = cache["state"]
-        if S > 4 and cfg.attention_impl == "pallas":
-            # prefill through the kernel (see the module docstring)
-            y, state = batch_local(
-                functools.partial(ssd_scan, chunk=s.chunk),
-                x_dt, log_decay.float(), bh, ch, state, rows=5, n_out=2,
-            )
-        elif S > 4:  # prefill: chunked dual form carrying the recurrent state
-            y, state = batch_local(
-                functools.partial(ssd_chunked, chunk=s.chunk, return_final_state=True),
-                x_dt, log_decay, bh, ch, state, rows=5, n_out=2,
-            )
-        else:  # decode: O(1) recurrent updates
-            ys = []
-            for t in range(S):
-                y_t, state = ssd_decode_step(
-                    state, x_dt[:, t], log_decay[:, t], bh[:, t], ch[:, t]
+            state = cache["state"]
+            if S > 4 and cfg.attention_impl == "pallas":
+                # prefill through the kernel (see the module docstring)
+                y, state = batch_local(
+                    functools.partial(ssd_scan, chunk=s.chunk),
+                    x_dt, log_decay.float(), bh, ch, state, rows=5, n_out=2,
                 )
-                ys.append(y_t)
-            y = torch.stack(ys, dim=1)
-        copy_into(cache["state"], state)
+            elif S > 4:  # prefill: chunked dual form carrying the recurrent state
+                y, state = batch_local(
+                    functools.partial(ssd_chunked, chunk=s.chunk, return_final_state=True),
+                    x_dt, log_decay, bh, ch, state, rows=5, n_out=2,
+                )
+            else:  # decode: O(1) recurrent updates
+                ys = []
+                for t in range(S):
+                    y_t, state = ssd_decode_step(
+                        state, x_dt[:, t], log_decay[:, t], bh[:, t], ch[:, t]
+                    )
+                    ys.append(y_t)
+                y = torch.stack(ys, dim=1)
+            copy_into(cache["state"], state)
 
-    y = y + xh * p["d_skip"].to(ct)[None, None, :, None]
-    y = grad_in_layout(y.reshape(B, S, din))
-    # gated RMSNorm (mamba2): norm(y * silu(z))
-    g = y * F.silu(z)
-    var = (g.float() ** 2).mean(-1, keepdim=True)
-    g = (g.float() * torch.rsqrt(var + 1e-6)).to(ct) * p["norm_scale"].to(ct)
-    out = g @ p["w_out"].to(ct)
+    with trace.span("ssm.mix"):
+        y = y + xh * p["d_skip"].to(ct)[None, None, :, None]
+        y = grad_in_layout(y.reshape(B, S, din))
+        # gated RMSNorm (mamba2): norm(y * silu(z))
+        g = y * F.silu(z)
+        var = (g.float() ** 2).mean(-1, keepdim=True)
+        g = (g.float() * torch.rsqrt(var + 1e-6)).to(ct) * p["norm_scale"].to(ct)
+        out = g @ p["w_out"].to(ct)
     return out, cache
 
 

@@ -14,6 +14,12 @@ zero buffer the size of the whole stack).  ``remat`` maps to
 accumulates over the layers, as the JAX package's scan carries it.  The
 encoder-decoder family (whisper) has its own module,
 ``repro_torch.models.whisper``, and this one refuses its configs.
+
+While the tracer records (``repro_torch.runtime.trace``), ``prefill`` is a
+span with device events, which the spans inside it take too, and
+``decode_step`` one with the thread's CPU time; inside them ``embed``,
+``layer`` (group and index), ``norm``, ``mlp`` (the MoE's experts too) and
+``logits``, and the attention's and the SSM mixer's own spans.
 """
 
 from __future__ import annotations
@@ -52,6 +58,7 @@ from repro_torch.models.layers import (
     init_norm,
     logits_matmul,
 )
+from repro_torch.runtime import trace
 
 Params = dict[str, Any]
 
@@ -212,7 +219,8 @@ def _apply_layer(
     move = moves_tokens(p, ctx, nbytes(x))
     if not move:
         p = fsdp_gather(p, ctx)
-    h = apply_norm(cfg, p["ln1"], x)
+    with trace.span("norm"):
+        h = apply_norm(cfg, p["ln1"], x)
     if move:
         h = tokens_whole(h, ctx, p)
     if group.kind == "ssm":
@@ -238,14 +246,17 @@ def _apply_layer(
             window=group.window, cache=cache, ctx=ctx,
         )
     x = _pin(x + y, ctx)
-    h2 = apply_norm(cfg, p["ln2"], x)
+    with trace.span("norm"):
+        h2 = apply_norm(cfg, p["ln2"], x)
     if move:
         h2 = tokens_whole(h2, ctx, p)
-    if group.kind == "moe":
-        y2, aux = moe_mod.apply_moe(cfg, p["moe"], h2, world=ctx.mesh, decode=ctx.decode,
-                                    dp_axes=ctx.dp_axes, ep_axis=ctx.ep_axis)
-        return _pin(x + y2, ctx), aux
-    return _pin(x + apply_mlp(cfg, p["mlp"], h2), ctx), None
+    with trace.span("mlp"):
+        if group.kind == "moe":
+            y2, aux = moe_mod.apply_moe(cfg, p["moe"], h2, world=ctx.mesh, decode=ctx.decode,
+                                        dp_axes=ctx.dp_axes, ep_axis=ctx.ep_axis)
+        else:
+            y2, aux = apply_mlp(cfg, p["mlp"], h2), None
+    return _pin(x + y2, ctx), aux
 
 
 def _pin(x: torch.Tensor, ctx: RunCtx) -> torch.Tensor:
@@ -306,7 +317,8 @@ def _run_group(
     for i in range(group.count):
         lp = _tree_map(lambda ts: ts[i], layers)
         lcache = None if gcache is None else _tree_map(lambda t: t[i], gcache)
-        x, aux_i = apply(cfg, group, lp, x, positions, lcache, ctx)
+        with trace.span("layer", group=group.name, index=i):
+            x, aux_i = apply(cfg, group, lp, x, positions, lcache, ctx)
         if aux_i is not None:
             aux = aux_i if aux is None else aux + aux_i
     return x, aux
@@ -330,8 +342,9 @@ def forward(
     """
     _refuse_encoder_decoder(cfg)
     B, S = tokens.shape
-    x = _embed(cfg, params["embedding"]["embed"], tokens, ctx)
-    x = shard_hint(x, ctx, ("dp", None, None))
+    with trace.span("embed"):
+        x = _embed(cfg, params["embedding"]["embed"], tokens, ctx)
+        x = shard_hint(x, ctx, ("dp", None, None))
     if patch_embeds is not None and S >= patch_embeds.shape[1]:
         n_img = patch_embeds.shape[1]
         x = torch.cat([patch_embeds.to(x.dtype), x[:, n_img:]], dim=1)
@@ -344,7 +357,8 @@ def forward(
         x, g_aux = _run_group(cfg, group, params[group.name], x, positions, gcache, ctx)
         if g_aux is not None:
             aux = aux + g_aux
-    x = apply_norm(cfg, params["final_norm"], x)
+    with trace.span("norm"):
+        x = apply_norm(cfg, params["final_norm"], x)
     return x, cache, aux
 
 
@@ -428,10 +442,11 @@ def decode_step(
     ctx: RunCtx = RunCtx(),
 ) -> tuple[torch.Tensor, Params]:
     ctx = dataclasses.replace(ctx, decode=True, prefill=False)
-    x, new_cache, _ = forward(
-        cfg, params, tokens, positions=positions, cache=cache, ctx=ctx
-    )
-    return _last_logits(cfg, params, x, ctx), new_cache
+    with trace.span("decode_step", device=False, cpu=True):
+        x, new_cache, _ = forward(
+            cfg, params, tokens, positions=positions, cache=cache, ctx=ctx
+        )
+        return _last_logits(cfg, params, x, ctx), new_cache
 
 
 def _embed(cfg: ModelConfig, table: torch.Tensor, ids: torch.Tensor, ctx: RunCtx):
@@ -447,13 +462,14 @@ def _embed(cfg: ModelConfig, table: torch.Tensor, ids: torch.Tensor, ctx: RunCtx
 def _last_logits(cfg: ModelConfig, params: Params, x: torch.Tensor, ctx: RunCtx):
     """The logits of the last position; the output embedding stays in its
     FSDP shards and the rows move where they are far fewer bytes."""
-    x = x[:, -1:]
-    emb = params["embedding"]
-    if moves_tokens(emb, ctx, nbytes(x)):
-        x = tokens_whole(x, ctx, emb)
-    else:
-        emb = fsdp_gather(emb, ctx)
-    return logits_matmul(cfg, emb, x)
+    with trace.span("logits"):
+        x = x[:, -1:]
+        emb = params["embedding"]
+        if moves_tokens(emb, ctx, nbytes(x)):
+            x = tokens_whole(x, ctx, emb)
+        else:
+            emb = fsdp_gather(emb, ctx)
+        return logits_matmul(cfg, emb, x)
 
 
 def prefill(
@@ -466,10 +482,11 @@ def prefill(
 ) -> tuple[torch.Tensor, Params]:
     """Run the full prompt through the model, filling the (empty) cache."""
     B, S = tokens.shape
-    positions = torch.arange(S, device=tokens.device)[None, :].expand(B, S)
     ctx = dataclasses.replace(ctx, prefill=True)
-    x, new_cache, _ = forward(
-        cfg, params, tokens, positions=positions, cache=cache, ctx=ctx,
-        patch_embeds=patch_embeds,
-    )
-    return _last_logits(cfg, params, x, ctx), new_cache
+    with trace.span("prefill", device=True):
+        positions = torch.arange(S, device=tokens.device)[None, :].expand(B, S)
+        x, new_cache, _ = forward(
+            cfg, params, tokens, positions=positions, cache=cache, ctx=ctx,
+            patch_embeds=patch_embeds,
+        )
+        return _last_logits(cfg, params, x, ctx), new_cache

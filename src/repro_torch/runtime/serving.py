@@ -16,8 +16,14 @@ immediately and the rejection is counted -- saturated servers keep their
 latency distribution bounded instead of growing an unbounded backlog.
 
 Per-request latency (queue wait and total) is recorded and surfaced via
-``stats()`` as p50/p99, which is what ``benchmarks/serving.py`` reports
-for the batched-vs-unbatched comparison.
+``stats()`` as p50/p99 over the window since ``reset_stats()`` (so that a
+caller leaves its warm-up out), on the clock of the port's tracer
+(``time.perf_counter_ns``, :mod:`repro_torch.runtime.trace`).  While the
+tracer records, the server adds its own spans: ``serve.queue`` for each
+request from ``submit`` to its batch's start and ``serve.reply`` from the
+batch function's return until the request's reply has been sent (both with
+the request's key), and ``serve.batch`` around the batch function, with its
+requests' keys and the batcher thread's CPU time.
 
 ``attach(consumer, producer)`` pumps a request stream through the server
 and emits responses to a reply stream, so the whole service composes out
@@ -34,6 +40,7 @@ from collections import deque
 from concurrent.futures import Future
 from typing import Any, Callable, Sequence
 
+from repro_torch.runtime import trace
 from repro_torch.runtime.stream import EndOfStream, StreamClosed
 
 _LAT_WINDOW = 4096  # per-request latency samples kept for percentiles
@@ -52,14 +59,15 @@ def _percentile(samples: Sequence[float], q: float) -> float:
 
 
 class _Request:
-    __slots__ = ("payload", "metadata", "future", "t_submit", "t_start")
+    __slots__ = ("payload", "metadata", "key", "future", "t_submit", "t_start")
 
-    def __init__(self, payload: Any, metadata: dict[str, Any]):
+    def __init__(self, payload: Any, metadata: dict[str, Any], key: str | None):
         self.payload = payload
         self.metadata = metadata
+        self.key = key
         self.future: Future = Future()
-        self.t_submit = time.monotonic()
-        self.t_start = 0.0
+        self.t_submit = time.perf_counter_ns()
+        self.t_start = 0
 
 
 class ModelServer:
@@ -97,6 +105,8 @@ class ModelServer:
         self._batched_requests = 0
         self._queue_ms: deque[float] = deque(maxlen=_LAT_WINDOW)
         self._total_ms: deque[float] = deque(maxlen=_LAT_WINDOW)
+        # the counters' values at the last reset_stats()
+        self._base = {"requests": 0, "rejected": 0, "batches": 0, "served": 0}
 
         self._pumps: list[threading.Thread] = []
         self._batcher = threading.Thread(
@@ -106,14 +116,18 @@ class ModelServer:
 
     # -- admission -----------------------------------------------------------
 
-    def submit(self, payload: Any, metadata: dict[str, Any] | None = None) -> Future:
+    def submit(
+        self, payload: Any, metadata: dict[str, Any] | None = None, *, key: str | None = None
+    ) -> Future:
         """Admit one request; the Future resolves to its model output.
 
-        Raises :class:`ServerOverloaded` (and counts the shed) when the
-        admission queue is at ``queue_depth`` -- the caller decides
-        whether to retry, back off, or surface the rejection.
+        ``key`` names the request in the tracer's spans (the stream item's
+        key when ``attach`` submits).  Raises :class:`ServerOverloaded` (and
+        counts the shed) when the admission queue is at ``queue_depth`` --
+        the caller decides whether to retry, back off, or surface the
+        rejection.
         """
-        req = _Request(payload, dict(metadata or {}))
+        req = _Request(payload, dict(metadata or {}), key)
         with self._cond:
             if self._closed:
                 raise StreamClosed("model server closed")
@@ -138,15 +152,15 @@ class ModelServer:
                 self._cond.wait(0.1)
             if not self._queue:
                 return None  # closed and drained
-            deadline = self._queue[0].t_submit + window
-            now = time.monotonic()
+            deadline = self._queue[0].t_submit / 1e9 + window
+            now = time.perf_counter()
             while (
                 len(self._queue) < self.max_batch_size
                 and not self._closed
                 and now < deadline
             ):
                 self._cond.wait(deadline - now)
-                now = time.monotonic()
+                now = time.perf_counter()
             batch = []
             while self._queue and len(batch) < self.max_batch_size:
                 batch.append(self._queue.popleft())
@@ -158,17 +172,19 @@ class ModelServer:
             batch = self._take_batch()
             if batch is None:
                 return
-            t0 = time.monotonic()
+            t0 = time.perf_counter_ns()
             for req in batch:
                 req.t_start = t0
+                trace.add("serve.queue", req.t_submit, t0, key=req.key)
             try:
-                outputs = self.model_fn([r.payload for r in batch])
+                with trace.span("serve.batch", cpu=True, keys=[r.key for r in batch]):
+                    outputs = self.model_fn([r.payload for r in batch])
             except BaseException as exc:  # noqa: BLE001 - fail the whole batch
                 for req in batch:
                     req.future.set_exception(exc)
                 self._count_batch(batch, failed=True)
                 continue
-            t1 = time.monotonic()
+            t1 = time.perf_counter_ns()
             if len(outputs) != len(batch):
                 exc = RuntimeError(
                     f"model_fn returned {len(outputs)} outputs for a "
@@ -179,11 +195,12 @@ class ModelServer:
                 self._count_batch(batch, failed=True)
                 continue
             for req, out in zip(batch, outputs):
-                req.future.set_result(out)
+                req.future.set_result(out)  # runs the reply's done callback
+                trace.add("serve.reply", t1, time.perf_counter_ns(), key=req.key)
             self._count_batch(batch, t_done=t1)
 
     def _count_batch(
-        self, batch: list[_Request], *, failed: bool = False, t_done: float = 0.0
+        self, batch: list[_Request], *, failed: bool = False, t_done: int = 0
     ) -> None:
         """Record a processed batch -- only after its futures resolved.
 
@@ -197,8 +214,8 @@ class ModelServer:
             self._batched_requests += len(batch)
             if not failed:
                 for req in batch:
-                    self._queue_ms.append((req.t_start - req.t_submit) * 1000.0)
-                    self._total_ms.append((t_done - req.t_submit) * 1000.0)
+                    self._queue_ms.append((req.t_start - req.t_submit) / 1e6)
+                    self._total_ms.append((t_done - req.t_submit) / 1e6)
 
     # -- stream pumping ------------------------------------------------------
 
@@ -225,7 +242,7 @@ class ModelServer:
             try:
                 for item in consumer:
                     try:
-                        fut = self.submit(item.value, metadata=item.metadata)
+                        fut = self.submit(item.value, metadata=item.metadata, key=item.key)
                     except ServerOverloaded as exc:
                         _emit(item.key, "rejected", str(exc))
                         continue
@@ -250,16 +267,28 @@ class ModelServer:
 
     # -- telemetry / lifecycle -----------------------------------------------
 
+    def reset_stats(self) -> None:
+        """Start the window ``stats()`` reports: its counts and latency
+        samples from now on (a caller's warm-up left out)."""
+        with self._cond:
+            self._queue_ms.clear()
+            self._total_ms.clear()
+            self._base = {"requests": self._requests, "rejected": self._rejected,
+                          "batches": self._batches, "served": self._batched_requests}
+
     def stats(self) -> dict[str, float]:
+        """Counts and latency percentiles since the last ``reset_stats()``
+        (since construction without one)."""
         with self._cond:
             queue_ms = list(self._queue_ms)
             total_ms = list(self._total_ms)
-            batches = self._batches
-            served = self._batched_requests
+            base = self._base
+            batches = self._batches - base["batches"]
+            served = self._batched_requests - base["served"]
             return {
-                "requests": self._requests,
+                "requests": self._requests - base["requests"],
                 "served": served,
-                "rejected": self._rejected,
+                "rejected": self._rejected - base["rejected"],
                 "batches": batches,
                 "pending": len(self._queue),
                 "mean_batch": (served / batches) if batches else 0.0,

@@ -25,6 +25,7 @@ from repro.kernels.fingerprint.ref import fingerprint_ref as jax_ref
 from repro_torch.kernels.fingerprint import kernel as fp_kernel
 from repro_torch.kernels.fingerprint import ops as fp_ops
 from repro_torch.kernels.fingerprint import ref as fp_ref
+from repro_torch.runtime import trace
 
 torch.set_num_threads(1)
 
@@ -60,11 +61,11 @@ def test_plain_version_matches_jax_oracle_and_kernel(n):
 @pytest.mark.parametrize("n", SIZES)
 def test_wrapper_on_cpu_matches_jax_kernel(n):
     data = _bytes(n, seed=n + 1)
-    fp_ops.launch_count = 0
+    trace.reset_counts(fp_ops.LAUNCHES)
     ours = fp_ops.fingerprint(torch.from_numpy(data))
     assert ours.device.type == "cpu" and ours.dtype == torch.uint32
     np.testing.assert_array_equal(ours.numpy(), np.asarray(jax_fingerprint(jnp.asarray(data))))
-    assert fp_ops.launch_count == 0  # CPU tensors never launch the kernel
+    assert trace.counter(fp_ops.LAUNCHES) == 0  # CPU tensors never launch the kernel
 
 
 @pytest.mark.parametrize("blocks_per_chunk", [1, 3, 7])
@@ -246,7 +247,7 @@ def launcher(monkeypatch):
         return torch.zeros(2, dtype=torch.int32, device=data.device).view(torch.uint32)
 
     monkeypatch.setattr(fp_ops, "fingerprint_fwd", fake)
-    fp_ops.launch_count = 0
+    trace.reset_counts(fp_ops.LAUNCHES)
     return seen
 
 
@@ -255,7 +256,7 @@ def test_dense_tensor_reaches_the_launcher_as_an_unpadded_byte_view(launcher):
     x = torch.empty((37, 129), device="meta")
     out = fp_ops.fingerprint(x)
     data = launcher["data"]
-    assert fp_ops.launch_count == 1
+    assert trace.counter(fp_ops.LAUNCHES) == 1
     assert data.dtype == torch.uint8 and data.dim() == 1 and data.stride() == (1,)
     assert data.numel() == 37 * 129 * 4  # the byte length, no padding to 4096
     assert _same_storage(data, x)  # a view: nothing copied
@@ -286,7 +287,7 @@ def test_non_dense_and_64bit_tensors_reach_the_launcher_made_dense(launcher):
     assert not _same_storage(launcher["data"], x)  # the row-major copy
     fp_ops.fingerprint(torch.empty(50, dtype=torch.float64, device="meta"))
     assert launcher["data"].numel() == 50 * 4  # narrowed to float32
-    assert fp_ops.launch_count == 2
+    assert trace.counter(fp_ops.LAUNCHES) == 2
 
 
 def test_kernel_launcher_refuses_non_cuda_tensors():

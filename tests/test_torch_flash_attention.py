@@ -24,6 +24,7 @@ from repro.kernels.flash_attention.ref import attention_ref as jax_ref
 from repro_torch.kernels.flash_attention import kernel as fa_kernel
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.runtime import trace
 
 torch.set_num_threads(1)
 
@@ -83,12 +84,12 @@ def test_plain_version_matches_jax_oracle(shape, dname):
 def test_wrapper_on_cpu_matches_jax_kernel(shape, dname):
     (jq, jk, jv), (tq, tk, tv) = _both(_inputs(shape, seed=1), dname)
     causal = shape[-1]
-    fa_ops.launch_count = 0
+    trace.reset_counts(fa_ops.LAUNCHES)
     out = fa_ops.flash_attention_gqa(tq, tk, tv, causal=causal, block_q=64, block_k=64)
     ref = jax_flash(jq, jk, jv, causal=causal, block_q=64, block_k=64)
     assert out.shape == tuple(ref.shape) and out.dtype == DTYPES[dname][1]
     _close(out, ref, TOL[dname])
-    assert fa_ops.launch_count == 0  # CPU tensors never launch the kernel
+    assert trace.counter(fa_ops.LAUNCHES) == 0  # CPU tensors never launch the kernel
 
 
 def test_custom_scale_matches_jax():
@@ -240,9 +241,9 @@ def test_non_cpu_tensors_go_to_the_launcher(monkeypatch):
 
     monkeypatch.setattr(fa_ops, "flash_attention_fwd", launcher)
     q, k, v = _model_views(1, 4, 2, 16, 64, torch.bfloat16, "meta")
-    fa_ops.launch_count = 0
+    trace.reset_counts(fa_ops.LAUNCHES)
     out = fa_ops.flash_attention_gqa(q, k, v)
-    assert fa_ops.launch_count == 1 and out.shape == q.shape
+    assert trace.counter(fa_ops.LAUNCHES) == 1 and out.shape == q.shape
     assert seen["q"] is q and seen["k"] is k and seen["v"] is v
     assert seen["causal"] is True and seen["scale"] == 64**-0.5
 
@@ -259,13 +260,13 @@ def test_non_cpu_inputs_that_need_grad_raise(monkeypatch, needs_grad):
     q, k, v = _model_views(1, 4, 2, 16, 64, torch.bfloat16, "meta")
     inputs = {"q": q, "k": k, "v": v}
     inputs[needs_grad] = inputs[needs_grad].detach().requires_grad_()
-    fa_ops.launch_count = 0
+    trace.reset_counts(fa_ops.LAUNCHES)
     with pytest.raises(RuntimeError, match="no backward"):
         fa_ops.flash_attention_gqa(**inputs)
-    assert launched == [] and fa_ops.launch_count == 0
+    assert launched == [] and trace.counter(fa_ops.LAUNCHES) == 0
     with torch.no_grad():
         fa_ops.flash_attention_gqa(**inputs)
-    assert launched == [1] and fa_ops.launch_count == 1
+    assert launched == [1] and trace.counter(fa_ops.LAUNCHES) == 1
 
     cpu = {n: torch.randn(1, 4 if n == "q" else 2, 16, 64) for n in "qkv"}
     cpu[needs_grad].requires_grad_()
@@ -299,12 +300,13 @@ def test_wrapper_on_cpu_matches_jax_kernel_at_every_head_dim_and_dtype(hd, dname
     kernel (interpret mode), which takes them all."""
     shape = (1, 4, 2, 40, 40, hd, causal)
     (jq, jk, jv), (tq, tk, tv) = _both(_inputs(shape, seed=hd), dname)
-    fa_ops.launch_count = fa_ops.pad_count = 0
+    trace.reset_counts(fa_ops.LAUNCHES, fa_ops.PADS)
     out = fa_ops.flash_attention_gqa(tq, tk, tv, causal=causal)
     ref = jax_flash(jq, jk, jv, causal=causal, block_q=64, block_k=64)
     assert out.shape == tuple(ref.shape) and out.dtype == CONTRACT_DTYPES[dname][1]
     _close(out, ref, CONTRACT_TOL[dname])
-    assert fa_ops.launch_count == fa_ops.pad_count == 0  # the plain version pads nothing
+    # the plain version pads nothing
+    assert trace.counter(fa_ops.LAUNCHES) == trace.counter(fa_ops.PADS) == 0
 
 
 @pytest.mark.parametrize("hd, width", [(8, 16), (40, 64), (72, 80), (112, 128), (160, 256)])
@@ -444,9 +446,10 @@ def test_new_instances_take_the_model_views_uncopied(monkeypatch, hd, dtype):
     q, k, v = _model_views(1, 4, 2, 16, hd, dtype, "meta")
     assert all(fa_kernel.tma_ready(t) for t in (q, k, v))
     assert fa_kernel.kernel_inputs(q, k, v) == (q, k, v)
-    fa_ops.launch_count = fa_ops.pad_count = 0
+    trace.reset_counts(fa_ops.LAUNCHES, fa_ops.PADS)
     out = fa_ops.flash_attention_gqa(q, k, v)
-    assert (fa_ops.launch_count, fa_ops.pad_count) == (1, 0) and out.shape == q.shape
+    assert (trace.counter(fa_ops.LAUNCHES), trace.counter(fa_ops.PADS)) == (1, 0)
+    assert out.shape == q.shape
     assert seen["q"] is q and seen["k"] is k and seen["v"] is v and seen["scale"] == hd**-0.5
     out_args = fa_kernel.kernel_args(q, k, v, torch.empty_like(q))
     assert out_args[0] == fa_kernel._DTYPES[dtype] and out_args[6] == hd
@@ -465,9 +468,9 @@ def test_padded_head_dims_reach_the_launcher_padded(monkeypatch, hd, width):
 
     monkeypatch.setattr(fa_ops, "flash_attention_fwd", launcher)
     q, k, v = _model_views(1, 4, 2, 16, hd, torch.bfloat16, "meta")
-    fa_ops.launch_count = fa_ops.pad_count = 0
+    trace.reset_counts(fa_ops.LAUNCHES, fa_ops.PADS)
     out = fa_ops.flash_attention_gqa(q, k, v)
-    assert (fa_ops.launch_count, fa_ops.pad_count) == (1, 1)
+    assert (trace.counter(fa_ops.LAUNCHES), trace.counter(fa_ops.PADS)) == (1, 1)
     assert out.shape == q.shape and seen["scale"] == hd**-0.5
     for name, t in (("q", q), ("k", k), ("v", v)):
         got = seen[name]
@@ -489,9 +492,9 @@ def test_head_dims_over_256_raise_before_the_launcher(monkeypatch, hd, dtype):
 
     monkeypatch.setattr(fa_ops, "flash_attention_fwd", launcher)
     q, k, v = _model_views(1, 4, 2, 16, hd, dtype, "meta")
-    fa_ops.launch_count = fa_ops.pad_count = 0
+    trace.reset_counts(fa_ops.LAUNCHES, fa_ops.PADS)
     out = fa_ops.flash_attention_gqa(q, k, v)
-    assert (fa_ops.launch_count, fa_ops.pad_count) == (1, 0) and len(seen) == 1
+    assert (trace.counter(fa_ops.LAUNCHES), trace.counter(fa_ops.PADS)) == (1, 0) and len(seen) == 1
     got_q, got_k, got_v, scale = seen[0]
     assert got_q is q and got_k is k and got_v is v and scale == hd**-0.5
     assert out.shape == q.shape
@@ -536,9 +539,9 @@ def test_wrapper_on_cpu_matches_jax_kernel_over_256(hd, causal):
     kernel), against the JAX kernel in interpret mode, in float32."""
     shape = (1, 4, 2, 40, 40, hd, causal)
     (jq, jk, jv), (tq, tk, tv) = _both(_inputs(shape, seed=hd), "float32")
-    fa_ops.launch_count = fa_ops.pad_count = 0
+    trace.reset_counts(fa_ops.LAUNCHES, fa_ops.PADS)
     out = fa_ops.flash_attention_gqa(tq, tk, tv, causal=causal)
     ref = jax_flash(jq, jk, jv, causal=causal, block_q=16, block_k=16)
     assert out.shape == tuple(ref.shape) and out.dtype == torch.float32
     _close(out, ref, TOL["float32"])
-    assert fa_ops.launch_count == fa_ops.pad_count == 0
+    assert trace.counter(fa_ops.LAUNCHES) == trace.counter(fa_ops.PADS) == 0

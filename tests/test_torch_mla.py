@@ -25,6 +25,7 @@ from repro_torch import bridge
 from repro_torch.configs import get_smoke_config
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.models import attention as tattn
+from repro_torch.runtime import trace
 
 torch.set_num_threads(1)
 
@@ -79,9 +80,9 @@ def test_apply_mla_expanded_matches_jax(impl, start):
     jcfg, tcfg, jp, tp = _setup(impl)
     x, pos = _x(jcfg, 0), _positions(start)
     jy, jc = jattn.apply_mla(jcfg, jp, jnp.asarray(x), positions=jnp.asarray(pos))
-    fa_ops.launch_count = 0
+    trace.reset_counts(fa_ops.LAUNCHES)
     ty, tc = tattn.apply_mla(tcfg, tp, torch.from_numpy(x), positions=torch.from_numpy(pos).long())
-    assert jc is None and tc is None and fa_ops.launch_count == 0
+    assert jc is None and tc is None and trace.counter(fa_ops.LAUNCHES) == 0
     _close(ty, jy)
 
 
@@ -94,7 +95,7 @@ def test_apply_mla_absorbed_prefill_and_decode_match_jax():
     tcache = tattn.init_mla_cache(tcfg, B, size, device="cpu")
     buffers = dict(tcache)
     steps = [(0, S)] + [(S + i, 1) for i in range(3)]
-    fa_ops.launch_count = 0
+    trace.reset_counts(fa_ops.LAUNCHES)
     for i, (start, s) in enumerate(steps):
         x, pos = _x(jcfg, 10 + i, s), _positions(start, s)
         jy, jcache = jattn.apply_mla(jcfg, jp, jnp.asarray(x), positions=jnp.asarray(pos),
@@ -106,7 +107,7 @@ def test_apply_mla_absorbed_prefill_and_decode_match_jax():
         for name in ("c", "k_rope"):
             _close(tcache[name], jcache[name])
         np.testing.assert_array_equal(tcache["length"].numpy(), np.asarray(jcache["length"]))
-    assert fa_ops.launch_count == 0
+    assert trace.counter(fa_ops.LAUNCHES) == 0
     np.testing.assert_array_equal(tcache["length"].numpy(), [S + 3] * B)
     assert not tcache["c"][:, S + 3:].any()
 

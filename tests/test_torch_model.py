@@ -43,6 +43,7 @@ from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.models import attention as tattn
 from repro_torch.models import transformer as tx
+from repro_torch.runtime import trace
 
 torch.set_num_threads(1)
 
@@ -106,11 +107,12 @@ def test_forward_matches_jax(arch, impl):
     jcfg, tcfg, jp, tp = _setup(arch, impl)
     toks = _tokens(jcfg)
     jout, _, jaux = jtx.forward(jcfg.replace(attention_impl=impl), jp, jnp.asarray(toks))
-    fa_ops.launch_count = ssd_ops.launch_count = 0
+    trace.reset_counts(fa_ops.LAUNCHES, ssd_ops.LAUNCHES)
     tout, cache, aux = tx.forward(tcfg, tp, torch.from_numpy(toks).long())
     assert cache is None and aux.shape == () and aux.dtype == torch.float32
     assert (float(aux) == 0.0) == (tcfg.moe is None)  # the MoE layers' router loss
-    assert fa_ops.launch_count == ssd_ops.launch_count == 0  # CPU: the plain versions
+    # CPU: the plain versions
+    assert trace.counter(fa_ops.LAUNCHES) == trace.counter(ssd_ops.LAUNCHES) == 0
     _close(tout, jout)
     _close(aux, jaux)
 
@@ -203,9 +205,9 @@ def test_mamba_prefill_logits_and_cache_match_jax_reference(impl):
     toks = _tokens(jcfg, seed=1)
     jl, jcache = jtx.prefill(jcfg, jp, jnp.asarray(toks), jtx.init_cache(jcfg, B, S + 8))
     tcache = tx.init_cache(tcfg, B, S + 8, device="cpu")
-    ssd_ops.launch_count = 0
+    trace.reset_counts(ssd_ops.LAUNCHES)
     tl, tcache2 = tx.prefill(tcfg, tp, torch.from_numpy(toks).long(), tcache)
-    assert tcache2 is tcache and ssd_ops.launch_count == 0
+    assert tcache2 is tcache and trace.counter(ssd_ops.LAUNCHES) == 0
     _close(tl, jl, **tol)
     for name in ("conv", "state"):
         assert tcache["layers"][name].shape == jcache["layers"][name].shape
@@ -337,9 +339,10 @@ def test_hymba_prefill_logits_and_cache_match_jax_reference(impl):
     toks = _tokens(jcfg, seed=1)
     jl, jcache = jtx.prefill(jcfg, jp, jnp.asarray(toks), jtx.init_cache(jcfg, B, S + 8))
     tcache = tx.init_cache(tcfg, B, S + 8, device="cpu")
-    fa_ops.launch_count = ssd_ops.launch_count = 0
+    trace.reset_counts(fa_ops.LAUNCHES, ssd_ops.LAUNCHES)
     tl, tcache2 = tx.prefill(tcfg, tp, torch.from_numpy(toks).long(), tcache)
-    assert tcache2 is tcache and fa_ops.launch_count == ssd_ops.launch_count == 0
+    assert tcache2 is tcache
+    assert trace.counter(fa_ops.LAUNCHES) == trace.counter(ssd_ops.LAUNCHES) == 0
     _close(tl, jl, **tol)
     _close_cache(tcache, jcache, **tol)
     assert tcache["local1"]["attn"]["length"].eq(S).all()
@@ -541,9 +544,9 @@ def test_moe_prefill_logits_and_cache_match_jax_reference(arch, impl):
     toks = _tokens(jcfg, seed=1)
     jl, jcache = jtx.prefill(jcfg, jp, jnp.asarray(toks), jtx.init_cache(jcfg, B, S + 8))
     tcache = tx.init_cache(tcfg, B, S + 8, device="cpu")
-    fa_ops.launch_count = 0
+    trace.reset_counts(fa_ops.LAUNCHES)
     tl, tcache2 = tx.prefill(tcfg, tp, torch.from_numpy(toks).long(), tcache)
-    assert tcache2 is tcache and fa_ops.launch_count == 0
+    assert tcache2 is tcache and trace.counter(fa_ops.LAUNCHES) == 0
     _close(tl, jl)
     _close_groups(tcache, jcache)
     assert tcache["moe"]["length"].eq(S).all()
@@ -677,7 +680,7 @@ def test_mamba_at_chunk_256_matches_jax_through_the_kernel_path(path):
     tcfg = tcfg.replace(ssm=dataclasses.replace(tcfg.ssm, chunk=256))
     assert tcfg.ssm.chunk == 256
     toks = _tokens(jcfg, seed=3, shape=(B, 300))
-    ssd_ops.launch_count = 0
+    trace.reset_counts(ssd_ops.LAUNCHES)
     if path == "forward":
         jout, _, _ = jtx.forward(jcfg, jp, jnp.asarray(toks))
         tout, _, _ = tx.forward(tcfg, tp, torch.from_numpy(toks).long())
@@ -689,7 +692,7 @@ def test_mamba_at_chunk_256_matches_jax_through_the_kernel_path(path):
         _close(tl, jl)
         for name in ("conv", "state"):
             _close(tcache["layers"][name], jcache["layers"][name])
-    assert ssd_ops.launch_count == 0  # CPU: the plain version
+    assert trace.counter(ssd_ops.LAUNCHES) == 0  # CPU: the plain version
 
 
 @pytest.mark.parametrize("path", ["forward", "prefill"])
@@ -701,7 +704,7 @@ def test_qwen_in_float16_matches_jax_through_the_flash_path(path):
     jcfg = jcfg.replace(compute_dtype=jnp.float16, attention_impl="pallas")
     tcfg = tcfg.replace(compute_dtype=torch.float16)
     toks = _tokens(jcfg, seed=4)
-    fa_ops.launch_count = 0
+    trace.reset_counts(fa_ops.LAUNCHES)
     if path == "forward":
         jout, _, _ = jtx.forward(jcfg, jp, jnp.asarray(toks))
         tout, _, _ = tx.forward(tcfg, tp, torch.from_numpy(toks).long())
@@ -715,4 +718,4 @@ def test_qwen_in_float16_matches_jax_through_the_flash_path(path):
         for name in ("k", "v"):
             assert tcache["layers"][name].dtype == torch.float16
             _close(tcache["layers"][name], jcache["layers"][name], **F16_TOL)
-    assert fa_ops.launch_count == 0
+    assert trace.counter(fa_ops.LAUNCHES) == 0

@@ -26,6 +26,7 @@ from repro.kernels.ssd_scan.ref import ssd_scan_ref as jax_ref
 from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
+from repro_torch.runtime import trace
 
 torch.set_num_threads(1)
 
@@ -106,14 +107,14 @@ def test_plain_version_matches_jax_oracle(shape, dname):
 def test_wrapper_on_cpu_matches_jax_kernel(shape, dname):
     chunk = shape[-1]
     (jx, ja, jb, jc, js), (tx, ta, tb, tc, ts) = _both(_inputs(shape, seed=1), dname)
-    ssd_ops.launch_count = 0
+    trace.reset_counts(ssd_ops.LAUNCHES)
     y, sf = ssd_ops.ssd_scan(tx, ta, tb, tc, ts, chunk=chunk)
     yr, sr = jax_scan(jx, ja, jb, jc, js, chunk=chunk)
     assert y.shape == tuple(yr.shape) and y.dtype == DTYPES[dname][1]
     assert sf.shape == tuple(sr.shape) and sf.dtype == torch.float32
     _close(y, yr, TOL[dname])
     _close(sf, sr, TOL[dname])
-    assert ssd_ops.launch_count == 0  # CPU tensors never launch the kernel
+    assert trace.counter(ssd_ops.LAUNCHES) == 0  # CPU tensors never launch the kernel
 
 
 def _f32(shape, seed):
@@ -194,9 +195,9 @@ def test_non_cpu_tensors_go_to_the_launcher(monkeypatch, S, chunk, expect):
     B, H, P, N = 2, 3, 16, 8
     x = torch.empty((B, S, H, P), device="meta")
     b = torch.empty((B, S, 1, N), device="meta").expand(B, S, H, N)
-    ssd_ops.launch_count = 0
+    trace.reset_counts(ssd_ops.LAUNCHES)
     y, sf = ssd_ops.ssd_scan(x, torch.empty((B, S, H), device="meta"), b, b, chunk=chunk)
-    assert ssd_ops.launch_count == 1
+    assert trace.counter(ssd_ops.LAUNCHES) == 1
     assert seen["chunk"] == expect
     assert seen["b"].stride() == b.stride() and seen["x"] is x
     assert seen["a"].dtype == torch.float32 and seen["s0"].shape == (B * H, P, N)
@@ -221,13 +222,13 @@ def test_non_cpu_inputs_that_need_grad_raise(monkeypatch, needs_grad):
               "initial_state": (B, H, P, N)}
     meta = {n: torch.empty(s, device="meta") for n, s in shapes.items()}
     meta[needs_grad].requires_grad_()
-    ssd_ops.launch_count = 0
+    trace.reset_counts(ssd_ops.LAUNCHES)
     with pytest.raises(RuntimeError, match="no backward"):
         ssd_ops.ssd_scan(**meta, chunk=8)
-    assert launched == [] and ssd_ops.launch_count == 0
+    assert launched == [] and trace.counter(ssd_ops.LAUNCHES) == 0
     with torch.no_grad():
         ssd_ops.ssd_scan(**meta, chunk=8)
-    assert launched == [1] and ssd_ops.launch_count == 1
+    assert launched == [1] and trace.counter(ssd_ops.LAUNCHES) == 1
 
     g = torch.Generator().manual_seed(0)
     cpu = {n: torch.randn(s, generator=g) * 0.3 for n, s in shapes.items()}
@@ -395,14 +396,14 @@ def test_wrapper_on_cpu_matches_jax_kernel_past_128(shape, dname):
     the JAX kernel (interpret mode), which takes them all."""
     chunk = shape[-1]
     (jx, ja, jb, jc, js), (tx, ta, tb, tc, ts) = _both(_inputs(shape, seed=8), dname)
-    ssd_ops.launch_count = ssd_ops.tile_sum_count = 0
+    trace.reset_counts(ssd_ops.LAUNCHES, ssd_ops.TILE_SUMS)
     y, sf = ssd_ops.ssd_scan(tx, ta, tb, tc, ts, chunk=chunk)
     yr, sr = jax_scan(jx, ja, jb, jc, js, chunk=chunk)
     assert y.shape == tuple(yr.shape) and y.dtype == CONTRACT_DTYPES[dname][1]
     assert sf.dtype == torch.float32
     _close(y, yr, CONTRACT_TOL[dname])
     _close(sf, sr, CONTRACT_TOL[dname])
-    assert ssd_ops.launch_count == ssd_ops.tile_sum_count == 0
+    assert trace.counter(ssd_ops.LAUNCHES) == trace.counter(ssd_ops.TILE_SUMS) == 0
 
 
 @pytest.mark.parametrize("chunk, want", [(8, (1, 8)), (100, (1, 100)), (128, (1, 128)),
@@ -508,9 +509,9 @@ def test_wide_states_and_long_chunks_reach_the_launcher(monkeypatch, N, chunk, d
 
     monkeypatch.setattr(ssd_ops, "ssd_scan_fwd", launcher)
     x, a, b, c = _model_views(2, 1024, 3, 16, N, dtype)
-    ssd_ops.launch_count = ssd_ops.tile_sum_count = 0
+    trace.reset_counts(ssd_ops.LAUNCHES, ssd_ops.TILE_SUMS)
     y, sf = ssd_ops.ssd_scan(x, a, b, c, chunk=chunk)
-    assert (ssd_ops.launch_count, ssd_ops.tile_sum_count) == (1, int(N > 128))
+    assert (trace.counter(ssd_ops.LAUNCHES), trace.counter(ssd_ops.TILE_SUMS)) == (1, int(N > 128))
     assert seen["chunk"] == chunk and seen["x"] is x and seen["b"].stride() == b.stride()
     assert y.shape == x.shape and sf.shape == (2, 3, 16, N)
 
@@ -530,10 +531,10 @@ def test_wrapper_on_cpu_matches_jax_kernel_past_256(shape):
     against the JAX kernel (interpret mode), in float32."""
     chunk = shape[-1]
     (jx, ja, jb, jc, js), (tx, ta, tb, tc, ts) = _both(_inputs(shape, seed=10), "float32")
-    ssd_ops.launch_count = ssd_ops.tile_sum_count = 0
+    trace.reset_counts(ssd_ops.LAUNCHES, ssd_ops.TILE_SUMS)
     y, sf = ssd_ops.ssd_scan(tx, ta, tb, tc, ts, chunk=chunk)
     yr, sr = jax_scan(jx, ja, jb, jc, js, chunk=chunk)
     assert y.shape == tuple(yr.shape) and sf.shape == tuple(sr.shape)
     _close(y, yr, TOL["float32"])
     _close(sf, sr, TOL["float32"])
-    assert ssd_ops.launch_count == ssd_ops.tile_sum_count == 0
+    assert trace.counter(ssd_ops.LAUNCHES) == trace.counter(ssd_ops.TILE_SUMS) == 0

@@ -23,6 +23,7 @@ from repro_torch import bridge
 from repro_torch.configs import get_smoke_config
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.models import ssm
+from repro_torch.runtime import trace
 
 torch.set_num_threads(1)
 
@@ -117,10 +118,10 @@ def test_init_mamba_has_the_jax_layout():
 def test_apply_mamba_without_cache_matches_jax(impl):
     jcfg, tcfg, jp, tp = _setup(impl)
     x = np.random.default_rng(6).normal(size=(2, 24, jcfg.d_model)).astype(np.float32)
-    ssd_ops.launch_count = 0
+    trace.reset_counts(ssd_ops.LAUNCHES)
     out, cache = ssm.apply_mamba(tcfg, tp, torch.from_numpy(x))
     jout, _ = jssm.apply_mamba(jcfg, jp, jnp.asarray(x))
-    assert cache is None and ssd_ops.launch_count == 0
+    assert cache is None and trace.counter(ssd_ops.LAUNCHES) == 0
     _close(out, jout)
 
 

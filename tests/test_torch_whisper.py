@@ -37,6 +37,7 @@ from repro_torch.launch import serve as serve_mod
 from repro_torch.launch import train as train_mod
 from repro_torch.models import attention as tattn
 from repro_torch.models import whisper as wh
+from repro_torch.runtime import trace
 from repro_torch.train.optimizer import AdamWConfig
 from repro_torch.train.train_step import make_train_step
 
@@ -109,9 +110,9 @@ def test_encode_matches_jax(impl):
     jcfg, tcfg, jp, tp = _setup(impl)
     frames = _frames(jcfg)
     jout = jwh.encode(jcfg.replace(attention_impl=impl), jp, jnp.asarray(frames))
-    fa_ops.launch_count = 0
+    trace.reset_counts(fa_ops.LAUNCHES)
     tout = wh.encode(tcfg, tp, _t(frames))
-    assert fa_ops.launch_count == 0  # CPU: the plain version
+    assert trace.counter(fa_ops.LAUNCHES) == 0  # CPU: the plain version
     assert tout.shape == (B, tcfg.encoder_seq, tcfg.d_model)
     _close(tout, jout, **(TOL if impl == "reference" else KERNEL_TOL))
 
