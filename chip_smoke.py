@@ -94,7 +94,12 @@ Phases, each of which must pass (any failure exits non-zero):
    by block, then every decode step's logits), where a latent cache written
    one slot late must fail, and no kernel may launch.  The MoE checks pin
    every run's routing to the f32 run's (``RouterPin``) and print the
-   free-routing ratios beside.  whisper-tiny runs at full width, nothing
+   free-routing ratios beside.  On the card ``transformer.decode_step``
+   replays captured CUDA graphs (``decode_graph``), which replay the code
+   that was captured: every run with a fault or a router patched in keeps
+   its decode steps eager (``eager_decode``), and hymba's and deepseek's
+   runs through graphs are held bit for bit to the same runs eager.
+   whisper-tiny runs at full width, nothing
    cut, through ``whisper.prefill``/``decode_step``: 4 requests of 1500
    frames and a 224-token prompt (K1 exactly 8 launches: 4 encoder layers
    non-causal, 4 decoder layers' prompts causal), then decode steps, held
@@ -1650,12 +1655,13 @@ def phase_model_mamba() -> dict:
             torch.cuda.synchronize()
             n = _counter(ssd_ops.LAUNCHES) - n0
             planted = {}
-            for fault in ("state not carried across chunks", "final state dropped"):
-                ssm.ssd_scan = plant_ssd_fault(real_scan, fault)
-                try:
-                    planted[fault] = run(pcfg)
-                finally:
-                    ssm.ssd_scan = real_scan
+            with eager_decode("a planted fault"):
+                for fault in ("state not carried across chunks", "final state dropped"):
+                    ssm.ssd_scan = plant_ssd_fault(real_scan, fault)
+                    try:
+                        planted[fault] = run(pcfg)
+                    finally:
+                        ssm.ssd_scan = real_scan
 
         def step_rel(a, b):
             """Relative L2 error of the logits of each decode step."""
@@ -1709,6 +1715,40 @@ def phase_model_mamba() -> dict:
     return decode
 
 
+@contextlib.contextmanager
+def eager_decode(why: str):
+    """``transformer.decode_step`` eager inside.  A decode graph replays the
+    kernels it captured, not the Python that enqueued them
+    (``decode_graph``), so a run with a fault or a router patched in must
+    neither replay a graph captured before the patch nor capture one."""
+    from repro_torch.models import decode_graph
+
+    real = decode_graph.eager_reason
+    decode_graph.eager_reason = lambda *args: why
+    try:
+        yield
+    finally:
+        decode_graph.eager_reason = real
+
+
+def graph_modes() -> dict[str, int]:
+    """How many decode steps ran eagerly, captured and replayed so far."""
+    return {m: _counter(f"decode_graph.{m}") for m in ("eager", "capture", "replay")}
+
+
+def check_graph_run(label: str, graphed, eager, modes: dict[str, int]) -> dict:
+    """A run whose decode steps took ``modes`` (counter deltas), at least
+    one of them a replay, equal bit for bit to the same run eager."""
+    same = all(torch.equal(a, b) for a, b in zip(graphed, eager, strict=True))
+    print(f"[model] {label}: the run through decode graphs (steps {modes}) against the same run "
+          f"eager: {'equal bit for bit' if same else 'DIFFERENT'}")
+    if not modes["replay"]:
+        fail(f"{label}: no decode step replayed a graph")
+    if not same:
+        fail(f"{label}: the decode graphs' run differs from the eager run")
+    return {"modes": modes, "equal": same}
+
+
 def plant_ring_fault(update):
     """``update`` (``attention._update_kv_cache``) with a fault planted in
     its ring mode: the write slot stops at the ring's last slot instead of
@@ -1733,8 +1773,9 @@ def phase_model_hymba() -> dict:
     CPU, then full width in bf16 (a 2048-token prefill, whose local layers
     keep the prompt's last 1024 keys in their rings, and HYMBA_STEPS decode
     steps that write past the rings' end) held to the reference path's own
-    distance from an f32-compute run, with three planted faults; then the
-    decode breakdown."""
+    distance from an f32-compute run, with three planted faults (their runs
+    eager), and the kernel path's run through decode graphs held bit for bit
+    to the same run eager; then the decode breakdown."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
@@ -1785,19 +1826,23 @@ def phase_model_hymba() -> dict:
         ref = run(cfg.replace(attention_impl="reference"))
         exact = run(cfg.replace(compute_dtype=torch.float32))
         n0 = {"flash_attention": _counter(fa_ops.LAUNCHES), "ssd_scan": _counter(ssd_ops.LAUNCHES)}
+        modes0 = graph_modes()
         out = run(pcfg)
         torch.cuda.synchronize()
+        modes = {m: k - modes0[m] for m, k in graph_modes().items()}
         n = {"flash_attention": _counter(fa_ops.LAUNCHES) - n0["flash_attention"],
              "ssd_scan": _counter(ssd_ops.LAUNCHES) - n0["ssd_scan"]}
         planted = {}
-        for fault in HYMBA_FAULTS:
-            module, name, stand_in = faulty[fault]
-            real = getattr(module, name)
-            setattr(module, name, stand_in)
-            try:
-                planted[fault] = run(pcfg)
-            finally:
-                setattr(module, name, real)
+        with eager_decode("a planted fault"):
+            for fault in HYMBA_FAULTS:
+                module, name, stand_in = faulty[fault]
+                real = getattr(module, name)
+                setattr(module, name, stand_in)
+                try:
+                    planted[fault] = run(pcfg)
+                finally:
+                    setattr(module, name, real)
+            graphs = check_graph_run("hymba full width", out, run(pcfg), modes)
 
     def step_rel(a, b):
         """Relative L2 error of the logits of each decode step."""
@@ -1845,6 +1890,7 @@ def phase_model_hymba() -> dict:
         fail("full-width hymba run: kernel path disagrees with the reference")
     del ref, exact, out, planted
     decode = decode_breakdown(tx, cfg, params, PL=S)
+    decode["decode_graphs"] = graphs
     del params
     torch.cuda.empty_cache()
     return decode
@@ -2036,7 +2082,10 @@ def phase_model_deepseek() -> dict:
     each measured from the f32-compute expanded forward: block by block
     (prefill hidden states) and step by step (logits), with routing pinned
     to the f32 run's (``RouterPin``; the free-routing ratios are printed),
-    and with a planted fault; no kernel launches; then the decode breakdown."""
+    and with a planted fault, all of these with eager decode steps; no
+    kernel launches; the absorbed run through decode graphs, routing freely
+    with the router unpatched, held bit for bit to the free-routing run
+    eager; then the decode breakdown."""
     from repro_torch.models import attention, moe
     from repro_torch.models import transformer as tx
     from repro_torch.models.layers import logits_matmul
@@ -2079,7 +2128,7 @@ def phase_model_deepseek() -> dict:
     real_update = attention._update_latent_cache
     moe._router = router
     try:
-        with torch.inference_mode():
+        with torch.inference_mode(), eager_decode("the router is patched"):
             exact = expanded(cfg.replace(compute_dtype=torch.float32), "f32", pin=False)
             free = (expanded(cfg, "expanded", pin=False), absorbed(pcfg, "absorbed", pin=False))
             ref = expanded(cfg, "expanded pinned")
@@ -2094,6 +2143,15 @@ def phase_model_deepseek() -> dict:
                 attention._update_latent_cache = real_update
     finally:
         moe._router = router.real
+    # free routing with the router as it is: the decode graphs' run against
+    # the eager run made with RouterPin recording (it changes nothing unpinned)
+    with torch.inference_mode():
+        modes0 = graph_modes()
+        graphed = absorbed(pcfg, "graphs", pin=False)
+        torch.cuda.synchronize()
+        modes = {m: k - modes0[m] for m, k in graph_modes().items()}
+    graphs = check_graph_run("deepseek full width", graphed, free[1], modes)
+    del graphed
 
     def step_rel(a, b):
         return ((a - b).norm(dim=-1) / b.norm(dim=-1))[0]
@@ -2137,7 +2195,7 @@ def phase_model_deepseek() -> dict:
     del ref, exact, out, bad, free
     res = {**sizes, "worst_block_ratio": got["forward"], "worst_decode_ratio": got["decode"],
            "free_routing_ratios": free_got, "routings_moved": moved, "fault_ratios": worse,
-           "launches": n, "decode": decode_breakdown(tx, cfg, params)}
+           "launches": n, "decode_graphs": graphs, "decode": decode_breakdown(tx, cfg, params)}
     del params
     torch.cuda.empty_cache()
     return res

@@ -37,7 +37,9 @@ internvl2-2b's requests are tokens alone, as the JAX driver's are.
 The port's tracer (:mod:`repro_torch.runtime.trace`) records the run:
 ``prefill_s`` is the device time of the ``prefill`` spans (their host time
 on the CPU), ``decode_tok_s`` the answer tokens over the host time of the
-``decode_step`` spans, and the kernels' launches are the tracer's counters.
+``decode`` spans (a batch's decode loop up to its synchronize: a step that
+replays a CUDA graph returns before its work is done), and the kernels'
+launches are the tracer's counters.
 ``--trace-out PATH`` writes the spans as Chrome-trace JSON, and the run
 prints the spans' summary by name.
 
@@ -174,12 +176,13 @@ def _serve(args) -> dict:
         sync()
         tok = logits[:, -1:].argmax(-1)
         out = [tok]
-        for i in range(G - 1):
-            pos = torch.full((B, 1), PL + i, dtype=torch.int64, device=device)
-            logits, cache = tx.decode_step(cfg, params, cache, tok, pos, ctx)
-            tok = logits[:, -1:].argmax(-1)
-            out.append(tok)
-        sync()
+        with trace.span("decode"):
+            for i in range(G - 1):
+                pos = torch.full((B, 1), PL + i, dtype=torch.int64, device=device)
+                logits, cache = tx.decode_step(cfg, params, cache, tok, pos, ctx)
+                tok = logits[:, -1:].argmax(-1)
+                out.append(tok)
+            sync()
         return gather_full(torch.cat(out, dim=1)).to(torch.int32).cpu().numpy()
 
     # with a mesh, rank 0 serves and hands each batch to the other ranks,
@@ -245,7 +248,7 @@ def _serve(args) -> dict:
     assert len(outs) == n_req, f"served {len(outs)}/{n_req} requests"
     prefills = ours("prefill")
     prefill_s = _span_seconds(prefills)
-    decode_s = sum(s.host_ms for s in ours("decode_step")) / 1e3
+    decode_s = sum(s.host_ms for s in ours("decode")) / 1e3
     tps = n_req * (G - 1) / decode_s if decode_s else 0.0
     launches = {name: trace.counter(ops.LAUNCHES) - launches0[name]
                 for name, ops in kernels.items()}

@@ -17,7 +17,9 @@ encoder-decoder family (whisper) has its own module,
 
 While the tracer records (``repro_torch.runtime.trace``), ``prefill`` is a
 span with device events, which the spans inside it take too, and
-``decode_step`` one with the thread's CPU time; inside them ``embed``,
+``decode_step`` one with the thread's CPU time and the ``graph`` it took
+(``decode_graph``: eager, capture or replay; a replay records no span
+inside it); inside them ``embed``,
 ``layer`` (group and index), ``norm``, ``mlp`` (the MoE's experts too) and
 ``logits``, and the attention's and the SSM mixer's own spans.
 """
@@ -26,6 +28,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import itertools
 from typing import Any, Callable
 
 import torch
@@ -36,6 +39,7 @@ from torch.utils.checkpoint import (
 )
 
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import decode_graph
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import (
@@ -61,6 +65,9 @@ from repro_torch.models.layers import (
 from repro_torch.runtime import trace
 
 Params = dict[str, Any]
+
+#: byte alignment of each leaf inside a decode cache's one allocation
+CACHE_ALIGN = 256
 
 
 @dataclasses.dataclass(frozen=True)
@@ -410,27 +417,41 @@ def loss_fn(
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device) -> Params:
-    """Stacked per-group decode caches."""
+    """Stacked per-group decode caches, zeros.
+
+    Every stacked leaf is a view of one zeroed allocation, at its final
+    shape (a layer's cache is laid out on the meta device first).  So a
+    cache of the same shapes, allocated after this one is freed, takes the
+    block this one held and every leaf its address, and a decode step
+    captured over this cache replays over that one (``decode_graph``).
+    Leaves allocated one by one could trade places, or a small one land
+    elsewhere in the allocator's pool of small blocks."""
     _refuse_encoder_decoder(cfg)
-    cache: Params = {}
+    layout: Params = {}
+    meta = torch.device("meta")
     for group in layer_groups(cfg):
         if group.kind == "ssm":
-            one = ssm_mod.init_mamba_cache(cfg, batch, device=device)
+            one = ssm_mod.init_mamba_cache(cfg, batch, device=meta)
         elif group.kind == "hybrid":
             # the group's own window sets its ring size (0: a linear cache)
             one = {
-                "attn": attn_mod.init_kv_cache(cfg, batch, max_len, group.window,
-                                               device=device),
-                "ssm": ssm_mod.init_mamba_cache(cfg, batch, device=device),
+                "attn": attn_mod.init_kv_cache(cfg, batch, max_len, group.window, device=meta),
+                "ssm": ssm_mod.init_mamba_cache(cfg, batch, device=meta),
             }
         elif cfg.mla is not None:
-            one = attn_mod.init_mla_cache(cfg, batch, max_len, device=device)
+            one = attn_mod.init_mla_cache(cfg, batch, max_len, device=meta)
         else:
-            one = attn_mod.init_kv_cache(cfg, batch, max_len, device=device)
-        cache[group.name] = _tree_map(
-            lambda t: t[None].repeat(group.count, *([1] * t.dim())), one
-        )
-    return cache
+            one = attn_mod.init_kv_cache(cfg, batch, max_len, device=meta)
+        layout[group.name] = _tree_map(lambda t: t.new_empty((group.count, *t.shape)), one)
+    sizes = [-(-t.nbytes // CACHE_ALIGN) * CACHE_ALIGN for t in _leaves(layout)]
+    buf = torch.zeros(sum(sizes), dtype=torch.uint8, device=device)
+    starts = iter(itertools.accumulate([0] + sizes))
+
+    def view(t: torch.Tensor) -> torch.Tensor:
+        start = next(starts)
+        return buf[start:start + t.nbytes].view(t.dtype).view(t.shape)
+
+    return _tree_map(view, layout)
 
 
 def decode_step(
@@ -441,12 +462,19 @@ def decode_step(
     positions: torch.Tensor,     # (B, 1) absolute positions
     ctx: RunCtx = RunCtx(),
 ) -> tuple[torch.Tensor, Params]:
+    """One token a row: (logits (B, 1, V), the cache, updated in place).  On
+    one CUDA device the step is the replay of a captured CUDA graph
+    (``decode_graph``); elsewhere it runs eagerly."""
     ctx = dataclasses.replace(ctx, decode=True, prefill=False)
-    with trace.span("decode_step", device=False, cpu=True):
-        x, new_cache, _ = forward(
-            cfg, params, tokens, positions=positions, cache=cache, ctx=ctx
-        )
-        return _last_logits(cfg, params, x, ctx), new_cache
+
+    def body(tokens: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+        x, _, _ = forward(cfg, params, tokens, positions=positions, cache=cache, ctx=ctx)
+        return _last_logits(cfg, params, x, ctx)
+
+    key = None
+    if decode_graph.eager_reason(params, cache, tokens, positions, ctx) is None:
+        key = decode_graph.key(cfg, params, cache, tokens, positions, ctx)
+    return decode_graph.GRAPHS.step(key, body, tokens, positions), cache
 
 
 def _embed(cfg: ModelConfig, table: torch.Tensor, ids: torch.Tensor, ctx: RunCtx):

@@ -8,7 +8,8 @@ stream (none while the stream is capturing a graph), and the spans it
 encloses do too unless they say otherwise; their device time is read after
 the work, never by a synchronize inside it.  A span opened with
 ``cpu=True`` also records the thread's CPU time (``time.thread_time_ns``)
-at entry and exit.
+at entry and exit, read inside its host interval, so that a short span's
+CPU time does not exceed its host time by the reads themselves.
 
 Spans record only while a ``torch.profiler`` session is active, or between
 ``enable()`` and ``disable()``; otherwise ``span`` returns one shared object
@@ -88,16 +89,16 @@ class Span:
             start = torch.cuda.Event(enable_timing=True)
             start.record()
             self._events = [start, None]
-        if self.cpu:
-            self.cpu0 = time.thread_time_ns()
         stack.append(self)
         self.t0 = time.perf_counter_ns()
+        if self.cpu:
+            self.cpu0 = time.thread_time_ns()
         return self
 
     def __exit__(self, *exc: Any) -> None:
-        self.t1 = time.perf_counter_ns()
         if self.cpu:
             self.cpu1 = time.thread_time_ns()
+        self.t1 = time.perf_counter_ns()
         if self._events is not None and not torch.cuda.is_current_stream_capturing():
             end = torch.cuda.Event(enable_timing=True)
             end.record()

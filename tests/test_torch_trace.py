@@ -263,3 +263,17 @@ def test_server_stats_leave_the_warm_up_out():
         st = server.stats()
     assert st["requests"] == st["served"] == st["batches"] == 4
     assert st["latency_p99_ms"] < 40  # the slow warm request is out of the window
+
+
+def test_a_short_spans_cpu_time_stays_within_its_host_time():
+    """The CPU reads lie inside the host interval: over many spans around
+    almost nothing the CPU share is at most 100 %, not the reads' own cost
+    over the span's."""
+    t = Tracer()
+    with t.enabled():
+        for _ in range(2000):
+            with t.span("s", cpu=True):
+                pass
+    spans = t.spans("s")
+    share = sum(s.cpu_ms for s in spans) / sum(s.host_ms for s in spans)
+    assert 0 < share <= 1.0 + 1e-3, share
