@@ -4,6 +4,7 @@ from __future__ import annotations
 
 import dataclasses
 from collections import defaultdict, deque
+from types import ModuleType
 from typing import Any
 
 import numpy as np
@@ -24,6 +25,7 @@ class Run:
     setup_s: float
     peak_bytes: int
     trace: DeviceTrace | None = None
+    family: ModuleType | None = None   # families/<model["family"]>.py
 
     @property
     def requests(self) -> list[Request]:

@@ -5,6 +5,7 @@ from __future__ import annotations
 
 import torch
 
+from chipbench.families.dense import layer_groups
 from chipbench.reference.common import (
     Prec,
     attention,
@@ -15,7 +16,6 @@ from chipbench.reference.common import (
     mlp,
     rmsnorm,
 )
-from chipbench.weights import layer_groups
 
 
 def block(x: torch.Tensor, w: dict, model: dict, window: int, p: Prec) -> torch.Tensor:
@@ -25,15 +25,16 @@ def block(x: torch.Tensor, w: dict, model: dict, window: int, p: Prec) -> torch.
 
 
 def logits(model: dict, weights: dict, tokens: torch.Tensor, positions: list[int],
-           mode: str = "f32", block_fn=block) -> torch.Tensor:
+           mode: str = "f32", block_fn=block, groups=None) -> torch.Tensor:
     """(n, len(positions), V) float32 logits of ``tokens`` (n, T): every
     layer runs over each sequence in turn, so one layer's weights and one
-    sequence's activations are live at a time."""
+    sequence's activations are live at a time.  ``groups``: the (name,
+    layers, window) stacks of the weights (a dense model's one by default)."""
     check_positions(positions, tokens.shape[1])
     p = Prec(mode)
     with torch.no_grad(), full_float32():
         xs = [weights["embedding"]["embed"][row].float() for row in tokens]
-        for name, count, window in layer_groups(model):
+        for name, count, window in groups or layer_groups(model):
             for i in range(count):
                 w = layer_weights(weights[name], i)
                 xs = [block_fn(x, w, model, window, p) for x in xs]

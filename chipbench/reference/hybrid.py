@@ -6,6 +6,7 @@ from __future__ import annotations
 
 import torch
 
+from chipbench.families.hybrid import layer_groups
 from chipbench.reference import dense
 from chipbench.reference.common import Prec, attention, mamba, mlp, rmsnorm
 
@@ -21,4 +22,5 @@ def block(x: torch.Tensor, w: dict, model: dict, window: int, p: Prec) -> torch.
 
 def logits(model: dict, weights: dict, tokens: torch.Tensor, positions: list[int],
            mode: str = "f32") -> torch.Tensor:
-    return dense.logits(model, weights, tokens, positions, mode, block_fn=block)
+    return dense.logits(model, weights, tokens, positions, mode, block_fn=block,
+                        groups=layer_groups(model))

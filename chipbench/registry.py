@@ -1,8 +1,9 @@
-"""Find a cell's pieces by name: configuration, traffic, check, metrics, reference.
+"""Find a cell's pieces by name: configuration, traffic, check, metrics, model
+family, reference.
 
 ``root`` is the ``chipbench`` directory (a test passes a copy of it) and
 ``BENCHMARK.json`` sits in its parent.  A later cell, configuration, traffic
-mix, metric or reference is taken up by adding its file and its entry.
+mix, metric, family or reference is taken up by adding its file and its entry.
 """
 
 from __future__ import annotations
@@ -67,6 +68,13 @@ def metric_reader(name: str, root: Path = ROOT) -> Callable[[Any], float | None]
     """``metrics/<name>.py``'s ``read``: the metric from a finished run, or
     None where the run has nothing to read it from."""
     return _load(Path(root) / "metrics" / f"{name}.py", "chipbench_metric_").read
+
+
+def family(name: str, root: Path = ROOT) -> ModuleType:
+    """``families/<name>.py``: the layer stacks, weight layout, request work
+    and published keys of the configurations whose ``model["family"]`` is
+    ``name``."""
+    return _load(Path(root) / "families" / f"{name}.py", "chipbench_family_")
 
 
 def reference(family: str, root: Path = ROOT) -> ModuleType:

@@ -46,8 +46,11 @@ os.environ["CUDA_CACHE_PATH"] = str(CACHE / "cuda")
 os.environ["USE_FLAX"] = "0"
 
 import argparse  # noqa: E402
+import dataclasses  # noqa: E402
 import json  # noqa: E402
 import sys  # noqa: E402
+import types  # noqa: E402
+import typing  # noqa: E402
 from typing import Any  # noqa: E402
 
 import torch  # noqa: E402
@@ -85,21 +88,40 @@ def _port():
 PORT_NORM_EPS = 1e-6
 
 
+def _field(hint: Any, current: Any, value: Any) -> Any:
+    """``value`` from the configuration file as the port's field of type
+    ``hint`` (now ``current``) takes it: an object becomes the dataclass the
+    field declares, the port's own with the keys the file states replaced
+    (the class's defaults where the port has none); a list becomes a tuple
+    where the field is one."""
+    union = typing.get_origin(hint) in (typing.Union, types.UnionType)
+    kinds = typing.get_args(hint) if union else (hint,)
+    if isinstance(value, dict):
+        if current is None:
+            (cls,) = [k for k in kinds if dataclasses.is_dataclass(k)]
+            current = cls()
+        hints = typing.get_type_hints(type(current))
+        return dataclasses.replace(current, **{k: _field(hints[k], getattr(current, k), v)
+                                               for k, v in value.items()})
+    if isinstance(value, list) and any(typing.get_origin(k) is tuple for k in kinds):
+        return tuple(value)
+    return value
+
+
 def port_config(get_config, spec: dict[str, Any]):
     """The port's config for ``spec["port_arch"]`` with every size the file
-    states, so that what runs is what the file says."""
-    from repro_torch.models.common import SSMConfig
-
+    states, so that what runs is what the file says; a key the file leaves
+    out keeps the port's value."""
     model = dict(spec["model"])
     eps = model.pop("norm_eps")
     if eps != PORT_NORM_EPS:
         raise ValueError(f"{spec['name']}: norm_eps {eps}; the port's norms use {PORT_NORM_EPS}")
-    if "ssm" in model:
-        model["ssm"] = SSMConfig(**model["ssm"])
-    model["global_layers"] = tuple(model["global_layers"])
-    return get_config(spec["port_arch"], attention_impl=spec["attention_impl"],
-                      param_dtype=DTYPES[spec["param_dtype"]],
-                      compute_dtype=DTYPES[spec["compute_dtype"]], **model)
+    base = get_config(spec["port_arch"])
+    hints = typing.get_type_hints(type(base))
+    stated = {k: _field(hints[k], getattr(base, k), v) for k, v in model.items()}
+    return base.replace(attention_impl=spec["attention_impl"],
+                        param_dtype=DTYPES[spec["param_dtype"]],
+                        compute_dtype=DTYPES[spec["compute_dtype"]], **stated)
 
 
 def run_cell(name: str, seed: int, seconds: float, trace: bool, device: torch.device, *,
@@ -112,6 +134,7 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, device: torch.de
     traffic = Traffic.from_file(cell["traffic"], registry.traffic(cell["traffic"], root))
     limits = registry.check(name, root)
     ref = registry.reference(spec["reference"], root)
+    family = registry.family(spec["model"]["family"], root)
     readers = {m["name"]: (m, registry.metric_reader(m["name"], root))
                for m in registry.metrics_for(bench, name, trace)}
     ClusterSpec, ServeSpec, Session, get_config, tx = _port()
@@ -120,7 +143,8 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, device: torch.de
     B, PL, G, V = traffic.batch, traffic.prompt_len, traffic.gen, model["vocab_size"]
 
     stamps = {"start": t_start, "imported": time.perf_counter()}
-    params = weights.make(model, seed, device, DTYPES[spec["param_dtype"]])
+    params = weights.make(family.layout(model), seed, device, DTYPES[spec["param_dtype"]],
+                          getattr(family, "INITS", None))
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     stamps["weights"] = time.perf_counter()
@@ -164,7 +188,7 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, device: torch.de
 
     run = Run(workload=name, model=model, dtype=spec["compute_dtype"], traffic=traffic,
               window=window, batches=list(fn.batches), setup_s=window.t_first - t_start,
-              peak_bytes=int(peak))
+              peak_bytes=int(peak), family=family)
     result: dict[str, Any] = {}
     if prof is not None:
         to_ns = lambda t: int(t * 1e9) + wall_ns  # noqa: E731

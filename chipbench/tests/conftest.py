@@ -79,6 +79,39 @@ def add_tiny_cells(root: Path, dtype: str = "float32") -> list[str]:
     return names
 
 
+def shapes(tree, prefix=""):
+    """{path: shape} of a tensor tree, in the tree's order."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out |= shapes(v, f"{prefix}{k}/")
+        else:
+            out[prefix + k] = tuple(v.shape)
+    return out
+
+
+def published_gaps(root: Path, entry: dict) -> dict:
+    """The keys of configuration ``entry``'s ``published`` block that the
+    port's config built from its file does not run, outside its
+    ``reduced``: ``{key: (published, run)}``, read by the family file's
+    ``PUBLISHED``.  A key the family does not read, or reads and the block
+    lacks, is a gap too."""
+    from repro_torch.configs import get_config
+
+    from chipbench import registry, run
+
+    spec = registry.config(entry["name"], root)
+    cfg = run.port_config(get_config, spec)
+    reads = registry.family(spec["model"]["family"], root).PUBLISHED
+    block = spec["published"]
+    gaps = {}
+    for key in sorted((set(block) | set(reads)) - set(entry["reduced"])):
+        have = reads[key](cfg) if key in reads else "not read"
+        if key not in block or block[key] != have:
+            gaps[key] = (block.get(key, "not stated"), have)
+    return gaps
+
+
 @pytest.fixture
 def bench_copy(tmp_path) -> Path:
     """A copy of ``chipbench`` and ``BENCHMARK.json``; returns its

@@ -22,11 +22,19 @@ def _top_level(code: str) -> set[str]:
 
 
 def test_reference_imports_no_port_and_no_jax():
+    """Every family and reference file the benchmark has, and those of the
+    tests' data, loaded by path as the harness loads them."""
     mods = _top_level("""
         import sys
+        from pathlib import Path
         from chipbench import registry
-        for fam in ("dense", "hybrid"):
-            registry.reference(fam)
+        roots = [Path("chipbench"), *sorted(Path("chipbench/tests/data").iterdir())]
+        load = {"families": registry.family, "reference": registry.reference}
+        found = [(folder, p.stem, root) for root in roots for folder in load
+                 for p in sorted((root / folder).glob("*.py")) if p.name != "__init__.py"]
+        assert {name for _, name, _ in found} >= {"dense", "hybrid", "moe"}, found
+        for folder, name, root in found:
+            load[folder](name, root)
         import chipbench.reference.common, chipbench.check
         print(" ".join({m.split(".", 1)[0] for m in sys.modules}))
     """)

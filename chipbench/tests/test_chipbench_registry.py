@@ -5,11 +5,15 @@ from __future__ import annotations
 
 import json
 
+import pytest
 import torch
+from repro_torch.configs import get_config
+from repro_torch.models import transformer
+from repro_torch.models.common import MLAConfig, MoEConfig, SSMConfig
 
 from chipbench import registry, run
 from chipbench.loadgen import Traffic
-from conftest import add_tiny_cells
+from conftest import REPO, add_tiny_cells, published_gaps
 
 
 def test_every_cell_resolves():
@@ -38,50 +42,69 @@ def test_setup_s_belongs_to_every_cell_and_every_later_one():
         assert "setup_s" in names, cell["name"]
 
 
-#: the sources' widths and depths, by their config.json keys (HF
-#: microsoft/Phi-4-mini-instruct and nvidia/Hymba-1.5B-Base)
-PUBLISHED = {
-    "phi4-mini-3.8b": {"num_hidden_layers": 32, "hidden_size": 3072,
-                       "num_attention_heads": 24, "num_key_value_heads": 8,
-                       "intermediate_size": 8192, "vocab_size": 200064,
-                       "tie_word_embeddings": True, "rope_theta": 10000.0},
-    "hymba-1.5b": {"num_hidden_layers": 32, "hidden_size": 1600,
-                   "num_attention_heads": 25, "num_key_value_heads": 5,
-                   "intermediate_size": 5504, "vocab_size": 32001,
-                   "tie_word_embeddings": False, "rope_theta": 10000.0,
-                   "sliding_window": 1024, "global_attn_idx": [0, 15, 31],
-                   "mamba_expand": 2, "mamba_d_state": 16, "mamba_d_conv": 4},
-}
-
-
 def test_config_files_state_the_published_widths():
     """What runs has the sources' widths and depth: the port's config built
-    from each file, not the port's model zoo, is held to the published keys."""
-    from repro_torch.configs import get_config
-
+    from each file, not the port's model zoo, is held to the file's own
+    ``published`` block, each key read off the config by the family's
+    ``PUBLISHED``; every nested group of the port's config is the file's."""
     for entry in registry.benchmark()["configs"]:
         spec = registry.config(entry["name"])
-        cfg = run.port_config(get_config, spec)
-        pub = PUBLISHED[entry["name"]]
         assert entry["reduced"] == []
-        assert (cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.d_ff,
-                cfg.vocab_size, cfg.tie_embeddings, cfg.rope_theta) == (
-            pub["num_hidden_layers"], pub["hidden_size"], pub["num_attention_heads"],
-            pub["num_key_value_heads"], pub["intermediate_size"], pub["vocab_size"],
-            pub["tie_word_embeddings"], pub["rope_theta"])
-        assert cfg.head_dim == pub["hidden_size"] // pub["num_attention_heads"]
-        if "mamba_expand" in pub:
-            assert cfg.sliding_window == pub["sliding_window"]
-            assert list(cfg.global_layers) == pub["global_attn_idx"]
-            assert cfg.ssm.d_inner(cfg.d_model) == pub["mamba_expand"] * pub["hidden_size"]
-            assert (cfg.ssm.d_state, cfg.ssm.d_conv) == (pub["mamba_d_state"],
-                                                         pub["mamba_d_conv"])
-        else:
-            assert cfg.ssm is None and not cfg.sliding_window
+        assert published_gaps(REPO / "chipbench", entry) == {}, entry["name"]
+        cfg = run.port_config(get_config, spec)
+        groups = registry.family(spec["model"]["family"]).layer_groups(spec["model"])
+        assert groups == [(g.name, g.count, g.window) for g in transformer.layer_groups(cfg)]
+        assert {w for _, _, w in groups} - {0} == {cfg.sliding_window} - {0}
+        for nested in ("moe", "ssm", "mla"):
+            assert (getattr(cfg, nested) is None) == (nested not in spec["model"]), nested
         dt = run.DTYPES[spec["param_dtype"]]
         assert cfg.param_dtype == cfg.compute_dtype == dt == torch.bfloat16
         assert cfg.attention_impl == "pallas"
         assert entry["file"] == f"chipbench/configs/{entry['name']}.json"
+
+
+#: the first benchmark's configs as its ``port_config`` built them, field by field
+PARENT_PORT_CONFIGS = {
+    "phi4-mini-3.8b": dict(
+        name="phi4-mini-3.8b", family="dense", num_layers=32, d_model=3072, num_heads=24,
+        num_kv_heads=8, d_ff=8192, vocab_size=200064, head_dim=128, qkv_bias=False,
+        rope_theta=10000.0, tie_embeddings=True, moe=None, ssm=None, mla=None,
+        sliding_window=0, global_layers=(), param_dtype=torch.bfloat16,
+        compute_dtype=torch.bfloat16, attention_impl="pallas"),
+    "hymba-1.5b": dict(
+        name="hymba-1.5b", family="hybrid", num_layers=32, d_model=1600, num_heads=25,
+        num_kv_heads=5, d_ff=5504, vocab_size=32001, head_dim=64, qkv_bias=False,
+        rope_theta=10000.0, tie_embeddings=False, moe=None, ssm=SSMConfig(16, 4, 2, 64, 128),
+        mla=None, sliding_window=1024, global_layers=(0, 15, 31), param_dtype=torch.bfloat16,
+        compute_dtype=torch.bfloat16, attention_impl="pallas"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(PARENT_PORT_CONFIGS))
+def test_port_config_is_the_first_benchmarks(name):
+    """The files' port configs are what they were before ``port_config`` took
+    nested groups by the port's field types: every field of the port's
+    ``ModelConfig``, those the file leaves out at the zoo's value."""
+    want = get_config(name).replace(**PARENT_PORT_CONFIGS[name])
+    assert run.port_config(get_config, registry.config(name)) == want
+
+
+def test_port_config_takes_nested_groups_by_field_type():
+    """An object becomes the dataclass the port's field declares, over the
+    zoo's own, and a list a tuple where the field is one."""
+    spec = registry.config("hymba-1.5b")
+    spec["port_arch"] = "deepseek-v2-lite-16b"
+    spec["model"] = {"norm_eps": 1e-6, "family": "moe", "global_layers": [2],
+                     "moe": {"top_k": 3}, "mla": {"kv_lora_rank": 64}, "ssm": {"d_state": 8}}
+    cfg = run.port_config(get_config, spec)
+    zoo = get_config("deepseek-v2-lite-16b")
+    assert cfg.global_layers == (2,)
+    assert cfg.moe == MoEConfig(**{**vars(zoo.moe), "top_k": 3})
+    assert cfg.mla == MLAConfig(**{**vars(zoo.mla), "kv_lora_rank": 64})
+    assert cfg.ssm == SSMConfig(d_state=8)   # the zoo has none: the class's defaults
+    spec["model"]["norm_eps"] = 1e-5
+    with pytest.raises(ValueError, match="norm_eps"):
+        run.port_config(get_config, spec)
 
 
 def test_new_cell_taken_up_from_files(bench_copy, monkeypatch):

@@ -1,5 +1,10 @@
 """The work a request needs, counted from the configuration file's sizes.
 
+The counts that are a model family's (its layers' products, its request)
+live in ``families/<family>.py``; this module keeps the arithmetic they
+share, the peaks, the prompt kernels' work, and the names the metric files
+read for the dense and hybrid families.
+
 Frozen here so that the yardstick does not move with the program: these
 formulas count what the requests need, not what the program happens to
 launch (``launch/op_analysis.py`` counts the program's own operations).
@@ -23,9 +28,8 @@ Peaks are NVIDIA's data-sheet values for one H100 SXM (dense), the same as
 
 from __future__ import annotations
 
+from types import ModuleType
 from typing import Any
-
-from chipbench.weights import layer_groups, ssm_sizes
 
 PEAK_FLOPS = {"bfloat16": 989e12, "float16": 989e12, "float32": 67e12}
 PEAK_BYTES = 3.35e12
@@ -50,22 +54,10 @@ def decode_keys(prompt_len: int, gen: int, window: int = 0) -> int:
     return n
 
 
-def layer_windows(model: dict[str, Any]) -> list[int]:
-    out: list[int] = []
-    for _, count, window in layer_groups(model):
-        out += [window] * count
-    return out
-
-
-def linear_weights(model: dict[str, Any]) -> int:
-    """Weight elements of one layer's products (norms and gates aside)."""
-    d, H, KV, hd, f = (model[k] for k in ("d_model", "num_heads", "num_kv_heads",
-                                           "head_dim", "d_ff"))
-    n = d * H * hd + 2 * d * KV * hd + H * hd * d + 3 * d * f
-    if model["family"] == "hybrid":
-        s = ssm_sizes(model)
-        n += d * (2 * s["din"] + 2 * s["N"] + s["H"]) + s["din"] * d
-    return n
+def group_windows(groups: list[tuple[str, int, int]]) -> list[int]:
+    """Each layer's window, in order, from (name, layers, window) stacks (0:
+    full attention)."""
+    return [window for _, count, window in groups for _ in range(count)]
 
 
 def ssd_chunk_flops(S: int, s: dict[str, int]) -> int:
@@ -78,22 +70,35 @@ def ssd_chunk_flops(S: int, s: dict[str, int]) -> int:
     return total * H
 
 
+def least_seconds(flops: float, nbytes: float, dtype: str = "bfloat16") -> float:
+    """The roofline's least time: the larger of the compute and byte terms."""
+    return max(flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES)
+
+
+# -- the prompt kernels' work, and the names the metric files read, for the dense and
+# hybrid families
+
+def _family(model: dict[str, Any]) -> ModuleType:
+    """The family file of a dense or hybrid model (imported here when first
+    asked for: the family files import this module's arithmetic)."""
+    from chipbench.families import dense, hybrid
+
+    return {"dense": dense, "hybrid": hybrid}[model["family"]]
+
+
+def layer_windows(model: dict[str, Any]) -> list[int]:
+    return group_windows(_family(model).layer_groups(model))
+
+
+def linear_weights(model: dict[str, Any]) -> int:
+    """Weight elements of one layer's products (norms and gates aside)."""
+    return _family(model).linear_weights(model)
+
+
 def request_flops(model: dict[str, Any], prompt_len: int, gen: int) -> float:
     """FLOPs one request of ``prompt_len`` tokens and ``gen`` answer tokens
-    needs: a prefill and G - 1 decode steps."""
-    d, V, H, hd = model["d_model"], model["vocab_size"], model["num_heads"], model["head_dim"]
-    windows = layer_windows(model)
-    tokens = prompt_len + gen - 1
-    flops = 2 * tokens * len(windows) * linear_weights(model)
-    flops += 2 * gen * d * V
-    for w in windows:
-        flops += 4 * H * hd * (causal_pairs(prompt_len, w) + decode_keys(prompt_len, gen, w))
-    if model["family"] == "hybrid":
-        s = ssm_sizes(model)
-        per_layer = ssd_chunk_flops(prompt_len, s) + (gen - 1) * 4 * s["H"] * s["P"] * s["N"]
-        per_layer += tokens * 2 * s["K"] * s["conv_dim"]
-        flops += len(windows) * per_layer
-    return float(flops)
+    needs: a prefill and G - 1 decode steps (``families/<family>.py``)."""
+    return _family(model).request_flops(model, prompt_len, gen)
 
 
 def attn_prefill_work(model: dict[str, Any], rows: int, S: int,
@@ -115,14 +120,9 @@ def ssd_prefill_work(model: dict[str, Any], rows: int, S: int,
     group, broadcast over the heads), the f32 state in and out."""
     if model["family"] != "hybrid":
         return 0.0, 0.0
-    s = ssm_sizes(model)
+    s = _family(model).ssm_sizes(model)
     L = model["num_layers"]
     e = ITEM_BYTES[dtype]
     H, P, N = s["H"], s["P"], s["N"]
     per_row = 2 * S * H * P * e + S * H * 4 + 2 * S * N * e + 2 * H * P * N * 4
     return float(ssd_chunk_flops(S, s) * rows * L), float(per_row * rows * L)
-
-
-def least_seconds(flops: float, nbytes: float, dtype: str = "bfloat16") -> float:
-    """The roofline's least time: the larger of the compute and byte terms."""
-    return max(flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES)
