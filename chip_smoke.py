@@ -34,6 +34,9 @@ Phases, each of which must pass (any failure exits non-zero):
      (uncopied) and on contiguous inputs, causal and non-causal, with both
      faults planted each way, every launch and pad counted, timed beside
      SDPA (naming the backend that served it) with the wrapper's host cost;
+     and deepseek-v2-lite's MLA prefill (``FA_MLA``, ``check_flash_mla``):
+     q . k at 192 with v's 128 zero-padded to it, padded to the hd-256
+     instance, at YaRN's softmax scale, held and faulted the same way;
    * the SSD scan over the kernel test shapes x {float32, bfloat16}
      (tolerance 5e-4 / 3e-2 on y and the final state, plus a per-step
      relative L2 limit on y), over bf16 shapes at the tensor-core kernel's
@@ -89,10 +92,13 @@ Phases, each of which must pass (any failure exits non-zero):
    held to the dense form, and each path prints how many tokens chose other
    experts than the f32 run; the init's and a serving prefill's peak memory
    are printed.  deepseek-v2-lite runs at full width and depth with bf16
-   params: a 1024-token prefill in MLA's absorbed form against the latent
-   cache, then decode steps, held to the expanded cache-free forward (block
-   by block, then every decode step's logits), where a latent cache written
-   one slot late must fail, and no kernel may launch.  The MoE checks pin
+   params: a 1024-token prefill into the latent cache (routed experts), then
+   decode steps, held to the expanded cache-free forward (block by block,
+   then every decode step's logits): once with MLA's prefill in the
+   absorbed form, where a latent cache written one slot late must fail and
+   no kernel may launch, and once on the serving path, MLA's prefill on K1
+   (27 launches), also held to the absorbed run, where both K1 faults must
+   fail.  The MoE checks pin
    every run's routing to the f32 run's (``RouterPin``) and print the
    free-routing ratios beside.  On the card ``transformer.decode_step``
    replays captured CUDA graphs (``decode_graph``), which replay the code
@@ -124,7 +130,7 @@ Phases, each of which must pass (any failure exits non-zero):
    tokens each).  Launch counts are set to 0 just before each serve and
    read just after; each kernel of the path must have launched exactly
    ``SERVE_LAUNCHES`` times a prefill, and no other (the fingerprint runs on
-   no serve path; deepseek-v2-lite's runs none).
+   no serve path).
 4. Train (no kernel: the training path runs the plain attention and SSD
    under autograd, as the JAX package does):
    a. ``repro_torch.launch.train`` at full mamba2-130m width (batch 8, seq
@@ -315,6 +321,13 @@ FA_CONTRACT = {
        for hd in (300, 320, 384, 512)
        for dtype in (torch.bfloat16, torch.float16, torch.float32)},
 }
+# deepseek-v2-lite's serving prefill on K1 (``attention._mla_flash``): 16
+# heads, each its own K/V head, q . k at nope 128 + rope 64 = 192, v's 128
+# zero-padded to 192 by the model, the wrapper's pad to the hd-256 instance,
+# and YaRN's softmax scale, 192 ** -0.5 * (0.1 * 0.707 * ln 40 + 1) ** 2 (the
+# published config's factor 40 and mscale_all_dim 0.707):
+# (B, H, KV, S, hd, v's width, scale)
+FA_MLA = (4, 16, 16, 1024, 192, 128, 192 ** -0.5 * (0.1 * 0.707 * math.log(40) + 1) ** 2)
 # every head dim the wrapper takes past the old four (instances, pads and
 # the wide kernel) x {float32, bfloat16, float16} x causal / non-causal, at
 # a ragged 300 rows
@@ -337,7 +350,7 @@ SERVE_LAUNCHES = {
     "mamba2-130m": {"ssd_scan": 24},                      # every layer's SSD scan
     "hymba-1.5b": {"flash_attention": 3, "ssd_scan": 32},  # 3 global layers; every layer
     "kimi-k2-1t-a32b": {"flash_attention": 2},            # both layers' prompt attention
-    "deepseek-v2-lite-16b": {},                           # MLA and MoE reach no kernel
+    "deepseek-v2-lite-16b": {"flash_attention": 27},      # every layer's MLA prefill
     "whisper-tiny": {"flash_attention": 8},               # 4 encoder + 4 decoder layers
     "phi4-mini-3.8b": {"flash_attention": 32},            # every layer's prompt attention
     "internvl2-2b": {"flash_attention": 24},
@@ -627,17 +640,18 @@ def plant_fault(flash, fault: str, q_axis: int):
     """``flash(q, k, v, causal=...)`` with a fault planted: the causal mask
     ignored, the causal mask applied to every call, or the last kv tile
     skipped (its rows then see only the keys before it).  ``q_axis`` is the
-    sequence axis of q, k and v."""
+    sequence axis of q, k and v; other keywords (``scale``) pass through."""
 
-    def faulty(q, k, v, *, causal):
+    def faulty(q, k, v, *, causal, **kw):
         if fault == "non-causal":
-            return flash(q, k, v, causal=False)
+            return flash(q, k, v, causal=False, **kw)
         if fault == "causal mask applied":
-            return flash(q, k, v, causal=True)
+            return flash(q, k, v, causal=True, **kw)
         t = q.shape[q_axis] - FAULT_TILE
         head = lambda x, a, b: x.narrow(q_axis, a, b - a)  # noqa: E731
-        out = flash(q, k, v, causal=causal).clone()
-        tail = flash(head(q, t, q.shape[q_axis]), head(k, 0, t), head(v, 0, t), causal=False)
+        out = flash(q, k, v, causal=causal, **kw).clone()
+        tail = flash(head(q, t, q.shape[q_axis]), head(k, 0, t), head(v, 0, t), causal=False,
+                     **kw)
         head(out, t, q.shape[q_axis]).copy_(tail)
         return out
 
@@ -690,12 +704,12 @@ def check_flash(gen) -> dict:
         return (randn(B, H, Sq, hd, dtype=dtype), randn(B, KV, Skv, hd, dtype=dtype),
                 randn(B, KV, Skv, hd, dtype=dtype))
 
-    def held(label, dname, q, k, v, causal):
+    def held(label, dname, q, k, v, causal, scale=None):
         """The kernel against the plain version, within TOL and ROW_REL_TOL;
         returns the max abs error and the plain version's output."""
-        out = flash_attention_gqa(q, k, v, causal=causal)
+        out = flash_attention_gqa(q, k, v, causal=causal, scale=scale)
         torch.cuda.synchronize()
-        ref = attention_ref(q, k, v, causal=causal)
+        ref = attention_ref(q, k, v, causal=causal, scale=scale)
         torch.cuda.synchronize()
         if out.shape != ref.shape or out.dtype != ref.dtype:
             fail(f"flash {label} {dname}: {out.shape}/{out.dtype} vs {ref.shape}/{ref.dtype}")
@@ -706,11 +720,11 @@ def check_flash(gen) -> dict:
             fail(f"flash {label} {dname}: kernel disagrees with the plain version")
         return err, ref
 
-    def faults_rejected(q, k, v, causal, ref, dname="bfloat16"):
+    def faults_rejected(q, k, v, causal, ref, dname="bfloat16", scale=None):
         """Each planted fault of a causal (FAULTS) or non-causal
         (NON_CAUSAL_FAULTS) call must fail ``compare``."""
         for fault in FAULTS if causal else NON_CAUSAL_FAULTS:
-            bad = plant_fault(flash_attention_gqa, fault, 2)(q, k, v, causal=causal)
+            bad = plant_fault(flash_attention_gqa, fault, 2)(q, k, v, causal=causal, scale=scale)
             b_err, b_row, b_within, b_row_ok = compare(bad, ref, dname)
             verdict = lambda ok: "passed" if ok else "rejected"  # noqa: E731
             print(f"[flash] planted fault '{fault}': max_abs_err {b_err:.3e} "
@@ -868,7 +882,48 @@ def check_flash_contract(contiguous, model_views, held, faults_rejected) -> dict
               f"{t['bound_ms']:.4f} ms ({t['bound_by']}: {t['flops']:.4e} FLOP, {t['bytes']} B) | "
               f"wrapper host time {t['host_us']:.1f} us a call{pad}")
         del qkv
+    contract["deepseek-v2-lite MLA"] = check_flash_mla(model_views, held, faults_rejected)
     return contract
+
+
+def check_flash_mla(model_views, held, faults_rejected) -> dict:
+    """K1 at deepseek-v2-lite's MLA prefill (FA_MLA), as ``attention._mla_flash``
+    calls it: the model's views of q and k, v's columns past its width zero,
+    YaRN's scale passed; one launch and one pad (to the hd-256 instance) a
+    call, held to the plain version at that scale causal and non-causal
+    with the planted faults, v's zero columns zero in the output, and timed
+    as the prefills are (the bound counts v at the padded 192)."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.kernel import kernel_route
+
+    B, H, KV, S, hd, dv, scale = FA_MLA
+    bf16 = torch.bfloat16
+    name = f"deepseek-v2-lite MLA {(B, H, KV, S, hd)} v {dv} scale {scale:.7f}"
+    kernel, width, padded = kernel_route(hd, bf16)
+    if (width, padded) != (256, True):
+        fail(f"{name}: routed to hd {width}, padded {padded}; expected the pad to 256")
+    q, k, v = model_views(B, H, KV, S, S, hd, bf16)
+    v = torch.nn.functional.pad(v.transpose(1, 2)[..., :dv], (0, hd - dv)).transpose(1, 2)
+    n0, pads0 = _counter(fa_ops.LAUNCHES), _counter(fa_ops.PADS)
+    err, ref = held(f"{name} model views causal", "bfloat16", q, k, v, True, scale=scale)
+    n, pads = _counter(fa_ops.LAUNCHES) - n0, _counter(fa_ops.PADS) - pads0
+    if (n, pads) != (1, 1):
+        fail(f"{name}: {n} launches and {pads} pads for one call")
+    if bool(fa_ops.flash_attention_gqa(q, k, v, causal=True, scale=scale)[..., dv:].any()):
+        fail(f"{name}: the output's columns past v's {dv} are not zero")
+    faults_rejected(q, k, v, True, ref, "bfloat16", scale=scale)
+    _, ref = held(f"{name} model views non-causal", "bfloat16", q, k, v, False, scale=scale)
+    faults_rejected(q, k, v, False, ref, "bfloat16", scale=scale)
+    del ref
+    t = {"shape": (B, H, KV, S, S, hd, True), "v_width": dv, "scale": scale, "dtype": "bfloat16",
+         "kernel": kernel, "instance_hd": width, "padded": padded, "max_abs_err": err,
+         **flash_times(q, k, v, causal=True),
+         "host_us": wrapper_host_us(lambda: fa_ops.flash_attention_gqa(q, k, v, scale=scale))}
+    print(f"[flash] {name} ({kernel} at hd {width}): kernel {t['ms']:.4f} ms | card only "
+          f"{t['card_ms']:.4f} ms | plain {t['plain_ms']:.4f} ms | sdpa {t['library_ms']:.4f} ms | "
+          f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}: {t['flops']:.4e} FLOP, {t['bytes']} B) "
+          f"| wrapper host time {t['host_us']:.1f} us a call")
+    return t
 
 
 def sdpa_backend(q, k, v, causal: bool) -> str:
@@ -1947,7 +2002,8 @@ class RouterPin:
         if self.pin:
             top_i = self.picks["f32"][layer][self.rows].to(probs.device)
             top_w = probs.gather(-1, top_i)
-            top_w = top_w / torch.clamp(top_w.sum(-1, keepdim=True), min=1e-9)
+            if cfg.moe.norm_topk_prob:
+                top_w = top_w / torch.clamp(top_w.sum(-1, keepdim=True), min=1e-9)
         return probs, top_i, top_w
 
     def moved(self, label: str) -> int:
@@ -2076,16 +2132,22 @@ def plant_latent_fault(update):
 
 def phase_model_deepseek() -> dict:
     """deepseek-v2-lite at full width and depth (CONFIG_CUTS): the smoke config
-    on the card against the CPU; then in bf16 a 1024-token prefill in the
-    absorbed form (against the latent cache) and DEEPSEEK_STEPS decode
-    steps, held to the expanded cache-free forward over the same tokens,
-    each measured from the f32-compute expanded forward: block by block
-    (prefill hidden states) and step by step (logits), with routing pinned
-    to the f32 run's (``RouterPin``; the free-routing ratios are printed),
-    and with a planted fault, all of these with eager decode steps; no
-    kernel launches; the absorbed run through decode graphs, routing freely
-    with the router unpatched, held bit for bit to the free-routing run
-    eager; then the decode breakdown."""
+    on the card against the CPU; then in bf16 a 1024-token prefill into the
+    latent cache (its MoE layers in the routed form) and DEEPSEEK_STEPS
+    decode steps, held to the expanded cache-free forward over the same
+    tokens, each measured from the f32-compute expanded forward: block by
+    block (prefill hidden states) and step by step (logits), with routing
+    pinned to the f32 run's (``RouterPin``; the free-routing ratios are
+    printed), all of these with eager decode steps.  Twice: with the
+    reference impl (MLA's prefill in the absorbed form; no kernel launches,
+    and a planted latent-cache fault), and with ``pallas``, the serving
+    path (MLA's prefill on K1: ``SERVE_LAUNCHES`` launches, each layer's
+    attention with v padded to q . k's 192, the kernel padding 192 to 256),
+    held also to the reference-impl run's distance from the f32 forward, as
+    kimi's flash path is, with both planted K1 faults.  Then the absorbed
+    run through decode graphs, routing freely with the router unpatched,
+    held bit for bit to the free-routing run eager; then the decode
+    breakdown."""
     from repro_torch.models import attention, moe
     from repro_torch.models import transformer as tx
     from repro_torch.models.layers import logits_matmul
@@ -2124,30 +2186,46 @@ def phase_model_deepseek() -> dict:
         return hidden, torch.stack(logits, dim=1)
 
     counters = _kernel_counters()
+
+    def launched(c, label):
+        """``absorbed(c, label)`` and the kernel launches it made."""
+        n0 = {k: _counter(ops.LAUNCHES) for k, ops in counters.items()}
+        got = absorbed(c, label)
+        torch.cuda.synchronize()
+        return got, {k: _counter(ops.LAUNCHES) - n0[k] for k, ops in counters.items()}
+
+    # the absorbed prefill is the reference impl's; with "pallas" (the zoo's
+    # and the serving path's) a prefill's MLA takes K1
+    acfg = cfg.replace(attention_impl="reference")
     pcfg = cfg.replace(attention_impl="pallas")
-    real_update = attention._update_latent_cache
+    real_update, real_flash = attention._update_latent_cache, attention._flash
     moe._router = router
     try:
         with torch.inference_mode(), eager_decode("the router is patched"):
             exact = expanded(cfg.replace(compute_dtype=torch.float32), "f32", pin=False)
-            free = (expanded(cfg, "expanded", pin=False), absorbed(pcfg, "absorbed", pin=False))
+            free = (expanded(cfg, "expanded", pin=False), absorbed(acfg, "absorbed", pin=False))
             ref = expanded(cfg, "expanded pinned")
-            n0 = {k: _counter(ops.LAUNCHES) for k, ops in counters.items()}
-            out = absorbed(pcfg, "absorbed pinned")
-            torch.cuda.synchronize()
-            n = {k: _counter(ops.LAUNCHES) - n0[k] for k, ops in counters.items()}
+            out, n = launched(acfg, "absorbed pinned")
+            flash, n_flash = launched(pcfg, "flash pinned")
             attention._update_latent_cache = plant_latent_fault(real_update)
             try:
-                bad = absorbed(pcfg, LATENT_FAULT)
+                bad = absorbed(acfg, LATENT_FAULT)
             finally:
                 attention._update_latent_cache = real_update
+            planted = {}
+            for fault in FAULTS:
+                attention._flash = plant_fault(real_flash, fault, 1)
+                try:
+                    planted[fault] = absorbed(pcfg, fault)
+                finally:
+                    attention._flash = real_flash
     finally:
         moe._router = router.real
     # free routing with the router as it is: the decode graphs' run against
     # the eager run made with RouterPin recording (it changes nothing unpinned)
     with torch.inference_mode():
         modes0 = graph_modes()
-        graphed = absorbed(pcfg, "graphs", pin=False)
+        graphed = absorbed(acfg, "graphs", pin=False)
         torch.cuda.synchronize()
         modes = {m: k - modes0[m] for m, k in graph_modes().items()}
     graphs = check_graph_run("deepseek full width", graphed, free[1], modes)
@@ -2166,6 +2244,11 @@ def phase_model_deepseek() -> dict:
 
     noise = noise_of(ref)
     got, worse = ratios(out, noise), ratios(bad, noise)
+    # K1's run from the expanded run's distance, and from the reference-impl
+    # run's (the same path but MLA's prefill attention)
+    ref_noise = noise_of(out)
+    got_flash = {"expanded": ratios(flash, noise), "reference": ratios(flash, ref_noise)}
+    flash_faults = {f: ratios(b, ref_noise) for f, b in planted.items()}
     free_got = ratios(free[1], noise_of(free[0]))
     moved = {k: router.moved(k) for k in ("expanded", "absorbed")}
     span = lambda t: f"{t.min().item():.3e}-{t.max().item():.3e}"  # noqa: E731
@@ -2182,6 +2265,16 @@ def phase_model_deepseek() -> dict:
     print(f"[model] planted fault '{LATENT_FAULT}': worst ratios block {worse['forward']:.3f}, "
           f"decode {worse['decode']:.3f} -> forward check "
           f"{'PASSED' if worse['forward'] <= FORWARD_NOISE else 'rejected'}")
+    print(f"[model] deepseek serving prefill (MLA on K1, routed experts) + {steps} decode steps, "
+          f"routing pinned: rel_l2 {rel(flash[0], exact[0]):.3e} from the f32 forward, "
+          f"{rel(flash[0], out[0]):.3e} from the reference-impl run | worst ratios against the "
+          f"expanded run's noise: block {got_flash['expanded']['forward']:.3f}, decode "
+          f"{got_flash['expanded']['decode']:.3f}; against the reference-impl run's: block "
+          f"{got_flash['reference']['forward']:.3f}, decode "
+          f"{got_flash['reference']['decode']:.3f} (tol {FORWARD_NOISE}) | launches {n_flash}")
+    for fault, b_ratio in flash_faults.items():
+        print(f"[model] planted K1 fault '{fault}': worst block ratio {b_ratio['forward']:.3f} -> "
+              f"{'PASSED' if b_ratio['forward'] <= FORWARD_NOISE else 'rejected'}")
     if out[0].shape != (1, S, cfg.d_model) or out[1].shape != (1, steps, cfg.vocab_size):
         fail(f"full-width deepseek run: wrong shapes {[tuple(t.shape) for t in out]}")
     if not all(bool(torch.isfinite(t).all()) for t in out):
@@ -2189,13 +2282,25 @@ def phase_model_deepseek() -> dict:
     if worse["forward"] <= FORWARD_NOISE:
         fail(f"the deepseek check does not see the planted fault '{LATENT_FAULT}'")
     if any(n.values()):
-        fail(f"deepseek's path launched kernels: {n}")
+        fail(f"deepseek's reference-impl path launched kernels: {n}")
     if max(got.values()) > FORWARD_NOISE:
         fail("full-width deepseek run: the absorbed form disagrees with the expanded form")
-    del ref, exact, out, bad, free
+    want = {k: SERVE_LAUNCHES[arch].get(k, 0) for k in counters}
+    if n_flash != want:
+        fail(f"deepseek's serving prefill launched {n_flash}, not {want}")
+    if not all(bool(torch.isfinite(t).all()) for t in flash):
+        fail("full-width deepseek serving prefill: non-finite values")
+    if max(max(r.values()) for r in got_flash.values()) > FORWARD_NOISE:
+        fail("full-width deepseek run: MLA's prefill on K1 disagrees with the reference impl")
+    for fault, b_ratio in flash_faults.items():
+        if b_ratio["forward"] <= FORWARD_NOISE:
+            fail(f"the deepseek K1 check does not see the planted fault '{fault}'")
+    del ref, exact, out, bad, free, flash, planted
     res = {**sizes, "worst_block_ratio": got["forward"], "worst_decode_ratio": got["decode"],
            "free_routing_ratios": free_got, "routings_moved": moved, "fault_ratios": worse,
-           "launches": n, "decode_graphs": graphs, "decode": decode_breakdown(tx, cfg, params)}
+           "launches": n, "flash_ratios": got_flash, "flash_launches": n_flash,
+           "flash_fault_ratios": flash_faults, "decode_graphs": graphs,
+           "decode": decode_breakdown(tx, cfg, params)}
     del params
     torch.cuda.empty_cache()
     return res
@@ -3774,8 +3879,8 @@ def main() -> int:
         done(f"phase 3 {arch} serve")
     served["whisper-tiny"] = phase_serve_whisper()
     done("phase 3 whisper-tiny serve")
-    # every serve path's launches: every attention arch's flash but
-    # deepseek's, mamba's and hymba's ssd_scan
+    # every serve path's launches: every attention arch's flash, mamba's and
+    # hymba's ssd_scan
     for entry in (fa, ssd):
         entry["launches"] = sum(res["launches"][entry["name"]] for res in served.values())
 

@@ -11,11 +11,13 @@ prompt's SSD scan through ``ssd_scan`` (mamba2-130m), and both for
 hymba-1.5b: the prompt attention of its three global layers through
 ``flash_attention`` and every layer's SSD scan through ``ssd_scan``.  Its
 sliding-window layers attend over the prompt in plain PyTorch and keep their
-keys in ring caches of ``window`` slots.  The MoE archs serve through the
-experts' dense form, since the context says ``decode=True`` in prefill too,
-as the JAX driver's does: kimi-k2's prompt attention goes through
-``flash_attention``; deepseek-v2-lite's MLA attends against its latent
-cache in plain PyTorch and reaches no kernel.  An encoder-decoder arch
+keys in ring caches of ``window`` slots.  The MoE archs prefill through the
+experts' routed form on one device (the dense form on a mesh, since the
+context says ``decode=True`` in prefill too, as the JAX driver's does) and
+decode through the dense form; kimi-k2's prompt attention and
+deepseek-v2-lite's MLA (keys and values expanded per head from the latent)
+go through ``flash_attention``, and MLA's decode attends against its latent
+cache in plain PyTorch.  An encoder-decoder arch
 (whisper-tiny) is refused up front, as the JAX driver serves none of its
 requests; ``repro_torch.models.whisper``'s ``prefill``/``decode_step`` serve
 it, and ``chip_smoke.py`` drives them.

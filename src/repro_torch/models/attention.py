@@ -22,13 +22,17 @@ itself with the window's mask and keeps the prompt's last ``window`` keys
 attends over every valid slot, as the JAX package does.  Windowed layers
 never take the flash kernel, which has no window.
 
-MLA (DeepSeek's multi-head latent attention, ``apply_mla``) follows the
-JAX package's dispatch exactly: without a cache it expands keys and values
-per head; with one (prefill and decode) it writes the latent ``c`` and the
-rotated ``k_rope`` at slots ``(length + i) % size`` and attends in the
-latent space (the *absorbed* form).  Both go through ``chunked_attention``
-and never a kernel, as in the JAX package; ``attention_impl`` changes
-nothing for MLA.
+MLA (DeepSeek's multi-head latent attention, ``apply_mla``): without a
+cache it expands keys and values per head, as the JAX package does; with
+one it writes the latent ``c`` and the rotated ``k_rope`` at slots
+``(length + i) % size``.  A decode step, and any prefill off the kernel,
+attends in the latent space (the *absorbed* form) through
+``chunked_attention``, as the JAX package does.  A prefill into an empty
+cache with the kernel configured (the dense path's condition) expands keys
+and values per head and runs the flash kernel (``_mla_flash``), where the
+JAX package takes the absorbed form: the same function.  The configuration
+may add the published model's latent RMSNorm (``MLAConfig.latent_norm``) and
+YaRN (``ModelConfig.yarn``: the rotary frequencies and the softmax scale).
 
 Cross attention (whisper's decoder, ``cross_kv=(k, v)``) projects q only and
 attends over the encoder's keys with ``chunked_attention``, unmasked and with
@@ -64,7 +68,7 @@ from repro_torch.models.common import (
     unshard,
     write_rows,
 )
-from repro_torch.models.layers import apply_rope, normal_init
+from repro_torch.models.layers import apply_norm, apply_rope, init_norm, normal_init, yarn_mscale
 from repro_torch.runtime import trace
 
 Params = dict[str, Any]
@@ -81,9 +85,13 @@ def init_attention(cfg, gen: torch.Generator) -> Params:
     if cfg.mla is not None:
         m = cfg.mla
         r = m.kv_lora_rank
-        return {
+        p = {
             "w_q": normal_init(gen, (d, H, m.qk_nope_dim + m.qk_rope_dim), std, dt),
             "w_dkv": normal_init(gen, (d, r + m.qk_rope_dim), std, dt),
+        }
+        if m.latent_norm:
+            p["kv_norm"] = init_norm(cfg, r, gen.device)
+        return p | {
             "w_uk": normal_init(gen, (r, H, m.qk_nope_dim), r**-0.5, dt),
             "w_uv": normal_init(gen, (r, H, m.v_head_dim), r**-0.5, dt),
             "w_o": normal_init(gen, (H, m.v_head_dim, d), (H * m.v_head_dim) ** -0.5, dt),
@@ -259,17 +267,19 @@ def _decode_attention(q, k, v, *, causal, window, q_offset, kv_len, scale):
     return out.to(v.dtype)
 
 
-def _flash(q, k, v, *, causal):
+def _flash(q, k, v, *, causal, scale=None):
     """Model layout q (B,S,KV,G,hd), k/v (B,S,KV,hd) through the kernel's
     (B,H,S,hd) layout.  The kernel takes strides, so the transposes are views.
     On ``DTensor`` inputs each rank runs the kernel on its batch rows."""
-    return batch_local(functools.partial(_flash_rows, causal=causal), q, k, v, rows=3)
+    return batch_local(functools.partial(_flash_rows, causal=causal, scale=scale),
+                       q, k, v, rows=3)
 
 
-def _flash_rows(q, k, v, *, causal):
+def _flash_rows(q, k, v, *, causal, scale=None):
     B, S, KV, G, hd = q.shape
     qk = q.permute(0, 2, 3, 1, 4).reshape(B, KV * G, S, hd)
-    out = flash_attention_gqa(qk, k.transpose(1, 2), v.transpose(1, 2), causal=causal)
+    out = flash_attention_gqa(qk, k.transpose(1, 2), v.transpose(1, 2), causal=causal,
+                              scale=scale)
     return out.reshape(B, KV, G, S, hd).permute(0, 3, 1, 2, 4)
 
 
@@ -489,45 +499,57 @@ def apply_mla(
 ) -> tuple[torch.Tensor, Params | None]:
     """DeepSeek-V2 MLA: low-rank compressed KV with decoupled RoPE keys.
 
-    With a cache the scores are computed in the latent space (the absorbed
-    form), so the cache is only ``kv_lora_rank + qk_rope_dim`` wide.
+    The cache holds only the (normalised, with ``latent_norm``) latent and
+    the rotated rope keys, ``kv_lora_rank + qk_rope_dim`` wide.  A decode
+    step computes the scores in the latent space (the absorbed form); a
+    prefill with ``ctx.prefill`` and the kernel configured runs
+    ``_mla_flash``.  Spans: ``attn.proj`` (with ``attn.norm``, the latent
+    norm, inside it), ``attn.cache``, and ``attn.core`` with ``impl`` flash,
+    absorbed or chunked (the cache-free expanded form).
     """
     m = cfg.mla
     ct = cfg.compute_dtype
     H = cfg.num_heads
     B, S, _ = x.shape
-    scale = (m.qk_nope_dim + m.qk_rope_dim) ** -0.5
+    scale = mla_scale(cfg)
 
     with trace.span("attn.proj"):
         x = x.to(ct)
         q = torch.einsum("bsd,dhk->bshk", x, p["w_q"].to(ct))
         q = shard_hint(q, ctx, ("dp", None, "tp", None))
         q_nope, q_rope = q.split([m.qk_nope_dim, m.qk_rope_dim], dim=-1)
-        q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+        q_rope = apply_rope(q_rope, positions, cfg.rope_theta, cfg.yarn)
 
         ckr = x @ p["w_dkv"].to(ct)  # (B, S, r + rope)
         c, k_rope = ckr.split([m.kv_lora_rank, m.qk_rope_dim], dim=-1)
-        k_rope = apply_rope(k_rope[:, :, None, :], positions, cfg.rope_theta)[:, :, 0]
+        if m.latent_norm:
+            with trace.span("attn.norm"):
+                c = apply_norm(cfg, p["kv_norm"], c)
+        k_rope = apply_rope(k_rope[:, :, None, :], positions, cfg.rope_theta,
+                            cfg.yarn)[:, :, 0]
 
     if cache is None:
         # train / cache-free forward: keys and values expanded per head
         with trace.span("attn.core", window=0, impl=_impl(S, S)):
-            k_nope = torch.einsum("bsr,rhk->bshk", c, p["w_uk"].to(ct))
-            vfull = torch.einsum("bsr,rhk->bshk", c, p["w_uv"].to(ct))
-            k = torch.cat([k_nope, k_rope[:, :, None, :].expand(B, S, H, m.qk_rope_dim)],
-                          dim=-1)
-            qf = torch.cat([q_nope, q_rope], dim=-1)
+            qf, k, vfull = _mla_expand(p, q_nope, q_rope, c, k_rope, ct)
             out = chunked_attention(
                 qf.reshape(B, S, H, 1, -1), k, vfull,
                 causal=True, chunk=cfg.attention_chunk, scale=scale,
             ).reshape(B, S, H, m.v_head_dim)
         new_cache = None
+    elif getattr(ctx, "prefill", False) and cfg.attention_impl == "pallas":
+        # prompt attention of a prefill into an empty cache: the kernel's
+        # causal case over the S new keys, as the dense path's
+        with trace.span("attn.cache"):
+            new_cache = _update_latent_cache(cache, c, k_rope)[2]
+        with trace.span("attn.core", window=0, impl="flash"):
+            out = _mla_flash(p, q_nope, q_rope, c, k_rope, scale=scale, ct=ct)
     else:
         # absorbed form against the latent cache
         with trace.span("attn.cache"):
             c_all, kr_all, new_cache, length, new_len = _update_latent_cache(
                 cache, c, k_rope)
-        with trace.span("attn.core", window=0, impl=_impl(S, c_all.shape[1])):
+        with trace.span("attn.core", window=0, impl="absorbed"):
             q_abs = torch.einsum("bshk,rhk->bshr", q_nope, p["w_uk"].to(ct))
             # latent "keys" = [c, k_rope]; latent "queries" = [q_abs, q_rope]
             k_lat = torch.cat([c_all, kr_all], dim=-1)   # (B, T, r + rope)
@@ -544,6 +566,43 @@ def apply_mla(
     with trace.span("attn.proj"):
         y = _out_proj(out, p["w_o"].to(ct))
         return shard_hint(y, ctx, ("dp", None, None)), new_cache
+
+
+def mla_scale(cfg) -> float:
+    """MLA's softmax scale: ``(nope + rope) ** -0.5``, times
+    ``yarn_mscale(factor, mscale_all_dim) ** 2`` under YaRN."""
+    m, y = cfg.mla, cfg.yarn
+    scale = (m.qk_nope_dim + m.qk_rope_dim) ** -0.5
+    if y is not None and y.mscale_all_dim:
+        scale *= yarn_mscale(y.factor, y.mscale_all_dim) ** 2
+    return scale
+
+
+def _mla_expand(p, q_nope, q_rope, c, k_rope, ct):
+    """MLA's queries, keys and values expanded per head from the latent ``c``:
+    q and k (B, S, H, nope + rope), the rotated ``k_rope`` shared by every
+    head, and v (B, S, H, v_head_dim)."""
+    B, S, H, _ = q_nope.shape
+    k_nope = torch.einsum("bsr,rhk->bshk", c, p["w_uk"].to(ct))
+    v = torch.einsum("bsr,rhk->bshk", c, p["w_uv"].to(ct))
+    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(B, S, H, k_rope.shape[-1])], dim=-1)
+    return torch.cat([q_nope, q_rope], dim=-1), k, v
+
+
+def _mla_flash(p, q_nope, q_rope, c, k_rope, *, scale, ct):
+    """Causal MLA over the S prompt tokens on the flash kernel, from
+    ``_mla_expand``'s per-head keys and values: (B, S, H, v_head_dim).  The
+    kernel takes one head dim for q, k and v, so the narrower side is
+    zero-padded (v, to q . k's nope + rope, in DeepSeek-V2): zero columns add
+    nothing to q . k, and v's zero output columns are sliced off."""
+    B, S, H, _ = q_nope.shape
+    q, k, v = _mla_expand(p, q_nope, q_rope, c, k_rope, ct)
+    dv = v.shape[-1]
+    w = max(q.shape[-1], dv)
+    q, k, v = (t if t.shape[-1] == w else torch.nn.functional.pad(t, (0, w - t.shape[-1]))
+               for t in (q, k, v))
+    out = _flash(q[:, :, :, None], k, v, causal=True, scale=scale)  # (B, S, H, 1, w)
+    return out[..., :dv].reshape(B, S, H, dv).contiguous()
 
 
 def _update_latent_cache(cache, c, k_rope):

@@ -292,6 +292,9 @@ class MoEConfig:
     first_dense: int = 0           # leading dense layers before MoE starts
     capacity_factor: float = 1.25
     router_aux_coef: float = 0.01
+    # the port's own options; the defaults give the JAX package's maths
+    norm_topk_prob: bool = True    # False: the chosen router probabilities as they are
+    dense_d_ff: int = 0            # leading dense layers' hidden; 0: (top_k + shared) * expert_d_ff
 
 
 @dataclass
@@ -318,12 +321,31 @@ class MLAConfig:
     qk_nope_dim: int = 128
     v_head_dim: int = 128
     q_lora_rank: int = 0  # 0 = full-rank q projection (V2-Lite)
+    # the port's own option (off: the JAX package's maths): RMSNorm of the
+    # latent c with a learned scale (DeepSeek-V2's kv_a_layernorm)
+    latent_norm: bool = False
+
+
+@dataclass(frozen=True)
+class YarnConfig:
+    """YaRN's scaling of the rotary frequencies (DeepSeek-V2's
+    ``rope_scaling`` of type "yarn"); ``layers.yarn_inv_freq`` and
+    ``layers.yarn_mscale`` compute from it."""
+
+    factor: float = 1.0
+    original_max_position_embeddings: int = 4096
+    beta_fast: float = 32.0
+    beta_slow: float = 1.0
+    mscale: float = 1.0
+    mscale_all_dim: float = 0.0
 
 
 @dataclass
 class ModelConfig:
     name: str
-    family: str                    # dense | moe | ssm | hybrid | audio | vlm
+    # dense | moe | ssm | hybrid | audio | vlm; a config with ``moe`` stacks
+    # MoE layers whatever its family is named (deepseek_v2 in the benchmark)
+    family: str
     num_layers: int
     d_model: int
     num_heads: int
@@ -341,6 +363,9 @@ class ModelConfig:
     moe: MoEConfig | None = None
     ssm: SSMConfig | None = None
     mla: MLAConfig | None = None
+    # the port's own option (None: the JAX package's plain RoPE): YaRN on
+    # MLA's rotary dims and in its softmax scale
+    yarn: YarnConfig | None = None
 
     # hybrid (hymba): sliding window for local attention layers; indices of
     # layers using global (full) attention

@@ -3,6 +3,7 @@
 from __future__ import annotations
 
 import functools
+import math
 from typing import Any
 
 import numpy as np
@@ -46,26 +47,60 @@ def rope_frequencies(head_dim: int, theta: float) -> np.ndarray:
     return 1.0 / (theta ** (np.arange(0, head_dim, 2) / head_dim))
 
 
+def yarn_mscale(scale: float, mscale: float) -> float:
+    """YaRN's magnitude factor ``0.1 a ln s + 1`` (1 where s <= 1)."""
+    return 1.0 if scale <= 1 else 0.1 * mscale * math.log(scale) + 1.0
+
+
+def _yarn_dim(rotations: float, head_dim: int, theta: float, max_pos: int) -> float:
+    """The rotary dim whose wavelength fits ``rotations`` times in ``max_pos``."""
+    return head_dim * math.log(max_pos / (rotations * 2 * math.pi)) / (2 * math.log(theta))
+
+
+def yarn_inv_freq(head_dim: int, theta: float, yarn) -> np.ndarray:
+    """DeepSeek-V2's YaRN frequencies: the plain ones ``e_i`` below dim
+    ``low``, ``e_i / factor`` from dim ``high`` on, and a linear ramp
+    between, with ``low`` and ``high`` the dims whose wavelengths fit
+    ``beta_fast`` and ``beta_slow`` times in the original context."""
+    plain = rope_frequencies(head_dim, theta)
+    low = max(math.floor(_yarn_dim(yarn.beta_fast, head_dim, theta,
+                                   yarn.original_max_position_embeddings)), 0)
+    high = min(math.ceil(_yarn_dim(yarn.beta_slow, head_dim, theta,
+                                   yarn.original_max_position_embeddings)), head_dim - 1)
+    ramp = np.clip((np.arange(head_dim // 2) - low) / max(high - low, 1e-3), 0.0, 1.0)
+    return plain / yarn.factor * ramp + plain * (1.0 - ramp)
+
+
 @functools.lru_cache(maxsize=None)
-def _rope_freqs(head_dim: int, theta: float, device: torch.device) -> torch.Tensor:
+def _rope_freqs(head_dim: int, theta: float, device: torch.device,
+                yarn=None) -> torch.Tensor:
     # cached per device: a host-to-device copy from pageable memory on every
     # call would wait for the stream to drain.  Made outside inference mode
     # so that autograd may use it later.
+    freqs = (rope_frequencies(head_dim, theta) if yarn is None
+             else yarn_inv_freq(head_dim, theta, yarn))
     with torch.inference_mode(False):
-        return torch.as_tensor(
-            rope_frequencies(head_dim, theta), dtype=torch.float32, device=device
-        )
+        return torch.as_tensor(freqs, dtype=torch.float32, device=device)
 
 
-def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+               yarn=None) -> torch.Tensor:
     """x: (..., S, H, hd); positions: broadcastable to (..., S).
 
-    Split-halves rotation computed in f32.
+    Split-halves rotation computed in f32.  With ``yarn`` (a
+    ``common.YarnConfig``) the frequencies are YaRN's, and cos and sin are
+    scaled by ``yarn_mscale(factor, mscale) / yarn_mscale(factor,
+    mscale_all_dim)``.
     """
-    freqs = _rope_freqs(x.shape[-1], theta, x.device)
+    freqs = _rope_freqs(x.shape[-1], theta, x.device, yarn)
     angles = positions[..., None].float() * freqs  # (..., S, hd/2)
     cos = torch.cos(angles)[..., None, :]  # (..., S, 1, hd/2)
     sin = torch.sin(angles)[..., None, :]
+    if yarn is not None:
+        m = yarn_mscale(yarn.factor, yarn.mscale) / yarn_mscale(yarn.factor,
+                                                                yarn.mscale_all_dim)
+        if m != 1.0:
+            cos, sin = cos * m, sin * m
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)

@@ -20,6 +20,14 @@ Two forms share the parameters, as in the JAX package:
   prefill's ``(E, N, d)`` buffers would be some 65 GB.  No expert is
   skipped.
 
+* ``routed`` -- a prefill's form on one device (the port's own; the JAX
+  package serves prefill densely): the N * top_k token-expert pairs sorted
+  by expert, no capacity and nothing dropped, each expert's SwiGLU on its
+  own rows only, the weighted outputs summed per token in f32 and cast
+  once.  The same function as the dense form, at top_k / E of its expert
+  products.  Its buffers are sized by N * top_k, never by an expert's load,
+  so its memory does not depend on the routing.
+
 On ``DTensor`` inputs laid out on a ``DeviceMesh`` the EP form runs its
 body through ``local_map`` with the JAX package's ``shard_map`` specs
 (``apply_moe_ep_sharded``), and the dense form runs each rank's own
@@ -27,9 +35,22 @@ experts and sums their f32 outputs across ranks.
 
 ``apply_moe`` takes the EP form iff ``cfg.moe_impl == "ep"``, the context
 names an expert-parallel world and the call is not a decode, as the JAX
-package's does; serving passes ``decode=True`` in prefill too, so it always
-takes the dense form.  The router aux (load-balance) loss follows Switch:
-``E * sum_e f_e * P_e``.
+package's does; else the routed form in a prefill on one device (no world,
+plain tensors), else the dense form (decode: every expert, static shapes
+for the decode graph).  The router aux (load-balance) loss follows Switch:
+``E * sum_e f_e * P_e``.  The router weights the chosen experts by their
+softmax probabilities, renormalised over the top k unless
+``MoEConfig.norm_topk_prob`` is off.
+
+Spans (``repro_torch.runtime.trace``) of the dense and routed forms:
+``moe.route`` (router, top-k, the routed form's sort; ``form``, ``tokens``,
+``pairs``), ``moe.experts`` (from the tokens to the combined output;
+``form``, ``experts`` touched, ``largest`` load) and ``moe.shared``; the
+counters ``ROUTED_PAIRS`` and ``DENSE_PAIRS`` add the token-expert pairs
+each form computes, on the host as its code runs: a prefill, an eager
+decode step and a decode graph's capture are counted, a graph's replay is
+not (it runs no Python).  So ``DENSE_PAIRS`` inside a prefill says whether a
+prefill still runs every expert; it is no count of a window's decode work.
 """
 
 from __future__ import annotations
@@ -48,6 +69,7 @@ from torch.distributed.tensor.experimental import local_map
 from repro_torch.distributed.sharding import make_spec, placements
 from repro_torch.models.common import as_dtensor, relayout
 from repro_torch.models.layers import normal_init
+from repro_torch.runtime import trace
 
 Params = dict[str, Any]
 
@@ -55,6 +77,14 @@ Params = dict[str, Any]
 # width a slab's f32 weights are 2.8 GB and its bf16 expert outputs for one
 # serving prefill (N = 4096) about 1 GB
 EXPERTS_PER_SLAB = 16
+#: tokens a slice of the routed form's combine gathers at once
+COMBINE_TOKENS = 4096
+
+#: the tracer's counters of token-expert pairs computed by the routed form
+#: (top_k a token) and by the dense form (every expert a token); a replayed
+#: decode graph adds nothing to either
+ROUTED_PAIRS = "moe.routed_pairs"
+DENSE_PAIRS = "moe.dense_pairs"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -102,12 +132,15 @@ def init_moe(cfg, gen: torch.Generator) -> Params:
 
 
 def _router(cfg, p: Params, x2: torch.Tensor):
-    """x2: (N, d) -> probs (N, E), top-k ids and renormalised weights (f32 router)."""
+    """x2: (N, d) -> probs (N, E), top-k ids and their weights (f32 router):
+    the chosen probabilities, renormalised over the top k unless
+    ``norm_topk_prob`` is off."""
     mo = cfg.moe
     logits = x2.float() @ p["router"].float()
     probs = torch.softmax(logits, dim=-1)
     top_w, top_i = torch.topk(probs, mo.top_k, dim=-1)
-    top_w = top_w / torch.clamp(top_w.sum(-1, keepdim=True), min=1e-9)
+    if mo.norm_topk_prob:
+        top_w = top_w / torch.clamp(top_w.sum(-1, keepdim=True), min=1e-9)
     return probs, top_i, top_w
 
 
@@ -146,15 +179,86 @@ def apply_moe_dense(cfg, p: Params, x: torch.Tensor) -> tuple[torch.Tensor, torc
     ct = cfg.compute_dtype
     B, S, d = x.shape
     x2 = x.reshape(-1, d).to(ct)
-    N = x2.shape[0]
-    probs, top_i, top_w = _router(cfg, p, x2)
-    # combine weights over all experts: (N, E), zero off the top-k
-    combine = torch.zeros_like(probs).scatter_add(1, top_i, top_w).to(ct)
-    y = _routed_experts(cfg, x2, combine, p["w_gate"], p["w_up"], p["w_down"]).to(ct)
-    if mo.num_shared > 0:
-        y = y + _shared_ffn(cfg, p, x2)
-    aux = _aux_loss(cfg, probs, top_i)
-    return y.reshape(B, S, d), aux
+    N, E = x2.shape[0], mo.num_experts
+    with trace.span("moe.route", form="dense", tokens=N, pairs=N * E):
+        probs, top_i, top_w = _router(cfg, p, x2)
+        # combine weights over all experts: (N, E), zero off the top-k
+        combine = torch.zeros_like(probs).scatter_add(1, top_i, top_w).to(ct)
+        aux = _aux_loss(cfg, probs, top_i)
+    trace.count(DENSE_PAIRS, N * E)
+    with trace.span("moe.experts", form="dense", experts=E, largest=N):
+        y = _routed_experts(cfg, x2, combine, p["w_gate"], p["w_up"], p["w_down"]).to(ct)
+    return _with_shared(cfg, p, x2, y).reshape(B, S, d), aux
+
+
+def _with_shared(cfg, p: Params, x2: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """``y`` plus the shared experts' output on tokens ``x2``, if any."""
+    if cfg.moe.num_shared == 0:
+        return y
+    with trace.span("moe.shared"):
+        return y + _shared_ffn(cfg, p, x2)
+
+
+# -- routed form (a prefill on one device) ----------------------------------------
+
+def apply_moe_routed(cfg, p: Params, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Each expert on the tokens routed to it, and nothing dropped: the
+    dense form's function (the same router and weights, products of
+    compute-dtype values summed in f32) at top_k / E of its expert
+    products.  The experts' loads are read on the host once, to slice the
+    sorted rows."""
+    mo = cfg.moe
+    ct = cfg.compute_dtype
+    B, S, d = x.shape
+    x2 = x.reshape(-1, d).to(ct)
+    N, k = x2.shape[0], mo.top_k
+    with trace.span("moe.route", form="routed", tokens=N, pairs=N * k):
+        probs, top_i, top_w = _router(cfg, p, x2)
+        aux = _aux_loss(cfg, probs, top_i)
+        flat = top_i.reshape(-1)
+        order = torch.argsort(flat, stable=True)               # pairs by expert
+        loads = torch.bincount(flat, minlength=mo.num_experts).tolist()
+    trace.count(ROUTED_PAIRS, N * k)
+    with trace.span("moe.experts", form="routed", experts=sum(1 for n in loads if n),
+                    largest=max(loads)):
+        out = _expert_rows(cfg, p, x2[order // k], loads)      # (N k, d), sorted
+        slot = torch.empty_like(order)
+        slot[order] = torch.arange(N * k, device=order.device)
+        y = _combine_rows(out, slot.view(N, k), top_w.to(ct)).to(ct)
+    return _with_shared(cfg, p, x2, y).reshape(B, S, d), aux
+
+
+def _expert_rows(cfg, p: Params, rows: torch.Tensor, loads: list[int]) -> torch.Tensor:
+    """Each expert's SwiGLU on its slice of ``rows`` (sorted by expert,
+    ``loads[e]`` rows for expert e), written over ``rows`` in place: a
+    slice is read by its gate and up products before its down product
+    writes it."""
+    ct = cfg.compute_dtype
+    g = rows.new_empty((rows.shape[0], cfg.moe.expert_d_ff))
+    u = torch.empty_like(g)
+    start = 0
+    for e, n in enumerate(loads):
+        if n:
+            r = slice(start, start + n)
+            torch.mm(rows[r], p["w_gate"][e].to(ct), out=g[r])
+            torch.mm(rows[r], p["w_up"][e].to(ct), out=u[r])
+            h = F.silu(g[r], inplace=True).mul_(u[r])
+            torch.mm(h, p["w_down"][e].to(ct), out=rows[r])
+        start += n
+    return rows
+
+
+def _combine_rows(out: torch.Tensor, slot: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """sum_j w[t, j] * out[slot[t, j]] for each token t: (N, d) f32, the
+    products of compute-dtype values summed in f32, over slices of
+    ``COMBINE_TOKENS`` tokens."""
+    N, k = slot.shape
+    y = torch.empty((N, out.shape[-1]), dtype=torch.float32, device=out.device)
+    for t0 in range(0, N, COMBINE_TOKENS):
+        t = slice(t0, t0 + COMBINE_TOKENS)
+        picked = out[slot[t].reshape(-1)].view(-1, k, out.shape[-1]).float()
+        y[t] = (picked * w[t, :, None].float()).sum(1)
+    return y
 
 
 def _expert_slabs(cfg, x2, combine, w_gate, w_up, w_down) -> torch.Tensor:
@@ -384,14 +488,18 @@ def apply_moe_ep_sharded(cfg, p: Params, x: torch.Tensor, *, mesh: DeviceMesh,
 
 def apply_moe(cfg, p: Params, x: torch.Tensor, *,
               world: ExpertWorld | DeviceMesh | None = None, decode: bool = False,
-              dp_axes: tuple[str, ...] = ("data",),
+              prefill: bool = False, dp_axes: tuple[str, ...] = ("data",),
               ep_axis: str = "model") -> tuple[torch.Tensor, torch.Tensor]:
     """The JAX package's rule: EP iff ``moe_impl == "ep"``, there is a mesh
     (a ``DeviceMesh``, or an ``ExpertWorld`` for the world of one that the
-    single-card driver names) and the call is not a decode."""
+    single-card driver names) and the call is not a decode.  Otherwise a
+    ``prefill`` on one device (no world, plain tensors) takes the routed
+    form, and the rest the dense form."""
     if cfg.moe_impl == "ep" and world is not None and not decode:
         if isinstance(world, DeviceMesh):
             return apply_moe_ep_sharded(cfg, p, x, mesh=world, dp_axes=dp_axes,
                                         ep_axis=ep_axis)
         return apply_moe_ep(cfg, p, x, world=world)
+    if prefill and world is None and not isinstance(x, DTensor):
+        return apply_moe_routed(cfg, p, x)
     return apply_moe_dense(cfg, p, x)

@@ -100,7 +100,7 @@ def layer_groups(cfg: ModelConfig) -> list[LayerGroup]:
                 )
                 i = j
         return groups
-    if cfg.family == "moe":
+    if cfg.moe is not None:
         fd = cfg.moe.first_dense
         out = []
         if fd:
@@ -150,16 +150,17 @@ def _init_layer(cfg: ModelConfig, group: LayerGroup, gen: torch.Generator) -> Pa
     if group.kind == "moe":
         p["moe"] = moe_mod.init_moe(cfg, gen)
     else:
-        f = _dense_ff_for_moe(cfg) if cfg.family == "moe" else cfg.d_ff
+        f = _dense_ff_for_moe(cfg) if cfg.moe is not None else cfg.d_ff
         p["mlp"] = init_mlp(cfg, gen, cfg.d_model, f)
     return p
 
 
 def _dense_ff_for_moe(cfg: ModelConfig) -> int:
-    # Active-FLOP-matched hidden of an MoE arch's leading dense layer(s):
-    # (top_k + shared) * expert_d_ff, as the JAX package sets it.
+    # The hidden of an MoE arch's leading dense layer(s): the configured
+    # width, else the active-FLOP-matched (top_k + shared) * expert_d_ff, as
+    # the JAX package sets it.
     mo = cfg.moe
-    return (mo.top_k + mo.num_shared) * mo.expert_d_ff
+    return mo.dense_d_ff or (mo.top_k + mo.num_shared) * mo.expert_d_ff
 
 
 def init_params(cfg: ModelConfig, gen: torch.Generator) -> Params:
@@ -201,7 +202,7 @@ class RunCtx:
     ``moe.ExpertWorld()`` in place of a mesh is the world of one that the
     single-card driver names, as the JAX driver's (1, 1) mesh does.
     ``prefill`` marks a prefill into an empty cache, which lets attention
-    take the flash kernel."""
+    take the flash kernel and, on one device, MoE layers the routed form."""
 
     mesh: Any = None
     dp_axes: tuple[str, ...] = ("data",)
@@ -260,7 +261,8 @@ def _apply_layer(
     with trace.span("mlp"):
         if group.kind == "moe":
             y2, aux = moe_mod.apply_moe(cfg, p["moe"], h2, world=ctx.mesh, decode=ctx.decode,
-                                        dp_axes=ctx.dp_axes, ep_axis=ctx.ep_axis)
+                                        prefill=ctx.prefill, dp_axes=ctx.dp_axes,
+                                        ep_axis=ctx.ep_axis)
         else:
             y2, aux = apply_mlp(cfg, p["mlp"], h2), None
     return _pin(x + y2, ctx), aux

@@ -51,6 +51,40 @@ def test_prefill_shape_is_the_models(arch):
     assert shape in chip_smoke.FA_BF16_EDGES and shape in chip_smoke.FA_PREFILLS
 
 
+def test_deepseek_serve_launches_flash_once_a_layer():
+    """Every layer of deepseek-v2-lite is MLA, whose serving prefill runs K1."""
+    cfg = chip_smoke.cut_config("deepseek-v2-lite-16b")
+    assert cfg.mla is not None and cfg.num_layers == 27
+    assert chip_smoke.SERVE_LAUNCHES["deepseek-v2-lite-16b"] == {"flash_attention": 27}
+
+
+def test_mla_prefill_shape_is_deepseek_v2_lites():
+    """``FA_MLA`` is the published DeepSeek-V2-Lite's MLA prefill as
+    ``attention._mla_flash`` hands it to K1, at serving batch 4 and a
+    1024-token prompt: every head its own K/V head, q . k at nope + rope,
+    v at its own width, YaRN's softmax scale, and the wrapper's pad to the
+    hd-256 instance."""
+    import json
+
+    from repro_torch.kernels.flash_attention.kernel import kernel_route
+    from repro_torch.models import attention
+    from repro_torch.models.common import MLAConfig, YarnConfig
+
+    spec = json.loads((chip_smoke.ROOT / "chipbench" / "configs" /
+                       "deepseek-v2-lite.json").read_text())
+    model = spec["model"]
+    cfg = get_config("deepseek-v2-lite-16b").replace(mla=MLAConfig(**model["mla"]),
+                                                     yarn=YarnConfig(**model["yarn"]))
+    B, H, KV, S, hd, dv, scale = chip_smoke.FA_MLA
+    assert (B, S) == (4, 1024)
+    assert H == KV == model["num_heads"] == spec["num_attention_heads"]
+    assert hd == spec["qk_nope_head_dim"] + spec["qk_rope_head_dim"] == 192
+    assert dv == spec["v_head_dim"] == 128
+    assert scale == pytest.approx(attention.mla_scale(cfg), rel=1e-12)
+    assert scale == pytest.approx(0.1147214, abs=1e-7)
+    assert kernel_route(hd, torch.bfloat16)[1:] == (256, True)
+
+
 @pytest.mark.parametrize("arch", chip_smoke.DENSE_ARCHS)
 def test_dense_serve_args_are_the_serving_cell(arch):
     args = parse_args(chip_smoke.DENSE_SERVE_ARGS[arch])
@@ -77,7 +111,7 @@ def test_kernels_line_sums_the_serve_paths():
     assert sorted(served) == sorted(chip_smoke.SERVE_LAUNCHES)
     total = {k: 2 * sum(chip_smoke.SERVE_LAUNCHES[a].get(k, 0) for a in served)
              for k in ("flash_attention", "ssd_scan")}
-    assert total == {"flash_attention": 394, "ssd_scan": 112}
+    assert total == {"flash_attention": 448, "ssd_scan": 112}
 
 
 def test_every_decoder_only_arch_is_trained_card_against_cpu():

@@ -9,9 +9,11 @@ prefill takes the SSD kernel's plain version (the sequential recurrence) and
 the JAX loop its reference (the chunked form): the same function, so the
 tokens are equal.  hymba's prompts (28 tokens) are longer than its window
 (16), and its decode's write slot runs past the end of the local layers'
-rings and back to slot 0.  kimi-k2 and deepseek-v2-lite serve through the
-MoE layers' dense form, as the JAX serve driver's ``decode=True`` context
-makes it take, and deepseek's MLA through its latent cache.  The other
+rings and back to slot 0.  kimi-k2 and deepseek-v2-lite prefill through the
+MoE layers' routed form (the JAX serve driver's ``decode=True`` context
+makes it take the dense form: the same function) and decode through the
+dense form; deepseek's MLA prefills on the flash kernel's route (its plain
+version here) and decodes through its latent cache.  The other
 dense archs (phi4-mini-3.8b's tied head, internvl2-2b's VLM family served
 on tokens alone, as the JAX driver serves it, starcoder2-15b's LayerNorm and
 GELU with biases, granite-20b's single K/V head) serve as qwen2.5-3b does.
