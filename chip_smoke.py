@@ -37,6 +37,16 @@ Phases, each of which must pass (any failure exits non-zero):
      and deepseek-v2-lite's MLA prefill (``FA_MLA``, ``check_flash_mla``):
      q . k at 192 with v's 128 zero-padded to it, padded to the hd-256
      instance, at YaRN's softmax scale, held and faulted the same way;
+     and the sliding window (``check_flash_window``): hymba-1.5b's windowed
+     prefill in its benchmark cell (``FA_WINDOW``) in bf16 against the plain
+     windowed version and against ``chunked_attention`` (the path it
+     replaces), one launch and one window counted, with "window ignored"
+     and the last kv tile skipped planted, timed beside the causal kernel
+     at the same shape, ``chunked_attention`` and SDPA with the band as a
+     mask; the same in float16, in float32 and on the wide kernel at one
+     shape each (``FA_WINDOW_CONTRACT``), windows at and below a tile over a
+     ragged 1000 rows (``FA_WINDOW_EDGES``), and windows of at least S equal
+     to the causal kernel bit for bit;
    * the SSD scan over the kernel test shapes x {float32, bfloat16}
      (tolerance 5e-4 / 3e-2 on y and the final state, plus a per-step
      relative L2 limit on y), over bf16 shapes at the tensor-core kernel's
@@ -80,8 +90,9 @@ Phases, each of which must pass (any failure exits non-zero):
    too; qwen2.5-3b once more with float16 compute, 36 K1 launches on the
    f16 instance, and mamba2-130m once more at mamba_ssm's chunk of 256, 24
    K2 launches); then a breakdown of the serving decode step (host time, device
-   kernel time, bound).  hymba's run is a 2048-token prefill (3 flash and
-   32 SSD launches, exactly) and decode steps that write past the end of
+   kernel time, bound).  hymba's run is a 2048-token prefill (32 flash
+   launches, 29 of them windowed, and 32 SSD launches, exactly) and decode
+   steps that write past the end of
    its local layers' 1024-slot rings, checked also at every decode step's
    logits and in every ring, where a planted ring write that stops at the
    last slot must fail. kimi-k2 runs at full width cut to 2 layers (its
@@ -328,6 +339,23 @@ FA_CONTRACT = {
 # published config's factor 40 and mscale_all_dim 0.707):
 # (B, H, KV, S, hd, v's width, scale)
 FA_MLA = (4, 16, 16, 1024, 192, 128, 192 ** -0.5 * (0.1 * 0.707 * math.log(40) + 1) ** 2)
+# hymba-1.5b's windowed prefill as its benchmark cell runs it (hymba-longdoc-
+# closed: batch 8, prompts of 4096, four times its window of 1024 keys; 25 q
+# heads in 5 groups, hd 64) on the band kernel: (B, H, KV, S, hd, window)
+FA_WINDOW = (8, 25, 5, 4096, 64, 1024)
+# the window in the other dtypes and on the wide kernel, one shape each:
+# (B, H, KV, S, hd, window) and dtype
+FA_WINDOW_CONTRACT = {
+    "hymba windowed float16": (FA_WINDOW, torch.float16),
+    "hymba windowed float32": ((2, 25, 5, 2048, 64, 1024), torch.float32),
+    "gemma-2-2b heads hd 320 windowed": ((2, 8, 4, 2048, 320, 512), torch.bfloat16),
+}
+# windows at and below the kernel's 128-key tile (64 at hd 256), where whole
+# tiles are skipped and a row's first tile holds none of its keys, over a
+# ragged 1000 rows: (B, H, KV, S, hd, window), bf16
+FA_WINDOW_EDGES = [(1, 10, 2, 1000, 64, w) for w in (1, 17, 64, 100, 128, 129, 300)] + [
+    (1, 8, 4, 1000, 256, 40), (1, 8, 4, 1000, 256, 64), (1, 16, 2, 1000, 128, 200),
+    (2, 6, 6, 1000, 80, 150)]
 # every head dim the wrapper takes past the old four (instances, pads and
 # the wide kernel) x {float32, bfloat16, float16} x causal / non-causal, at
 # a ragged 300 rows
@@ -342,13 +370,15 @@ FORWARD_NOISE = 1.25
 # call, one that applies the causal mask in place of the first
 FAULTS = ("non-causal", "last kv tile skipped")
 NON_CAUSAL_FAULTS = ("causal mask applied", "last kv tile skipped")
+# ... and at a call with a sliding window, one that ignores the window
+WINDOW_FAULTS = ("window ignored", "last kv tile skipped")
 SERVE_ARGS = ["--arch", "qwen2.5-3b", "--batch", "4", "--prompt-len", "1024",
               "--gen", "32", "--requests", "8", "--device", "cuda"]
 # Serve paths: each kernel's launches a prefill, exactly; any other kernel 0
 SERVE_LAUNCHES = {
     "qwen2.5-3b": {"flash_attention": 36},                # every layer's prompt attention
     "mamba2-130m": {"ssd_scan": 24},                      # every layer's SSD scan
-    "hymba-1.5b": {"flash_attention": 3, "ssd_scan": 32},  # 3 global layers; every layer
+    "hymba-1.5b": {"flash_attention": 32, "ssd_scan": 32},  # every layer, 29 windowed
     "kimi-k2-1t-a32b": {"flash_attention": 2},            # both layers' prompt attention
     "deepseek-v2-lite-16b": {"flash_attention": 27},      # every layer's MLA prefill
     "whisper-tiny": {"flash_attention": 8},               # 4 encoder + 4 decoder layers
@@ -638,20 +668,24 @@ def compare(out, ref, dname: str) -> tuple[float, float, bool, bool]:
 
 def plant_fault(flash, fault: str, q_axis: int):
     """``flash(q, k, v, causal=...)`` with a fault planted: the causal mask
-    ignored, the causal mask applied to every call, or the last kv tile
-    skipped (its rows then see only the keys before it).  ``q_axis`` is the
-    sequence axis of q, k and v; other keywords (``scale``) pass through."""
+    (and any window) ignored, the causal mask applied to every call, the
+    window ignored, or the last kv tile skipped (its rows then see only the
+    keys before it, window or none).  ``q_axis`` is the sequence axis of q,
+    k and v; other keywords (``scale``, ``window``) pass through."""
 
     def faulty(q, k, v, *, causal, **kw):
+        unmasked = {key: val for key, val in kw.items() if key != "window"}
         if fault == "non-causal":
-            return flash(q, k, v, causal=False, **kw)
+            return flash(q, k, v, causal=False, **unmasked)
         if fault == "causal mask applied":
             return flash(q, k, v, causal=True, **kw)
+        if fault == "window ignored":
+            return flash(q, k, v, causal=causal, **unmasked)
         t = q.shape[q_axis] - FAULT_TILE
         head = lambda x, a, b: x.narrow(q_axis, a, b - a)  # noqa: E731
         out = flash(q, k, v, causal=causal, **kw).clone()
         tail = flash(head(q, t, q.shape[q_axis]), head(k, 0, t), head(v, 0, t), causal=False,
-                     **kw)
+                     **unmasked)
         head(out, t, q.shape[q_axis]).copy_(tail)
         return out
 
@@ -883,6 +917,7 @@ def check_flash_contract(contiguous, model_views, held, faults_rejected) -> dict
               f"wrapper host time {t['host_us']:.1f} us a call{pad}")
         del qkv
     contract["deepseek-v2-lite MLA"] = check_flash_mla(model_views, held, faults_rejected)
+    contract.update(check_flash_window(contiguous, model_views))
     return contract
 
 
@@ -924,6 +959,142 @@ def check_flash_mla(model_views, held, faults_rejected) -> dict:
           f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}: {t['flops']:.4e} FLOP, {t['bytes']} B) "
           f"| wrapper host time {t['host_us']:.1f} us a call")
     return t
+
+
+def check_flash_window(contiguous, model_views) -> dict:
+    """K1 with a sliding window (``fa_fwd_band``, ``window`` > 0).  At
+    hymba's windowed prefill (FA_WINDOW), on the model's views: against the
+    plain windowed version and against ``attention.chunked_attention`` (the
+    path the band kernel replaces) within the bf16 limits, one launch and
+    one window counted, WINDOW_FAULTS rejected, and timed; then
+    FA_WINDOW_CONTRACT, FA_WINDOW_EDGES, and windows of at least S, which
+    must equal the causal kernel bit for bit.  The plain version runs one
+    batch row at a time: at FA_WINDOW its scores are 1.7 GB a row."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.models.attention import chunked_attention
+
+    flash = fa_ops.flash_attention_gqa
+
+    def plain(q, k, v, window):
+        return torch.cat([attention_ref(q[b:b + 1], k[b:b + 1], v[b:b + 1], causal=True,
+                                        window=window) for b in range(q.shape[0])])
+
+    def chunked(q, k, v, window):
+        """``chunked_attention`` on the model's layout, back in (B, H, S, hd)."""
+        B, H, S, hd = q.shape
+        KV = k.shape[1]
+        q5 = q.reshape(B, KV, H // KV, S, hd).permute(0, 3, 1, 2, 4)
+        out = chunked_attention(q5, k.transpose(1, 2), v.transpose(1, 2), causal=True,
+                                window=window, chunk=1024)
+        return out.permute(0, 2, 3, 1, 4).reshape(B, H, S, hd)
+
+    def held(label, dname, q, k, v, window, against=plain):
+        out = flash(q, k, v, causal=True, window=window)
+        torch.cuda.synchronize()
+        ref = against(q, k, v, window)
+        torch.cuda.synchronize()
+        if out.shape != ref.shape or out.dtype != ref.dtype:
+            fail(f"flash {label} {dname}: {out.shape}/{out.dtype} vs {ref.shape}/{ref.dtype}")
+        err, row_rel, *oks = compare(out, ref, dname)
+        print(f"[flash] {dname} {label} window {window} against {against.__name__}: max_abs_err "
+              f"{err:.3e} (tol {TOL[dname]}) row rel_l2 {row_rel:.3e} (tol {ROW_REL_TOL[dname]})")
+        if not all(oks):
+            fail(f"flash {label} window {window} {dname}: kernel disagrees with {against.__name__}")
+        return err, ref
+
+    B, H, KV, S, hd, window = FA_WINDOW
+    bf16 = torch.bfloat16
+    label = f"hymba windowed prefill {(B, H, KV, S, hd)}"
+    qkv = model_views(B, H, KV, S, S, hd, bf16)
+    n0, w0 = _counter(fa_ops.LAUNCHES), _counter(fa_ops.WINDOWS)
+    err, ref = held(label, "bfloat16", *qkv, window)
+    n, w = _counter(fa_ops.LAUNCHES) - n0, _counter(fa_ops.WINDOWS) - w0
+    if (n, w) != (1, 1):
+        fail(f"{label}: {n} launches and {w} windows for one call")
+    chunked_err, _ = held(label, "bfloat16", *qkv, window, against=chunked)
+    for fault in WINDOW_FAULTS:
+        bad = plant_fault(flash, fault, 2)(*qkv, causal=True, window=window)
+        b_err, b_row, b_within, b_row_ok = compare(bad, ref, "bfloat16")
+        verdict = lambda ok: "passed" if ok else "rejected"  # noqa: E731
+        print(f"[flash] planted fault '{fault}' at window {window}: max_abs_err {b_err:.3e} "
+              f"({verdict(b_within)}) row rel_l2 {b_row:.3e} ({verdict(b_row_ok)})")
+        if b_within and b_row_ok:
+            fail(f"the window check does not see the planted fault '{fault}'")
+        del bad
+    del ref
+    t = {"shape": FA_WINDOW, "dtype": "bfloat16", "max_abs_err": err,
+         "max_abs_err_vs_chunked": chunked_err, **window_times(*qkv, window, chunked),
+         "host_us": wrapper_host_us(lambda: flash(*qkv, causal=True, window=window))}
+    print(f"[flash] {label} window {window} (fa_fwd_band): kernel {t['ms']:.4f} ms | card only "
+          f"{t['card_ms']:.4f} ms | the causal kernel at this shape, card only "
+          f"{t['card_causal_ms']:.4f} ms | chunked_attention {t['chunked_ms']:.4f} ms | sdpa with "
+          f"the band as a mask {t['library_ms']:.4f} ms (card only "
+          f"{t['card_library_ms']:.4f} ms) | "
+          f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}: {t['flops']:.4e} FLOP, {t['bytes']} B) "
+          f"| wrapper host time {t['host_us']:.1f} us a call")
+    del qkv
+    results = {"hymba windowed": t}
+    for name, ((B, H, KV, S, hd, window), dtype) in FA_WINDOW_CONTRACT.items():
+        dname = str(dtype).split(".")[-1]
+        qkv = model_views(B, H, KV, S, S, hd, dtype)
+        err, _ = held(f"{name} {(B, H, KV, S, hd)}", dname, *qkv, window)
+        results[name] = {"shape": (B, H, KV, S, hd, window), "dtype": dname, "max_abs_err": err,
+                         "card_ms": time_ms(lambda: flash(*qkv, causal=True, window=window),
+                                            card_only=True)}
+        print(f"[flash] {name}: card only {results[name]['card_ms']:.4f} ms")
+        del qkv
+    for B, H, KV, S, hd, window in FA_WINDOW_EDGES:
+        held(f"{(B, H, KV, S, hd)} contiguous", "bfloat16",
+             *contiguous(B, H, KV, S, S, hd, bf16), window)
+    for B, H, KV, S, hd, window in ((2, 25, 5, 1000, 64, 1000), (2, 25, 5, 1000, 64, 4096),
+                                    (1, 8, 4, 300, 256, 300)):
+        qkv = contiguous(B, H, KV, S, S, hd, bf16)
+        same = torch.equal(flash(*qkv, causal=True, window=window), flash(*qkv, causal=True))
+        print(f"[flash] {(B, H, KV, S, hd)} window {window} >= S equals the causal kernel bit "
+              f"for bit: {same}")
+        if not same:
+            fail(f"a window of {window} over {S} rows differs from the causal kernel")
+    return results
+
+
+def window_times(q, k, v, window: int, chunked) -> dict:
+    """The windowed call's times: the kernel, then card only beside the
+    causal kernel at the same shape (what the band skips), ``chunked``
+    (``chunked_attention``, the path it replaces) and SDPA on K/V repeated
+    over the group with the band as a boolean mask, card only too; the bound
+    counts the (query, key) pairs inside the band (``chipbench.work``'s
+    ``causal_pairs``)."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention_gqa
+
+    B, H, S, hd = q.shape
+    G = H // k.shape[1]
+    kernel = lambda: flash_attention_gqa(q, k, v, causal=True, window=window)  # noqa: E731
+    pos = torch.arange(S, device=q.device)
+    band = (pos[None, :] <= pos[:, None]) & (pos[:, None] - pos[None, :] < window)
+    k_rep = k.repeat_interleave(G, dim=1)
+    v_rep = v.repeat_interleave(G, dim=1)
+    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+        q, k_rep, v_rep, attn_mask=band)
+    w = min(window, S)
+    pairs = w * (w + 1) // 2 + (S - w) * w  # (q, k) pairs per (b, h)
+    flops = 4 * hd * pairs * B * H
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    t_ops = flops / PEAK_FLOPS[str(q.dtype).split(".")[-1]] * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return {
+        "ms": time_ms(kernel),
+        "card_ms": time_ms(kernel, card_only=True),
+        "card_causal_ms": time_ms(lambda: flash_attention_gqa(q, k, v, causal=True),
+                                  card_only=True),
+        "chunked_ms": time_ms(lambda: chunked(q, k, v, window), iters=3, warmup=1),
+        "library_ms": time_ms(sdpa),
+        "card_library_ms": time_ms(sdpa, card_only=True),
+        "bound_ms": max(t_ops, t_bytes),
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "flops": flops,
+        "bytes": nbytes,
+    }
 
 
 def sdpa_backend(q, k, v, causal: bool) -> str:
@@ -1881,12 +2052,14 @@ def phase_model_hymba() -> dict:
         ref = run(cfg.replace(attention_impl="reference"))
         exact = run(cfg.replace(compute_dtype=torch.float32))
         n0 = {"flash_attention": _counter(fa_ops.LAUNCHES), "ssd_scan": _counter(ssd_ops.LAUNCHES)}
+        w0 = _counter(fa_ops.WINDOWS)
         modes0 = graph_modes()
         out = run(pcfg)
         torch.cuda.synchronize()
         modes = {m: k - modes0[m] for m, k in graph_modes().items()}
         n = {"flash_attention": _counter(fa_ops.LAUNCHES) - n0["flash_attention"],
              "ssd_scan": _counter(ssd_ops.LAUNCHES) - n0["ssd_scan"]}
+        windowed = _counter(fa_ops.WINDOWS) - w0
         planted = {}
         with eager_decode("a planted fault"):
             for fault in HYMBA_FAULTS:
@@ -1925,7 +2098,8 @@ def phase_model_hymba() -> dict:
           f"{rel(ref[0], exact[0]):.3e} (blocks {span(noise['forward'])}, decode "
           f"{span(noise['decode'])}, rings {span(noise['ring'])}), kernel path rel_l2 "
           f"{rel(out[0], exact[0]):.3e} | worst ratios: block {got['forward']:.3f}, decode "
-          f"{got['decode']:.3f}, ring {got['ring']:.3f} (tol {FORWARD_NOISE}) | launches {n}")
+          f"{got['decode']:.3f}, ring {got['ring']:.3f} (tol {FORWARD_NOISE}) | launches {n}, "
+          f"{windowed} of them windowed")
     if (out[0].shape != (1, S, cfg.d_model) or out[1].shape != (1, steps, cfg.vocab_size)
             or out[2].shape != (cfg.num_layers - len(cfg.global_layers), cfg.sliding_window,
                                 cfg.num_kv_heads, 2 * cfg.head_dim)):
@@ -1941,6 +2115,8 @@ def phase_model_hymba() -> dict:
             fail(f"the {check} check does not see the planted fault '{fault}'")
     if n != SERVE_LAUNCHES["hymba-1.5b"]:
         fail(f"full-width hymba run launched {n}, not {SERVE_LAUNCHES['hymba-1.5b']}")
+    if windowed != cfg.num_layers - len(cfg.global_layers):
+        fail(f"full-width hymba run: {windowed} windowed K1 launches, not one a local layer")
     if max(got.values()) > FORWARD_NOISE:
         fail("full-width hymba run: kernel path disagrees with the reference")
     del ref, exact, out, planted

@@ -3,8 +3,9 @@
 // Replaces the TPU kernel repro/kernels/flash_attention/kernel.py
 // (_fa_kernel, launched by flash_attention_bh): softmax(scale * Q K^T + mask) V
 // with an online softmax.  The mask is k_pos < Skv and, when causal,
-// k_pos <= q_pos (both counted from 0); a row whose denominator is 0 divides
-// by 1; the output has q's dtype.
+// k_pos <= q_pos (both counted from 0), and with a sliding window of W keys
+// (causal only) q_pos - k_pos < W; a row whose denominator is 0 divides by 1;
+// the output has q's dtype.
 //
 // What bounds it on the H100: at qwen2.5-3b's serving prefill (B = 4,
 // H = 16, KV = 2, S = 1024, hd = 128, causal) the work is 1.72e10 FLOP of
@@ -59,10 +60,21 @@
 //    the causal diagonal are never loaded and only diagonal and ragged
 //    tiles are masked (rows that TMA zero-fills past Skv become -inf before
 //    the max); the q tiles of largest q0 launch first, so the long causal
-//    rows do not form the last wave.
+//    rows do not form the last wave;
+//  * a sliding window (hymba-1.5b's local layers: W = 1024 keys at
+//    S = 4096) is the kernel fa_fwd_band, the same CTA body instantiated
+//    with the window as a template flag, so fa_fwd_tc compiles as it did
+//    without one.  A CTA starts at the tile of its first row's first live
+//    key, max(0, q0 - W + 1), and counts its stage ring from there; tiles
+//    wholly below the band are never loaded, and besides the diagonal and
+//    ragged tiles only the tiles that cross the band's lower edge are
+//    masked.  At hymba's prefill that is 9 tiles a CTA where the causal
+//    kernel walks up to 32, and every CTA has about the same number.
 //
 // float32 inputs take fa_fwd_f32, scalar f32 FMAs on the CUDA cores (64-row
-// q and 32-key tiles staged as f32 in shared memory, state in registers).
+// q and 32-key tiles staged as f32 in shared memory, state in registers);
+// with a window it starts at the tile of its first live key, as fa_fwd_band
+// does, and so does fa_fwd_wide.
 // It is kept for its contract, full f32 within 2e-4: TF32 tensor cores keep
 // about three decimal digits and cannot meet it.  The serve path never sends
 // it f32.  The choice is by dtype; nothing falls back from one to the other.
@@ -129,12 +141,13 @@ __device__ __forceinline__ float row_group_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 4);
 }
 
-template <int HD>
+// kWindow: keys with q_pos - k_pos >= window are masked too (a causal call).
+template <int HD, bool kWindow>
 __global__ void __launch_bounds__(kThreads)
 fa_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
            const float* __restrict__ v, float* __restrict__ o, int H, int group,
            int Sq, int Skv, Strides qs, Strides ks, Strides vs, Strides os,
-           float scale, int causal) {
+           float scale, int causal, int window) {
   static_assert(HD % kTX == 0, "head dim must split over a row group");
   constexpr int kLd = HD + 1;    // padded rows: conflict-free column walks
   constexpr int kPd = kBK + 1;
@@ -176,9 +189,11 @@ fa_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
     for (int j = 0; j < kDC; ++j) acc[r][j] = 0.f;
   }
 
-  // Causal: a key past the tile's last row is masked for every row.
+  // Causal: a key past the tile's last row is masked for every row; with a
+  // window, so is a key before the first row's first live key.
   const int kv_end = causal ? min(Skv, q0 + kBQ) : Skv;
-  for (int k0 = 0; k0 < kv_end; k0 += kBK) {
+  const int kv_begin = kWindow ? max(0, q0 - window + 1) / kBK * kBK : 0;
+  for (int k0 = kv_begin; k0 < kv_end; k0 += kBK) {
     __syncthreads();  // q staged (first pass); previous k/v tile consumed
     for (int i = tid; i < kBK * HD; i += kThreads) {
       const int r = i / HD;
@@ -216,7 +231,7 @@ fa_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int c = 0; c < kCK; ++c) {
         const int kp = k0 + tx + c * kTX;
-        live[c] = kp < Skv && (!causal || kp <= qp);
+        live[c] = kp < Skv && (!causal || kp <= qp) && (!kWindow || qp - kp < window);
         s[r][c] = live[c] ? s[r][c] : kNegInf;
         mx = fmaxf(mx, s[r][c]);
       }
@@ -265,17 +280,18 @@ fa_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
 template <int HD>
 cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, int B,
                        int H, int KV, int Sq, int Skv, Strides qs, Strides ks,
-                       Strides vs, Strides os, float scale, int causal,
+                       Strides vs, Strides os, float scale, int causal, int window,
                        cudaStream_t stream) {
+  const auto kernel = window > 0 ? fa_fwd_f32<HD, true> : fa_fwd_f32<HD, false>;
   const int smem = smem_floats<HD>() * static_cast<int>(sizeof(float));
-  cudaError_t err = cudaFuncSetAttribute(
-      fa_fwd_f32<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(B * H, (Sq + kBQ - 1) / kBQ);
-  fa_fwd_f32<HD><<<grid, kThreads, smem, stream>>>(
+  kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), H, H / KV, Sq, Skv,
-      qs, ks, vs, os, scale, causal);
+      qs, ks, vs, os, scale, causal, window);
   return cudaGetLastError();
 }
 
@@ -513,12 +529,16 @@ WGMMA_RS_ALL(f16)
 
 // One CTA: 128 q rows of one (batch, head).  Warps 0-7 are two consumer
 // warpgroups (rows q0 .. q0+63 and q0+64 .. q0+127); warp 8 (warps 8-11 at
-// hd 256) is the producer, one thread of which issues every copy.
-template <int HD, class E>
-__global__ void __launch_bounds__(Geometry<HD>::kThreads, 1)
-fa_fwd_tc(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
-          const __grid_constant__ CUtensorMap vmap, typename E::T* __restrict__ o, int H,
-          int group, int Sq, int Skv, Strides os, float scale, int causal) {
+// hd 256) is the producer, one thread of which issues every copy.  kWindow:
+// a causal call whose keys with q_pos - k_pos >= window are masked too; the
+// CTA's K/V tiles start at its first row's first live key.  The maps are the
+// kernel's __grid_constant__ parameters, which TMA reads in place.
+template <int HD, class E, bool kWindow>
+__device__ __forceinline__ void fa_fwd_cta(const CUtensorMap& qmap, const CUtensorMap& kmap,
+                                           const CUtensorMap& vmap,
+                                           typename E::T* __restrict__ o, int H, int group,
+                                           int Sq, int Skv, Strides os, float scale, int causal,
+                                           int window) {
   using G = Geometry<HD>;
   constexpr int kKeys = G::kKeys;
   extern __shared__ unsigned char smem_raw[];
@@ -539,6 +559,9 @@ fa_fwd_tc(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUte
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kRows;  // largest q0 first
   const int kv_end = causal ? min(Skv, q0 + kRows) : Skv;
   const int n_tiles = (kv_end + kKeys - 1) / kKeys;
+  // the first tile a row of this CTA has a live key in; the stage ring and
+  // its parities count from it
+  const int first = kWindow ? max(0, q0 - window + 1) / kKeys : 0;
   const int tid = threadIdx.x;
   // the thread's warpgroup (2: the producer), uniform over a warp as the
   // compiler sees it, which setmaxnreg's register regions need
@@ -561,11 +584,11 @@ fa_fwd_tc(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUte
       mbar_expect_tx(q_bar, G::kQBytes);
       for (int x = 0; x < G::kBoxes; ++x)
         tma_load(sq + x * G::kQBoxBytes, &qmap, q_bar, x * G::kBoxCols, q0, h, b);
-      for (int it = 0; it < n_tiles; ++it) {
-        const int st = it % kStages;
+      for (int it = first; it < n_tiles; ++it) {
+        const int st = (it - first) % kStages;
         // the stage's previous tile (it - kStages) consumed; passes at once
         // on the first round
-        mbar_wait(empty(st), ((it / kStages) & 1) ^ 1);
+        mbar_wait(empty(st), (((it - first) / kStages) & 1) ^ 1);
         mbar_expect_tx(k_full(st), G::kKVBytes);
         for (int x = 0; x < G::kBoxes; ++x)
           tma_load(k_tile(st) + x * G::kKVBoxBytes, &kmap, k_full(st), x * G::kBoxCols,
@@ -597,9 +620,9 @@ fa_fwd_tc(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUte
 
     mbar_wait(q_bar, 0);
     const uint32_t q_rows = sq + wg * 64 * G::kRowBytes;
-    for (int it = 0; it < n_tiles; ++it) {
-      const int st = it % kStages;
-      const uint32_t parity = (it / kStages) & 1;
+    for (int it = first; it < n_tiles; ++it) {
+      const int st = (it - first) % kStages;
+      const uint32_t parity = ((it - first) / kStages) & 1;
       const int k0 = it * kKeys;
 
       // S = Q K^T: 64 rows x kKeys keys, K-major A and B, hd / 16 k steps;
@@ -623,8 +646,12 @@ fa_fwd_tc(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUte
       fence_regs(s);
 
       // Online softmax in the exp2 domain.  Masked: keys past Skv (TMA
-      // zero-filled them) and, on the diagonal tile, keys after the row.
-      const bool masked = k0 + kKeys > Skv || (causal && k0 + kKeys - 1 > qw);
+      // zero-filled them), on the diagonal tile keys after the row, and on a
+      // tile that crosses the band's lower edge (below the first live key of
+      // the warpgroup's last row, min(qw + 63, Sq - 1) - window + 1) keys the
+      // window leaves out; a window of at least Sq masks no tile.
+      const bool masked = k0 + kKeys > Skv || (causal && k0 + kKeys - 1 > qw) ||
+                          (kWindow && k0 < min(qw + 64, Sq) - window);
       float mx0 = m0, mx1 = m1;
 #pragma unroll
       for (int i = 0; i < kKeys / 2; ++i) {
@@ -632,7 +659,7 @@ fa_fwd_tc(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUte
         if (masked) {
           const int kp = k0 + 8 * (i / 4) + 2 * (lane % 4) + (i % 2);
           const int qp = (i / 2) % 2 ? qp1 : qp0;
-          if (kp >= Skv || (causal && kp > qp)) x = ninf;
+          if (kp >= Skv || (causal && kp > qp) || (kWindow && qp - kp >= window)) x = ninf;
         }
         s[i] = x;
         if ((i / 2) % 2) mx1 = fmaxf(mx1, x);
@@ -642,7 +669,8 @@ fa_fwd_tc(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUte
       mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
       mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
       mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
-      // a row with no live key yet keeps p = 0 and alpha = 0 (no inf - inf)
+      // a row with no live key yet keeps p = 0 and alpha = 0 (no inf - inf):
+      // under a window, a whole tile below the row's first live key
       const float b0 = mx0 == ninf ? 0.f : mx0;
       const float b1 = mx1 == ninf ? 0.f : mx1;
       const float alpha0 = fast_exp2(m0 - b0), alpha1 = fast_exp2(m1 - b1);
@@ -707,6 +735,23 @@ fa_fwd_tc(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUte
   }
 }
 
+template <int HD, class E>
+__global__ void __launch_bounds__(Geometry<HD>::kThreads, 1)
+fa_fwd_tc(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
+          const __grid_constant__ CUtensorMap vmap, typename E::T* __restrict__ o, int H,
+          int group, int Sq, int Skv, Strides os, float scale, int causal) {
+  fa_fwd_cta<HD, E, false>(qmap, kmap, vmap, o, H, group, Sq, Skv, os, scale, causal, 0);
+}
+
+// The causal kernel with a sliding window of `window` keys (window > 0).
+template <int HD, class E>
+__global__ void __launch_bounds__(Geometry<HD>::kThreads, 1)
+fa_fwd_band(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
+            const __grid_constant__ CUtensorMap vmap, typename E::T* __restrict__ o, int H,
+            int group, int Sq, int Skv, Strides os, float scale, int window) {
+  fa_fwd_cta<HD, E, true>(qmap, kmap, vmap, o, H, group, Sq, Skv, os, scale, 1, window);
+}
+
 using EncodeTiled = decltype(&cuTensorMapEncodeTiled);
 
 // The driver's cuTensorMapEncodeTiled, looked up once; null if the driver
@@ -754,7 +799,7 @@ CUresult encode(EncodeTiled encode_fn, CUtensorMap* map, const void* ptr, int ro
 template <int HD, class E>
 cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o, int B, int H, int KV,
                       int Sq, int Skv, Strides qs, Strides ks, Strides vs, Strides os,
-                      float scale, int causal, cudaStream_t stream) {
+                      float scale, int causal, int window, cudaStream_t stream) {
   using G = Geometry<HD>;
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return cudaErrorSymbolNotFound;
@@ -765,12 +810,15 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o, int 
       encode<HD, E>(fn, &kmap, k, kv_rows, G::kKeys, KV, B, ks) != CUDA_SUCCESS ||
       encode<HD, E>(fn, &vmap, v, kv_rows, G::kKeys, KV, B, vs) != CUDA_SUCCESS)
     return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      fa_fwd_tc<HD, E>, cudaFuncAttributeMaxDynamicSharedMemorySize, G::kSmemBytes);
+  // the two kernels differ in their last argument: the window, or the flag
+  const auto kernel = window > 0 ? fa_fwd_band<HD, E> : fa_fwd_tc<HD, E>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, G::kSmemBytes);
   if (err != cudaSuccess) return err;
   const dim3 grid(B * H, (Sq + kRows - 1) / kRows);
-  fa_fwd_tc<HD, E><<<grid, G::kThreads, G::kSmemBytes, stream>>>(
-      qmap, kmap, vmap, static_cast<typename E::T*>(o), H, H / KV, Sq, Skv, os, scale, causal);
+  kernel<<<grid, G::kThreads, G::kSmemBytes, stream>>>(
+      qmap, kmap, vmap, static_cast<typename E::T*>(o), H, H / KV, Sq, Skv, os, scale,
+      window > 0 ? window : causal);
   return cudaGetLastError();
 }
 
@@ -817,12 +865,13 @@ __device__ __forceinline__ __half narrow<__half>(float x) { return __float2half_
 // softmax (the f32 kernel's, per row group of 8 threads) and O[:, cols] +=
 // P V[:, cols].  Each of the ceil(hd / 128) CTAs of a q tile computes S
 // again: the price of keeping a thread's O block (4 rows x 16 columns) in
-// registers at any hd.
-template <class E>
+// registers at any hd.  kWindow: keys with q_pos - k_pos >= window are
+// masked too (a causal call).
+template <class E, bool kWindow>
 __global__ void __launch_bounds__(kThreads)
 fa_fwd_wide(const E* __restrict__ q, const E* __restrict__ k, const E* __restrict__ v,
             E* __restrict__ o, int H, int group, int Sq, int Skv, int hd, Strides qs,
-            Strides ks, Strides vs, Strides os, float scale, int causal) {
+            Strides ks, Strides vs, Strides os, float scale, int causal, int window) {
   extern __shared__ float smem[];
   float* sq = smem;              // [kBQ][kLd] a slab of scale * Q
   float* sk = sq + kBQ * kLd;    // [kBK][kLd] the same slab of K
@@ -853,9 +902,11 @@ fa_fwd_wide(const E* __restrict__ q, const E* __restrict__ k, const E* __restric
     for (int j = 0; j < kDC; ++j) acc[r][j] = 0.f;
   }
 
-  // Causal: a key past the tile's last row is masked for every row.
+  // Causal: a key past the tile's last row is masked for every row; with a
+  // window, so is a key before the first row's first live key.
   const int kv_end = causal ? min(Skv, q0 + kBQ) : Skv;
-  for (int k0 = 0; k0 < kv_end; k0 += kBK) {
+  const int kv_begin = kWindow ? max(0, q0 - window + 1) / kBK * kBK : 0;
+  for (int k0 = kv_begin; k0 < kv_end; k0 += kBK) {
     float s[kRQ][kCK];
 #pragma unroll
     for (int r = 0; r < kRQ; ++r)
@@ -904,7 +955,7 @@ fa_fwd_wide(const E* __restrict__ q, const E* __restrict__ k, const E* __restric
 #pragma unroll
       for (int c = 0; c < kCK; ++c) {
         const int kp = k0 + tx + c * kTX;
-        live[c] = kp < Skv && (!causal || kp <= qp);
+        live[c] = kp < Skv && (!causal || kp <= qp) && (!kWindow || qp - kp < window);
         s[r][c] = live[c] ? s[r][c] : kNegInf;
         mx = fmaxf(mx, s[r][c]);
       }
@@ -955,31 +1006,32 @@ fa_fwd_wide(const E* __restrict__ q, const E* __restrict__ k, const E* __restric
 template <class E>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, int H, int KV,
                    int Sq, int Skv, int hd, Strides qs, Strides ks, Strides vs, Strides os,
-                   float scale, int causal, cudaStream_t stream) {
+                   float scale, int causal, int window, cudaStream_t stream) {
   const int q_tiles = (Sq + kBQ - 1) / kBQ;
   const int col_tiles = (hd + kCols - 1) / kCols;
   if (q_tiles > kMaxGridYZ || col_tiles > kMaxGridYZ) return cudaErrorInvalidConfiguration;
-  cudaError_t err = cudaFuncSetAttribute(
-      fa_fwd_wide<E>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+  const auto kernel = window > 0 ? fa_fwd_wide<E, true> : fa_fwd_wide<E, false>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
   if (err != cudaSuccess) return err;
   const dim3 grid(B * H, q_tiles, col_tiles);
-  fa_fwd_wide<E><<<grid, kThreads, kSmemBytes, stream>>>(
+  kernel<<<grid, kThreads, kSmemBytes, stream>>>(
       static_cast<const E*>(q), static_cast<const E*>(k), static_cast<const E*>(v),
-      static_cast<E*>(o), H, H / KV, Sq, Skv, hd, qs, ks, vs, os, scale, causal);
+      static_cast<E*>(o), H, H / KV, Sq, Skv, hd, qs, ks, vs, os, scale, causal, window);
   return cudaGetLastError();
 }
 
 }  // namespace wide
 
-#define REPRO_FA_ARGS q, k, v, o, B, H, KV, Sq, Skv, qs, ks, vs, os, scale, causal, stream
+#define REPRO_FA_ARGS q, k, v, o, B, H, KV, Sq, Skv, qs, ks, vs, os, scale, causal, window, stream
 #define REPRO_FA_WIDE_ARGS \
-  q, k, v, o, B, H, KV, Sq, Skv, hd, qs, ks, vs, os, scale, causal, stream
+  q, k, v, o, B, H, KV, Sq, Skv, hd, qs, ks, vs, os, scale, causal, window, stream
 
 // The instances of one kernel over the head dims the wrapper launches.
 template <template <int> class Launch>
 cudaError_t by_head_dim(int hd, const void* q, const void* k, const void* v, void* o, int B,
                         int H, int KV, int Sq, int Skv, Strides qs, Strides ks, Strides vs,
-                        Strides os, float scale, int causal, cudaStream_t stream) {
+                        Strides os, float scale, int causal, int window, cudaStream_t stream) {
   switch (hd) {
     case 16: return Launch<16>::run(REPRO_FA_ARGS);
     case 32: return Launch<32>::run(REPRO_FA_ARGS);
@@ -1010,7 +1062,7 @@ struct F16 {
 
 cudaError_t dispatch(int dtype, int hd, const void* q, const void* k, const void* v, void* o,
                      int B, int H, int KV, int Sq, int Skv, Strides qs, Strides ks, Strides vs,
-                     Strides os, float scale, int causal, cudaStream_t stream) {
+                     Strides os, float scale, int causal, int window, cudaStream_t stream) {
   if (hd > kWidestInstance) {
     switch (dtype) {
       case 0: return wide::launch<float>(REPRO_FA_WIDE_ARGS);
@@ -1037,21 +1089,23 @@ cudaError_t dispatch(int dtype, int hd, const void* q, const void* k, const void
 // hd is 16, 32, 64, 80, 96, 128 or 256 (an instance), or any hd over 256
 // (fa_fwd_wide).  dtype: 0 = float32, 1 = bfloat16, 2 = float16; below
 // hd 256 a 16-bit pointer is 16-byte aligned and its strides are multiples
-// of 8 elements (TMA's terms).  Returns a cudaError_t (0 = launched).
-extern "C" int repro_fa_fwd(const void* q, const void* k, const void* v,
-                            void* o, int dtype, int B, int H, int KV, int Sq,
-                            int Skv, int hd, long long q_sb, long long q_sh,
-                            long long q_ss, long long k_sb, long long k_sh,
-                            long long k_ss, long long v_sb, long long v_sh,
-                            long long v_ss, long long o_sb, long long o_sh,
-                            long long o_ss, float scale, int causal,
-                            void* stream) {
-  if (B <= 0 || H <= 0 || KV <= 0 || H % KV != 0 || Sq <= 0 || Skv < 0)
+// of 8 elements (TMA's terms).  window: 0, or the keys a query sees in a
+// causal call (q_pos - k_pos < window).  Returns a cudaError_t (0 = launched).
+extern "C" int repro_fa_fwd_window(const void* q, const void* k, const void* v,
+                                   void* o, int dtype, int B, int H, int KV, int Sq,
+                                   int Skv, int hd, long long q_sb, long long q_sh,
+                                   long long q_ss, long long k_sb, long long k_sh,
+                                   long long k_ss, long long v_sb, long long v_sh,
+                                   long long v_ss, long long o_sb, long long o_sh,
+                                   long long o_ss, float scale, int causal, int window,
+                                   void* stream) {
+  if (B <= 0 || H <= 0 || KV <= 0 || H % KV != 0 || Sq <= 0 || Skv < 0 || window < 0 ||
+      (window > 0 && !causal))
     return static_cast<int>(cudaErrorInvalidValue);
   const Strides qs{q_sb, q_sh, q_ss}, ks{k_sb, k_sh, k_ss};
   const Strides vs{v_sb, v_sh, v_ss}, os{o_sb, o_sh, o_ss};
   return static_cast<int>(dispatch(dtype, hd, q, k, v, o, B, H, KV, Sq, Skv, qs, ks, vs, os,
-                                   scale, causal, static_cast<cudaStream_t>(stream)));
+                                   scale, causal, window, static_cast<cudaStream_t>(stream)));
 }
 
 extern "C" const char* repro_fa_error_string(int err) {

@@ -5,7 +5,10 @@ by ``nvcc`` into a shared library with a plain C interface at first use
 (``kernels/_nvcc.py``), then loaded with ``ctypes``.  bfloat16 and float16
 run on the wgmma + TMA kernel, float32 on the scalar one, each at the head
 dims of ``HEAD_DIMS``; a head dim over ``HEAD_DIMS[-1]`` runs on the wide
-kernel (``fa_fwd_wide``) in every dtype, at its own width.
+kernel (``fa_fwd_wide``) in every dtype, at its own width.  A causal call
+may give a sliding window (each query sees its last ``window`` keys); the
+16-bit kernel then runs as ``fa_fwd_band``, which loads only the tiles
+inside the band.
 ``check_contract`` and ``kernel_route`` are the launcher's contract as pure
 functions of shapes, dtypes and strides; a head dim up to 256 without an
 instance is padded by the wrapper (``ops.py``).  A failed build raises:
@@ -53,10 +56,10 @@ def _library() -> ctypes.CDLL:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
             vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-            lib.repro_fa_fwd.argtypes = (
-                [vp] * 4 + [i32] * 7 + [i64] * 12 + [ctypes.c_float, i32, vp]
+            lib.repro_fa_fwd_window.argtypes = (
+                [vp] * 4 + [i32] * 7 + [i64] * 12 + [ctypes.c_float, i32, i32, vp]
             )
-            lib.repro_fa_fwd.restype = i32
+            lib.repro_fa_fwd_window.restype = i32
             lib.repro_fa_error_string.argtypes = [i32]
             lib.repro_fa_error_string.restype = ctypes.c_char_p
             _lib = lib
@@ -130,7 +133,7 @@ def kernel_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> tuple:
 
 def kernel_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 out: torch.Tensor) -> tuple:
-    """The arguments of ``repro_fa_fwd`` between the pointers and the scale:
+    """The arguments of ``repro_fa_fwd_window`` between the pointers and the scale:
     the dtype code, B, H, KV, Sq, Skv, hd, then the element strides of the
     batch, head and sequence dims of q, k, v and out.  A dim of length 1 is
     never stepped over; its stride is given as hd, which TMA accepts."""
@@ -148,8 +151,11 @@ def flash_attention_fwd(
     *,
     causal: bool,
     scale: float,
+    window: int = 0,
 ) -> torch.Tensor:
-    """Launch the kernel on PyTorch's current stream; returns (B, H, Sq, hd)."""
+    """Launch the kernel on PyTorch's current stream; returns (B, H, Sq, hd).
+    ``window`` > 0 (a causal call only) masks keys ``window`` or more
+    positions before the query."""
     _check(q, k, v)
     q, k, v = kernel_inputs(q, k, v)
     B, H, Sq, hd = q.shape
@@ -157,9 +163,9 @@ def flash_attention_fwd(
     lib = _library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.repro_fa_fwd(
+        err = lib.repro_fa_fwd_window(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            *kernel_args(q, k, v, out), float(scale), int(causal), stream,
+            *kernel_args(q, k, v, out), float(scale), int(causal), int(window), stream,
         )
     if err != 0:
         msg = lib.repro_fa_error_string(err).decode()

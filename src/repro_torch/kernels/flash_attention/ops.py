@@ -14,6 +14,11 @@ backward (neither has the Pallas kernel: no ``custom_vjp``), so a CUDA call
 with an input that needs gradients raises rather than return a result with
 no ``grad_fn``.  Each launch adds 1 to the tracer's ``LAUNCHES`` counter
 (``repro_torch.runtime.trace``).
+
+``window`` > 0, beyond the JAX wrapper's contract, is a causal sliding
+window: a query sees the keys fewer than ``window`` positions before it, as
+``models/attention.py::chunked_attention`` masks them.  It needs ``causal``;
+a launch with one also adds 1 to ``WINDOWS``.
 """
 
 from __future__ import annotations
@@ -29,6 +34,8 @@ from repro_torch.runtime import trace
 LAUNCHES = "flash_attention.launch"
 #: the tracer's counter of launches whose q, k and v the wrapper copied to pad the head dim
 PADS = "flash_attention.pad"
+#: the tracer's counter of launches with a sliding window
+WINDOWS = "flash_attention.window"
 
 
 def flash_attention_gqa(
@@ -38,6 +45,7 @@ def flash_attention_gqa(
     *,
     causal: bool = True,
     scale: float | None = None,
+    window: int = 0,
     block_q: int = 128,
     block_k: int = 128,
 ) -> torch.Tensor:
@@ -51,10 +59,12 @@ def flash_attention_gqa(
     KV = k.shape[1]
     if H % KV != 0:
         raise ValueError(f"H={H} not a multiple of KV={KV}")
+    if window < 0 or (window > 0 and not causal):
+        raise ValueError(f"window={window}: a sliding window is a causal call's, at least 1")
     if scale is None:
         scale = hd**-0.5
     if q.device.type == "cpu":
-        return attention_ref(q, k, v, causal=causal, scale=scale)
+        return attention_ref(q, k, v, causal=causal, scale=scale, window=window)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         raise RuntimeError(
             "flash_attention_gqa: the CUDA kernel has no backward; an input "
@@ -65,8 +75,10 @@ def flash_attention_gqa(
     _, width, padded = kernel_route(hd, q.dtype)
     if padded:
         q, k, v = (torch.nn.functional.pad(t, (0, width - hd)) for t in (q, k, v))
-    out = flash_attention_fwd(q, k, v, causal=causal, scale=scale)
+    out = flash_attention_fwd(q, k, v, causal=causal, scale=scale, window=window)
     trace.count(LAUNCHES)
+    if window:
+        trace.count(WINDOWS)
     if padded:
         trace.count(PADS)
         return out[..., :hd]

@@ -19,8 +19,11 @@ A sliding-window layer (``window > 0``, hymba's local layers) keeps a ring
 cache of ``min(window, max_len)`` slots.  Its prefill attends over the prompt
 itself with the window's mask and keeps the prompt's last ``window`` keys
 (``_fill_ring_cache``); a decode step writes slot ``length % size`` and
-attends over every valid slot, as the JAX package does.  Windowed layers
-never take the flash kernel, which has no window.
+attends over every valid slot, as the JAX package does.  The prefill's
+attention is the flash kernel's causal case with a window, and with the
+kernel configured the port sends it there (another dispatch difference:
+the JAX package takes ``chunked_attention``, the same function); the
+cache-free forward and decode keep the JAX package's dispatch.
 
 MLA (DeepSeek's multi-head latent attention, ``apply_mla``): without a
 cache it expands keys and values per head, as the JAX package does; with
@@ -122,6 +125,21 @@ def _as_column(x: Any, device) -> torch.Tensor:
     return torch.full((1, 1), int(x), dtype=torch.int64, device=device)
 
 
+def _mask(q_pos: torch.Tensor, Skv: int, valid: torch.Tensor, *, causal: bool,
+          window: int) -> torch.Tensor:
+    """(B', n_q, Skv): the keys of each query row at absolute positions
+    ``q_pos`` (B', n_q) that attention keeps: inside the valid prefix
+    ``valid`` (B', 1), not after the query when causal, and fewer than
+    ``window`` positions before it when ``window > 0``."""
+    k_pos = torch.arange(Skv, device=q_pos.device)[None, None, :]
+    mask = k_pos < valid[:, :, None]
+    if causal:
+        mask = mask & (k_pos <= q_pos[:, :, None])
+    if window > 0:
+        mask = mask & (q_pos[:, :, None] - k_pos < window)
+    return mask
+
+
 def chunked_attention(
     q: torch.Tensor,        # (B, Sq, KV, G, hd)
     k: torch.Tensor,        # (B, Skv, KV, hd)
@@ -159,8 +177,6 @@ def chunked_attention(
     kc = min(chunk, Skv)
     q_off = _as_column(q_offset, dev)
     valid = _as_column(Skv if kv_len is None else kv_len, dev)
-    k_pos = torch.arange(Skv, device=dev)[None, None, :]
-    kv_ok = k_pos < valid[:, :, None]                                # (B', 1, Skv)
 
     outs = []
     for q0 in range(0, Sq, qc):
@@ -170,11 +186,7 @@ def chunked_attention(
         n_q = q_i.shape[1]
         q_pos = q_off + q0 + torch.arange(n_q, device=dev)[None, :]  # (B', n_q)
         # the q chunk's mask over every key, sliced per kv chunk below
-        mask = kv_ok
-        if causal:
-            mask = mask & (k_pos <= q_pos[:, :, None])
-        if window > 0:
-            mask = mask & (q_pos[:, :, None] - k_pos < window)
+        mask = _mask(q_pos, Skv, valid, causal=causal, window=window)
         mask = mask[:, :, None, None, :]                             # (B', n_q|1, 1, 1, Skv)
         m = torch.full((B, n_q, KV, G), NEG_INF, dtype=torch.float32, device=dev)
         l = torch.zeros((B, n_q, KV, G), dtype=torch.float32, device=dev)
@@ -254,12 +266,7 @@ def _decode_attention(q, k, v, *, causal, window, q_offset, kv_len, scale):
     q_off = _as_column(q_offset, dev)
     valid = _as_column(Skv if kv_len is None else kv_len, dev)
     q_pos = q_off + torch.arange(Sq, device=dev)[None, :]  # (B', Sq)
-    k_pos = torch.arange(Skv, device=dev)
-    mask = k_pos[None, None, :] < valid[:, :, None]     # (B', 1, Skv)
-    if causal:
-        mask = mask & (k_pos[None, None, :] <= q_pos[:, :, None])
-    if window > 0:
-        mask = mask & (q_pos[:, :, None] - k_pos[None, None, :] < window)
+    mask = _mask(q_pos, Skv, valid, causal=causal, window=window)
     s = torch.einsum("bqkgh,bckh->bqkgc", q.float(), k.float()) * scale
     s = torch.where(mask[:, :, None, None, :], s, NEG_INF)
     p = torch.softmax(s, dim=-1)
@@ -267,19 +274,19 @@ def _decode_attention(q, k, v, *, causal, window, q_offset, kv_len, scale):
     return out.to(v.dtype)
 
 
-def _flash(q, k, v, *, causal, scale=None):
+def _flash(q, k, v, *, causal, scale=None, window=0):
     """Model layout q (B,S,KV,G,hd), k/v (B,S,KV,hd) through the kernel's
     (B,H,S,hd) layout.  The kernel takes strides, so the transposes are views.
     On ``DTensor`` inputs each rank runs the kernel on its batch rows."""
-    return batch_local(functools.partial(_flash_rows, causal=causal, scale=scale),
+    return batch_local(functools.partial(_flash_rows, causal=causal, scale=scale, window=window),
                        q, k, v, rows=3)
 
 
-def _flash_rows(q, k, v, *, causal, scale=None):
+def _flash_rows(q, k, v, *, causal, scale=None, window=0):
     B, S, KV, G, hd = q.shape
     qk = q.permute(0, 2, 3, 1, 4).reshape(B, KV * G, S, hd)
     out = flash_attention_gqa(qk, k.transpose(1, 2), v.transpose(1, 2), causal=causal,
-                              scale=scale)
+                              scale=scale, window=window)
     return out.reshape(B, KV, G, S, hd).permute(0, 3, 1, 2, 4)
 
 
@@ -383,14 +390,20 @@ def apply_attention(
     if cache is not None and window > 0 and S > 1:
         # Windowed prefill: ring slots are not position-addressable for
         # S > window, so attend over the prompt with the window's mask and
-        # keep its last `window` keys in the ring.  Before the kernel's
-        # branch: the kernel has no window.
+        # keep its last `window` keys in the ring.  With the kernel
+        # configured that is its causal case with the window (see the
+        # module docstring).
         with trace.span("attn.cache"):
             new_cache = _fill_ring_cache(cache, k, v)
-        with trace.span("attn.core", window=window, impl=_impl(S, S)):
-            out = chunked_attention(
-                q, k, v, causal=True, window=window, chunk=cfg.attention_chunk
-            ).reshape(B, S, H, -1)
+        if cfg.attention_impl == "pallas":
+            with trace.span("attn.core", window=window, impl="flash"):
+                out = _flash(q, k, v, causal=True, window=window)
+                out = out.reshape(B, S, H, -1).contiguous()
+        else:
+            with trace.span("attn.core", window=window, impl=_impl(S, S)):
+                out = chunked_attention(
+                    q, k, v, causal=True, window=window, chunk=cfg.attention_chunk
+                ).reshape(B, S, H, -1)
     elif cache is not None and prefill and cfg.attention_impl == "pallas":
         # Prompt attention of a prefill: the kernel's causal case over the S
         # new keys (see the module docstring); they land in slots [0, S).

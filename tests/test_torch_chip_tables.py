@@ -111,7 +111,43 @@ def test_kernels_line_sums_the_serve_paths():
     assert sorted(served) == sorted(chip_smoke.SERVE_LAUNCHES)
     total = {k: 2 * sum(chip_smoke.SERVE_LAUNCHES[a].get(k, 0) for a in served)
              for k in ("flash_attention", "ssd_scan")}
-    assert total == {"flash_attention": 448, "ssd_scan": 112}
+    # hymba's 29 windowed layers take K1 since its window: 2 x 29 more than 448
+    assert total == {"flash_attention": 506, "ssd_scan": 112}
+
+
+def test_hymba_serve_launches_flash_in_every_layer():
+    """hymba's three global layers and its windowed ones all run K1 in a
+    prefill; every layer's mixer runs K2."""
+    cfg = get_config("hymba-1.5b")
+    assert cfg.sliding_window > 0 and len(cfg.global_layers) == 3
+    assert chip_smoke.SERVE_LAUNCHES["hymba-1.5b"] == {"flash_attention": cfg.num_layers,
+                                                       "ssd_scan": cfg.num_layers}
+
+
+def test_window_shapes_are_hymbas_cell_and_the_kernels_edges():
+    """``FA_WINDOW`` is hymba-1.5b's windowed prefill as its benchmark cell
+    runs it (``hymba-longdoc-closed``: batch 8, prompts four times the
+    window); the window's other cases stay inside the wrapper's contract,
+    and its edge windows lie at and below the kernel's 128-key tile."""
+    import json
+
+    from repro_torch.kernels.flash_attention.kernel import kernel_route
+
+    cfg = get_config("hymba-1.5b")
+    cell = json.loads((chip_smoke.ROOT / "chipbench" / "traffic" /
+                       "longdoc-closed.json").read_text())
+    B, H, KV, S, hd, window = chip_smoke.FA_WINDOW
+    assert (H, KV, hd, window) == (cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
+                                   cfg.sliding_window)
+    assert (B, S) == (cell["batch"], cell["prompt_len"]) and S == 4 * window
+    kernels = set()
+    for (B, H, KV, S, hd, window), dtype in chip_smoke.FA_WINDOW_CONTRACT.values():
+        assert H % KV == 0 and 0 < window < S
+        kernels.add(kernel_route(hd, dtype)[0])
+    assert kernels == {"fa_fwd_tc<f16>", "fa_fwd_f32", "fa_fwd_wide<bf16>"}
+    assert any(w <= 128 for *_, w in chip_smoke.FA_WINDOW_EDGES)
+    assert all(S % 128 and 0 < w < S for (_, _, _, S, _, w) in chip_smoke.FA_WINDOW_EDGES)
+    assert chip_smoke.WINDOW_FAULTS == ("window ignored", "last kv tile skipped")
 
 
 def test_every_decoder_only_arch_is_trained_card_against_cpu():

@@ -252,7 +252,7 @@ def test_mla_prefill_on_the_kernel_route(monkeypatch):
     qk = m.qk_nope_dim + m.qk_rope_dim
     assert q.shape == k.shape == v.shape == (B, cfg.num_heads, S, qk)
     assert torch.all(v[..., m.v_head_dim:] == 0) and v[..., :m.v_head_dim].abs().sum() > 0
-    assert kw == {"causal": True, "scale": attention.mla_scale(cfg)}
+    assert kw == {"causal": True, "scale": attention.mla_scale(cfg), "window": 0}
     for leaf in ("c", "k_rope", "length"):
         assert torch.equal(caches["pallas"][leaf], caches["reference"][leaf]), leaf
     assert caches["pallas"]["length"].tolist() == [S, S]

@@ -9,7 +9,9 @@ run, 5e-3 (chip_smoke's TOL: a quarter of bfloat16's, for a mantissa of 10
 bits, not 7).  The CUDA kernel itself is held against the plain version on
 the card by ``chip_smoke.py``; here ``meta`` tensors show what the wrapper
 hands its launcher (the head-dim pad, the dtype) and the pure functions
-``kernel_route`` and ``check_contract`` state what the launcher takes.
+``kernel_route`` and ``check_contract`` state what the launcher takes.  The
+sliding window, which the JAX kernel lacks, is held to the JAX package's
+``chunked_attention`` at the same window, the mask it replaces.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ import torch
 
 from repro.kernels.flash_attention.ops import flash_attention_gqa as jax_flash
 from repro.kernels.flash_attention.ref import attention_ref as jax_ref
+from repro.models.attention import chunked_attention as jax_chunked
 from repro_torch.kernels.flash_attention import kernel as fa_kernel
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention.ref import attention_ref
@@ -164,7 +167,7 @@ def _model_views(B, H, KV, S, hd, dtype, device="cpu"):
                                          (torch.float16, 2)])
 @pytest.mark.parametrize("device", ["cpu", "meta"])
 def test_kernel_args_route_by_dtype_and_keep_model_strides(dtype, code, device):
-    """What reaches ``repro_fa_fwd``: the dtype code picks the kernel
+    """What reaches ``repro_fa_fwd_window``: the dtype code picks the kernel
     (bfloat16 wgmma + TMA, float32 scalar) and the model's permuted and
     transposed views arrive with their own strides, uncopied."""
     B, H, KV, S, hd = 2, 8, 2, 48, 32
@@ -235,8 +238,8 @@ def test_non_cpu_tensors_go_to_the_launcher(monkeypatch):
     stands in for a CUDA tensor.)"""
     seen = {}
 
-    def launcher(q, k, v, *, causal, scale):
-        seen.update(q=q, k=k, v=v, causal=causal, scale=scale)
+    def launcher(q, k, v, *, causal, scale, window):
+        seen.update(q=q, k=k, v=v, causal=causal, scale=scale, window=window)
         return torch.empty_like(q)
 
     monkeypatch.setattr(fa_ops, "flash_attention_fwd", launcher)
@@ -245,7 +248,7 @@ def test_non_cpu_tensors_go_to_the_launcher(monkeypatch):
     out = fa_ops.flash_attention_gqa(q, k, v)
     assert trace.counter(fa_ops.LAUNCHES) == 1 and out.shape == q.shape
     assert seen["q"] is q and seen["k"] is k and seen["v"] is v
-    assert seen["causal"] is True and seen["scale"] == 64**-0.5
+    assert seen["causal"] is True and seen["scale"] == 64**-0.5 and seen["window"] == 0
 
 
 @pytest.mark.parametrize("needs_grad", ["q", "k", "v"])
@@ -438,8 +441,8 @@ def test_new_instances_take_the_model_views_uncopied(monkeypatch, hd, dtype):
     too), with the true scale; nothing is padded."""
     seen = {}
 
-    def launcher(q, k, v, *, causal, scale):
-        seen.update(q=q, k=k, v=v, scale=scale)
+    def launcher(q, k, v, *, causal, scale, window):
+        seen.update(q=q, k=k, v=v, scale=scale, window=window)
         return torch.empty_like(q)
 
     monkeypatch.setattr(fa_ops, "flash_attention_fwd", launcher)
@@ -451,6 +454,7 @@ def test_new_instances_take_the_model_views_uncopied(monkeypatch, hd, dtype):
     assert (trace.counter(fa_ops.LAUNCHES), trace.counter(fa_ops.PADS)) == (1, 0)
     assert out.shape == q.shape
     assert seen["q"] is q and seen["k"] is k and seen["v"] is v and seen["scale"] == hd**-0.5
+    assert seen["window"] == 0
     out_args = fa_kernel.kernel_args(q, k, v, torch.empty_like(q))
     assert out_args[0] == fa_kernel._DTYPES[dtype] and out_args[6] == hd
 
@@ -462,8 +466,8 @@ def test_padded_head_dims_reach_the_launcher_padded(monkeypatch, hd, width):
     the output comes back at hd and the pad is counted."""
     seen = {}
 
-    def launcher(q, k, v, *, causal, scale):
-        seen.update(q=q, k=k, v=v, scale=scale)
+    def launcher(q, k, v, *, causal, scale, window):
+        seen.update(q=q, k=k, v=v, scale=scale, window=window)
         return torch.empty_like(q)
 
     monkeypatch.setattr(fa_ops, "flash_attention_fwd", launcher)
@@ -471,7 +475,7 @@ def test_padded_head_dims_reach_the_launcher_padded(monkeypatch, hd, width):
     trace.reset_counts(fa_ops.LAUNCHES, fa_ops.PADS)
     out = fa_ops.flash_attention_gqa(q, k, v)
     assert (trace.counter(fa_ops.LAUNCHES), trace.counter(fa_ops.PADS)) == (1, 1)
-    assert out.shape == q.shape and seen["scale"] == hd**-0.5
+    assert out.shape == q.shape and seen["scale"] == hd**-0.5 and seen["window"] == 0
     for name, t in (("q", q), ("k", k), ("v", v)):
         got = seen[name]
         assert got.shape == (*t.shape[:3], width) and got.is_contiguous()
@@ -486,7 +490,7 @@ def test_head_dims_over_256_raise_before_the_launcher(monkeypatch, hd, dtype):
     element, so TMA's alignment does not matter), with the true scale."""
     seen = []
 
-    def launcher(q, k, v, *, causal, scale):
+    def launcher(q, k, v, *, causal, scale, window):
         seen.append((q, k, v, scale))
         return torch.empty_like(q)
 
@@ -545,3 +549,87 @@ def test_wrapper_on_cpu_matches_jax_kernel_over_256(hd, causal):
     assert out.shape == tuple(ref.shape) and out.dtype == torch.float32
     _close(out, ref, TOL["float32"])
     assert trace.counter(fa_ops.LAUNCHES) == trace.counter(fa_ops.PADS) == 0
+
+
+# (B, H, KV, S, hd, window): the prompt below, at and four times the window,
+# S off the kernel's 128-key tile, groups of 1 and 5, hd 64 and 128, and
+# windows at and below a tile, where the kernel skips whole tiles and a row's
+# first tile holds none of its keys
+WINDOW_CASES = [
+    (1, 4, 4, 40, 64, 64),
+    (1, 5, 1, 64, 64, 64),
+    (2, 4, 4, 256, 64, 64),
+    (1, 10, 2, 300, 128, 100),
+    (1, 4, 4, 200, 128, 128),
+    (1, 5, 1, 260, 128, 17),
+    (1, 4, 2, 300, 64, 1),
+]
+
+
+@pytest.mark.parametrize("shape", WINDOW_CASES, ids=str)
+def test_wrapper_with_a_window_matches_jax_chunked_attention(shape):
+    """The wrapper's window on its CPU route against the JAX package's
+    ``chunked_attention`` (the windowed prefill's path there) at the same
+    window, in float32 at the JAX kernel sweep's tolerance; at a window of
+    at least S the result is the causal one exactly."""
+    B, H, KV, S, hd, window = shape
+    G = H // KV
+    q, k, v = _inputs((B, H, KV, S, S, hd, True), seed=S + window)
+    ref = jax_chunked(jnp.asarray(q.reshape(B, KV, G, S, hd).transpose(0, 3, 1, 2, 4)),
+                      jnp.asarray(k.transpose(0, 2, 1, 3)), jnp.asarray(v.transpose(0, 2, 1, 3)),
+                      causal=True, window=window, chunk=64)
+    ref = np.asarray(ref).transpose(0, 2, 3, 1, 4).reshape(B, H, S, hd)
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    trace.reset_counts(fa_ops.LAUNCHES, fa_ops.WINDOWS)
+    out = fa_ops.flash_attention_gqa(tq, tk, tv, causal=True, window=window)
+    assert out.shape == (B, H, S, hd) and out.dtype == torch.float32
+    _close(out, ref, TOL["float32"])
+    assert trace.counter(fa_ops.LAUNCHES) == trace.counter(fa_ops.WINDOWS) == 0
+    if window >= S:
+        assert torch.equal(out, fa_ops.flash_attention_gqa(tq, tk, tv, causal=True))
+
+
+@pytest.mark.parametrize("device", ["cpu", "meta"])
+@pytest.mark.parametrize("causal, window", [(False, 16), (True, -1)])
+def test_a_window_needs_a_causal_call(monkeypatch, device, causal, window):
+    """A window on a non-causal call, or a negative one, raises before the
+    plain version or the launcher (no caller needs either)."""
+    launched = []
+    monkeypatch.setattr(fa_ops, "flash_attention_fwd",
+                        lambda q, k, v, **kw: launched.append(1) or torch.empty_like(q))
+    q, k, v = _model_views(1, 4, 2, 16, 64, torch.bfloat16, device)
+    with pytest.raises(ValueError, match="window"):
+        fa_ops.flash_attention_gqa(q, k, v, causal=causal, window=window)
+    assert launched == []
+
+
+def test_a_window_reaches_the_launcher_and_is_counted(monkeypatch):
+    """Off the CPU (``meta`` for CUDA) the window reaches the launcher with
+    the model's views, and the launch counts in ``LAUNCHES`` and
+    ``WINDOWS``; a call without one counts in ``LAUNCHES`` alone."""
+    seen = []
+    monkeypatch.setattr(fa_ops, "flash_attention_fwd",
+                        lambda q, k, v, *, causal, scale, window:
+                        seen.append((q, causal, window)) or torch.empty_like(q))
+    q, k, v = _model_views(2, 25, 5, 64, 64, torch.bfloat16, "meta")
+    trace.reset_counts(fa_ops.LAUNCHES, fa_ops.WINDOWS)
+    fa_ops.flash_attention_gqa(q, k, v, causal=True, window=32)
+    assert (trace.counter(fa_ops.LAUNCHES), trace.counter(fa_ops.WINDOWS)) == (1, 1)
+    fa_ops.flash_attention_gqa(q, k, v, causal=True)
+    assert (trace.counter(fa_ops.LAUNCHES), trace.counter(fa_ops.WINDOWS)) == (2, 1)
+    assert [(got is q, causal, window) for got, causal, window in seen] == [
+        (True, True, 32), (True, True, 0)]
+
+
+def test_kernel_source_has_the_band_kernel():
+    """The window is a template flag of each kernel's CTA body, so the
+    instances without one compile as before; the 16-bit windowed kernel
+    has a name of its own, and the C entry point takes the window after
+    the causal flag."""
+    src = fa_kernel.SOURCE.read_text()
+    assert 'extern "C" int repro_fa_fwd_window' in src
+    assert "float scale, int causal, int window,\n" in src
+    assert "fa_fwd_cta<HD, E, false>(qmap" in src and "fa_fwd_cta<HD, E, true>(qmap" in src
+    assert "window > 0 ? fa_fwd_band<HD, E> : fa_fwd_tc<HD, E>" in src
+    assert "window > 0 ? fa_fwd_f32<HD, true> : fa_fwd_f32<HD, false>" in src
+    assert "window > 0 ? fa_fwd_wide<E, true> : fa_fwd_wide<E, false>" in src

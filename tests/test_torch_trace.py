@@ -5,8 +5,11 @@ recorded or kept while tracing is off; a span's stamps map onto the Unix
 clock of ``torch.profiler``; a ``torch.profiler`` session turns recording
 on for every thread; the cap drops and counts; the model's spans sit where
 the layer map says (a tiny hymba prefill has ``attn.core`` spans of both
-windows and ``ssm.scan`` spans); and ``ModelServer``'s ``serve.queue``,
-``serve.batch`` and ``serve.reply`` spans carry the requests' keys.
+windows, all on the flash path, and ``ssm.scan`` spans); the kernel's
+``flash_attention.window`` counter counts one launch a windowed layer a
+prefill (``meta`` tensors stand in for CUDA ones, the launchers for the
+kernels); and ``ModelServer``'s ``serve.queue``, ``serve.batch`` and
+``serve.reply`` spans carry the requests' keys.
 """
 
 from __future__ import annotations
@@ -22,6 +25,8 @@ import torch
 
 from repro_torch.api import ClusterSpec, ServeSpec, Session
 from repro_torch.configs import get_smoke_config
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.models import transformer as tx
 from repro_torch.runtime import trace
 from repro_torch.runtime.serving import ModelServer
@@ -181,6 +186,7 @@ def test_a_tiny_hymba_prefill_has_both_windows_and_the_scans():
     B, S, G = 2, 28, 3  # the prompt is longer than the window (16)
     tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=torch.Generator().manual_seed(1))
     t0 = time.perf_counter_ns()
+    trace.reset_counts(fa_ops.LAUNCHES, fa_ops.WINDOWS)
     with trace.enabled(), torch.inference_mode():
         cache = tx.init_cache(cfg, B, S + G + 1, device="cpu")
         logits, cache = tx.prefill(cfg, params, tokens, cache, tx.RunCtx(decode=True))
@@ -197,7 +203,10 @@ def test_a_tiny_hymba_prefill_has_both_windows_and_the_scans():
     core = [s for s in inner if s.name == "attn.core"]
     assert sorted({s.attrs["window"] for s in core}) == [0, cfg.sliding_window]
     assert {s.attrs["impl"] for s in core if s.attrs["window"] == 0} == {"flash"}
-    assert {s.attrs["impl"] for s in core if s.attrs["window"] > 0} == {"chunked"}
+    # the windowed layers' prompt attention takes the kernel's window too
+    assert {s.attrs["impl"] for s in core if s.attrs["window"] > 0} == {"flash"}
+    # the CPU runs the plain version, which launches nothing
+    assert trace.counter(fa_ops.LAUNCHES) == trace.counter(fa_ops.WINDOWS) == 0
     assert len(core) == cfg.num_layers
     by = _by_name(inner)
     assert len(by["ssm.scan"]) == len(by["layer"]) == cfg.num_layers
@@ -214,6 +223,47 @@ def test_a_tiny_hymba_prefill_has_both_windows_and_the_scans():
     step_core = [s for s in spans if s.name == "attn.core" and _inside(s, step, by_id)]
     assert {s.attrs["impl"] for s in step_core} == {"decode"}
     assert all(s.device_ms() is None for s in spans)  # the CPU records no events
+
+
+def _on_meta(tree):
+    return tree.to("meta") if isinstance(tree, torch.Tensor) else {
+        k: _on_meta(v) for k, v in tree.items()}
+
+
+@pytest.mark.parametrize("arch, windowed", [("hymba-1.5b", 2), ("phi4-mini-3.8b", 0)])
+def test_the_window_counter_counts_each_windowed_layer_of_a_prefill(monkeypatch, arch, windowed):
+    """Off the CPU (``meta`` here, the launchers stood in), a prefill with
+    ``attention_impl="pallas"`` launches K1 once a layer, and each windowed
+    layer's launch (hymba's smoke config: 2 of 4 layers) adds 1 to
+    ``flash_attention.window``, once for each windowed ``attn.core`` span;
+    phi4 has no window and counts none."""
+    launched = []
+
+    def flash(q, k, v, *, causal, scale, window):
+        launched.append((causal, window))
+        return torch.empty_like(q)
+
+    monkeypatch.setattr(fa_ops, "flash_attention_fwd", flash)
+    monkeypatch.setattr(ssd_ops, "ssd_scan_fwd",
+                        lambda x, a, b, c, s0, *, chunk: (torch.empty_like(x),
+                                                          torch.empty_like(s0)))
+    cfg = get_smoke_config(arch, attention_impl="pallas")
+    params = _on_meta(tx.init_params(cfg, torch.Generator().manual_seed(0)))
+    B, S = 2, 28  # longer than hymba's window of 16
+    t0 = time.perf_counter_ns()
+    for n in (1, 2):
+        trace.reset_counts(fa_ops.LAUNCHES, fa_ops.WINDOWS)
+        with trace.enabled(), torch.inference_mode():
+            cache = tx.init_cache(cfg, B, S + 1, device="meta")
+            tx.prefill(cfg, params, torch.zeros((B, S), dtype=torch.long, device="meta"), cache)
+        assert trace.counter(fa_ops.LAUNCHES) == cfg.num_layers
+        assert trace.counter(fa_ops.WINDOWS) == windowed
+    assert len(launched) == 2 * cfg.num_layers
+    assert sorted(w for _, w in launched if w) == [cfg.sliding_window] * 2 * windowed
+    assert all(causal for causal, _ in launched)
+    core = [s for s in trace.spans() if s.t0 >= t0 and s.name == "attn.core"]
+    assert {s.attrs["impl"] for s in core} == {"flash"}
+    assert sum(s.attrs["window"] > 0 for s in core) == 2 * windowed
 
 
 def test_served_requests_carry_their_keys_on_the_server_spans():
